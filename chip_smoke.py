@@ -1,0 +1,504 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch + CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Runs from the root of a checkout, imports nothing of JAX, and exits
+non-zero at the first failure:
+
+  0. device: needs CUDA; prints the card's name and power limit;
+  1. build: compiles every kernel of go_with_the_flows_tpu_torch/csrc;
+  2. kernels: each kernel against its plain PyTorch version at the main
+     path's shapes (jiggled BatchNorm statistics), with times;
+  3. slice: the flagship airplane model (random weights from seed 0) on
+     the card, `evaluate` in generating and autoencoding modes over two
+     seeded batches of 64 reference clouds of 2048 points, with all three
+     kernel launch counters read around it; a small-input check against
+     the CPU path; sample+CD clouds/s at B=64 and B=1024 for the kernel
+     path and the plain path.
+
+Its last two lines are a JSON object with one entry per kernel and the
+JSON status line {"ok": true, "device": {...}}.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+N_POINTS = 2048
+BATCH = 64
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke FAILED: {msg}", flush=True)
+    sys.exit(1)
+
+
+def say(msg: str) -> None:
+    print(msg, flush=True)
+
+
+# --------------------------------------------------------------------- #
+# helpers                                                               #
+# --------------------------------------------------------------------- #
+
+def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
+    """Mean milliseconds per call of fn() on the current stream."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def jiggle_batch_norms(model, seed: int) -> None:
+    """Move every BatchNorm's running statistics away from 0 / 1, so the
+    kernels' constant folding is exercised."""
+    import torch
+
+    from go_with_the_flows_tpu_torch.ops.layers import BatchNorm
+
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, BatchNorm):
+                shape = m.running_mean.shape
+                m.running_mean.copy_(0.3 * torch.randn(shape, generator=gen))
+                m.running_var.copy_(0.5 + torch.rand(shape, generator=gen))
+
+
+def make_model(config, seed: int, device):
+    from go_with_the_flows_tpu_torch.models.mixture import FlowMixtureModel
+    import torch
+
+    model = FlowMixtureModel(**config,
+                             generator=torch.Generator().manual_seed(seed))
+    jiggle_batch_norms(model, seed + 1000)
+    return model.to(device).eval()
+
+
+def reference_clouds(rng, n: int):
+    """Seeded clouds on random ellipsoid surfaces, (n, 3, N_POINTS)."""
+    import numpy as np
+
+    dirs = rng.standard_normal((n, 3, N_POINTS))
+    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+    axes = rng.uniform(0.1, 0.5, (n, 3, 1))
+    return (dirs * axes).astype(np.float32)
+
+
+def ptxas_summary(log_path: str):
+    """(kernel, registers, spill bytes) per compiled entry function."""
+    rows, name, spill = [], None, 0
+    with open(log_path) as f:
+        for line in f:
+            if "Compiling entry function" in line:
+                name = line.split("'")[1]
+            elif "spill stores" in line:
+                spill = int(line.split("bytes spill stores")[0].split(",")[-1])
+            elif "Used" in line and "registers" in line and name:
+                regs = int(line.split("Used")[1].split("registers")[0])
+                rows.append((name, regs, spill))
+                name = None
+    return rows
+
+
+# --------------------------------------------------------------------- #
+# phases                                                                #
+# --------------------------------------------------------------------- #
+
+def phase_device():
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this test needs a GPU")
+    kind = torch.cuda.get_device_name(0)
+    say(f"[0] device: {kind}, count={torch.cuda.device_count()}, "
+        f"torch {torch.__version__}, CUDA {torch.version.cuda}")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True)
+    if smi.returncode != 0:
+        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
+    card = smi.stdout.strip().splitlines()[0]
+    say(card)
+    return kind, card
+
+
+def phase_build():
+    from go_with_the_flows_tpu_torch.ops.kernels import build
+
+    seconds = build.build(force=True)
+    build.library()
+    say(f"[1] build: {len(build.sources())} sources -> "
+        f"{os.path.relpath(build.LIB_PATH, ROOT)} in {seconds:.1f} s")
+    for name, regs, spill in ptxas_summary(build.PTXAS_LOG):
+        at = name.find("_kernel")
+        short = name[max(0, at - 12):at + 24] if at >= 0 else name[:36]
+        say(f"    ptxas {short}: {regs} registers, {spill} B spilled")
+
+
+def check_close(what, got, want, atol, rtol=0.0):
+    import torch
+
+    err = (got - want).abs().max().item()
+    bound = (atol + rtol * want.abs()).min().item() if rtol else atol
+    ok = torch.allclose(got, want, rtol=rtol, atol=atol)
+    say(f"    {what}: max |diff| {err:.3g} (atol {atol:g}, rtol {rtol:g})")
+    if not ok:
+        fail(f"{what} disagrees with the plain version (bound {bound:g})")
+    return err
+
+
+def check_point_decode(config, B, N, seed, timed):
+    import torch
+
+    from go_with_the_flows_tpu_torch.ops.kernels.point_decode import (
+        film_alpha_beta, point_decode, point_decode_plain)
+
+    model = make_model(config, seed, "cuda")
+    packed = model.pack_decoder()
+    K = model.n_components
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    g = torch.randn(B, model.g_latent_space_size, device="cuda",
+                    generator=gen)
+    ab = film_alpha_beta(packed, g).contiguous()
+    p = 0.3 * torch.randn(K, B, 3, N, device="cuda", generator=gen)
+    errs, times = [], {}
+    for inverse in (False, True):
+        name = "inverse" if inverse else "direct"
+        out, lv = point_decode(packed, ab, p, inverse)
+        want_out, want_lv = point_decode_plain(packed, ab, p, inverse)
+        torch.cuda.synchronize()
+        tag = (f"point_decode {name} K={K} B={B} N={N} "
+               f"C={packed['w1'].shape[1]} f={packed['w1'].shape[-1]}")
+        errs.append(check_close(f"{tag} points", out, want_out, 1e-4))
+        errs.append(check_close(f"{tag} logvar", lv, want_lv, 1e-4))
+        if timed:
+            ms = cuda_ms(lambda: point_decode(packed, ab, p, inverse), 10)
+            plain = cuda_ms(
+                lambda: point_decode_plain(packed, ab, p, inverse), 3)
+            times[name] = (ms, plain)
+            say(f"    {tag}: kernel {ms:.3f} ms, plain {plain:.3f} ms")
+    return max(errs), times
+
+
+def check_nn_distance(B, N, M, seed, timed):
+    import torch
+
+    from go_with_the_flows_tpu_torch.ops.kernels.chamfer import (
+        nn_distance, nn_distance_plain)
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    a = 0.3 * torch.randn(B, N, 3, device="cuda", generator=gen)
+    b = 0.3 * torch.randn(B, M, 3, device="cuda", generator=gen)
+    da, ia, db, ib = nn_distance(a, b)
+    pa, pia, pdb, pib = nn_distance_plain(a, b)
+    tag = f"nn_distance B={B} N={N} M={M}"
+    err = max(check_close(f"{tag} dist_a", da, pa, 1e-6),
+              check_close(f"{tag} dist_b", db, pdb, 1e-6))
+    # an index may differ from the plain argmin only at a tie within 1e-6
+    for name, q, r, idx, want_idx, dist in (("idx_a", a, b, ia, pia, pa),
+                                            ("idx_b", b, a, ib, pib, pdb)):
+        chosen = ((q - torch.gather(r, 1, idx[..., None].expand(-1, -1, 3)))
+                  ** 2).sum(-1)
+        n_diff = int((idx != want_idx).sum())
+        tie_err = (chosen - dist).abs().max().item()
+        say(f"    {tag} {name}: {n_diff} indices differ, their distances "
+            f"within {tie_err:.3g}")
+        if tie_err > 1e-6:
+            fail(f"{tag} {name}: a differing index is not a tie")
+    da2, db2 = nn_distance(a, b, with_idx=False)
+    err = max(err, check_close(f"{tag} no-idx dist_a", da2, pa, 1e-6),
+              check_close(f"{tag} no-idx dist_b", db2, pdb, 1e-6))
+    times = None
+    if timed:
+        ms = cuda_ms(lambda: nn_distance(a, b, with_idx=False), 10)
+        ms_idx = cuda_ms(lambda: nn_distance(a, b), 10)
+        plain = cuda_ms(lambda: nn_distance_plain(a, b, with_idx=False), 3)
+        times = (ms, plain)
+        say(f"    {tag}: kernel {ms:.3f} ms (with idx {ms_idx:.3f} ms), "
+            f"plain {plain:.3f} ms")
+    return err, times
+
+
+def check_pairwise(S, R, N, M, seed, timed, thr=1e-3):
+    import torch
+
+    from go_with_the_flows_tpu_torch.ops.kernels.pairwise import (
+        pairwise_cd_stats, pairwise_cd_stats_plain)
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    a = 0.3 * torch.randn(S, N, 3, device="cuda", generator=gen)
+    b = 0.3 * torch.randn(R, M, 3, device="cuda", generator=gen)
+    got = pairwise_cd_stats(a, b, thr)
+    want = pairwise_cd_stats_plain(a, b, thr)
+    tag = f"pairwise_cd_stats S={S} R={R} N={N} M={M}"
+    err = max(check_close(f"{tag} cdl", got[0], want[0], 0.0, 1e-5),
+              check_close(f"{tag} cdr", got[1], want[1], 0.0, 1e-5))
+    # one point's share of a percentage
+    check_close(f"{tag} precision", got[2], want[2], 100.0 / M)
+    check_close(f"{tag} recall", got[3], want[3], 100.0 / N)
+    say(f"    {tag}: mean precision {got[2].mean().item():.2f} %, "
+        f"recall {got[3].mean().item():.2f} %")
+    times = None
+    if timed:
+        ms = cuda_ms(lambda: pairwise_cd_stats(a, b, thr), 5)
+        plain = cuda_ms(lambda: pairwise_cd_stats_plain(a, b, thr), 1)
+        times = (ms, plain)
+        say(f"    {tag}: kernel {ms:.3f} ms, plain {plain:.3f} ms")
+    return err, times
+
+
+def phase_kernels():
+    from go_with_the_flows_tpu_torch.utils.config import FLAGSHIP_AIRPLANE
+
+    say("[2] kernels against their plain versions")
+    small = dict(FLAGSHIP_AIRPLANE, n_components=2, g_latent_space_size=12,
+                 g_prior_n_flows=2, p_decoder_n_flows=3,
+                 p_decoder_n_features=8)
+    # ragged shapes and the narrow (f=8) instantiation go through the same
+    # kernels as the flagship's
+    check_point_decode(small, 3, 50, 7, timed=False)
+    check_nn_distance(3, 50, 77, 8, timed=False)
+    check_pairwise(3, 5, 50, 77, 9, timed=False, thr=0.01)
+    pd_err, pd_times = check_point_decode(FLAGSHIP_AIRPLANE, BATCH, N_POINTS,
+                                          0, timed=True)
+    nn_err, nn_times = check_nn_distance(BATCH, N_POINTS, N_POINTS, 1,
+                                         timed=True)
+    pw_err, pw_times = check_pairwise(64, 64, N_POINTS, N_POINTS, 2,
+                                      timed=True)
+    # the (S, R) grid that phase 3's evaluate gives it: 2 x BATCH clouds
+    # on each side
+    pw_main_err, _ = check_pairwise(2 * BATCH, 2 * BATCH, N_POINTS, N_POINTS,
+                                    3, timed=False)
+    return {
+        "point_decode": (pd_err, pd_times["direct"]),
+        "nn_distance": (nn_err, nn_times),
+        "pairwise_cd_stats": (max(pw_err, pw_main_err), pw_times),
+    }
+
+
+def plain_sample_cd(model, packed, g_in, ref, gen):
+    """The sampling step and paired CD composed from the plain versions
+    (the same draws as train/step.make_sample_step)."""
+    import torch
+
+    from go_with_the_flows_tpu_torch.ops.kernels.chamfer import (
+        nn_distance_plain)
+    from go_with_the_flows_tpu_torch.ops.kernels.point_decode import (
+        film_alpha_beta, point_decode_plain)
+
+    with torch.inference_mode():
+        B, K, G = g_in.shape[0], model.n_components, model.g_latent_space_size
+        g0_eps = torch.randn(B, G, generator=gen, device=g_in.device)
+        g = model.encode(g_in, "generating", g0_eps)["g_sample"]
+        logits = model.get_weights(g)
+        ids = torch.multinomial(logits.softmax(-1), N_POINTS,
+                                replacement=True, generator=gen)
+        base_eps = torch.randn(K, B, 3, N_POINTS, generator=gen,
+                               device=g_in.device)
+        mus, logvars = model.point_base(g)
+        base = mus[None] + torch.exp(0.5 * logvars)[None] * base_eps
+        decoded, _ = point_decode_plain(packed, film_alpha_beta(packed, g),
+                                        base)
+        pick = ids[None, :, None, :].expand(1, B, 3, N_POINTS)
+        samples = torch.gather(decoded, 0, pick)[0]
+        dl, dr = nn_distance_plain(samples.transpose(1, 2).contiguous(), ref,
+                                   with_idx=False)
+        return dl.mean(1) + dr.mean(1)
+
+
+def kernel_sample_cd(step, g_in, ref, gen):
+    import torch
+
+    from go_with_the_flows_tpu_torch.ops.kernels.chamfer import chamfer
+
+    with torch.inference_mode():
+        samples, _, _ = step(g_in, gen)
+        dl, dr = chamfer(samples.transpose(1, 2).contiguous(), ref)
+        return dl.mean(1) + dr.mean(1)
+
+
+def check_small_against_cpu(model, seed):
+    """The card's path against the CPU path (plain versions) on a small
+    input with the same weights and the same noise."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from go_with_the_flows_tpu_torch.metrics.evaluation import (
+        compute_all_metrics)
+
+    cpu = copy.deepcopy(model).cpu()
+    gen = torch.Generator().manual_seed(seed)
+    B, K, G = 2, model.n_components, model.g_latent_space_size
+    g_in = torch.from_numpy(reference_clouds(np.random.default_rng(seed), B))
+    g0_eps = torch.randn(B, G, generator=gen)
+    base_eps = torch.randn(K, B, 3, N_POINTS, generator=gen)
+    outs = []
+    with torch.inference_mode():
+        for m, dev in ((model, "cuda"), (cpu, "cpu")):
+            for mode in ("generating", "autoencoding"):
+                g = m.encode(g_in.to(dev), mode, g0_eps.to(dev))["g_sample"]
+                logits = m.get_weights(g)
+                ids = logits.argmax(-1)[:, None].expand(B, N_POINTS)
+                samples, _ = m.decode_sampling(g, ids, base_eps.to(dev),
+                                               m.pack_decoder())
+                outs.append((logits.cpu(), samples.cpu()))
+    for (lg, sg), (lc, sc) in zip(outs[:2], outs[2:]):
+        check_close("slice logits, card vs CPU", lg, lc, 1e-6, 1e-5)
+        check_close("slice samples, card vs CPU", sg, sc, 1e-4)
+    rng = np.random.default_rng(seed + 1)
+    gen_pcs = reference_clouds(rng, 8).transpose(0, 2, 1)
+    ref_pcs = reference_clouds(rng, 8).transpose(0, 2, 1)
+    on_card = compute_all_metrics(gen_pcs, ref_pcs, 60, cd_option=True,
+                                  f1_option=True, device="cuda")
+    on_cpu = compute_all_metrics(gen_pcs, ref_pcs, 60, cd_option=True,
+                                 f1_option=True, device="cpu")
+    for key in ("lgan_mmd-CD", "lgan_cov-CD", "1-NN-CD-acc",
+                "lgan_mmd-F1", "lgan_cov-F1", "1-NN-F1-acc"):
+        a, b = float(on_card[key]), float(on_cpu[key])
+        if abs(a - b) > 1e-5 * abs(b) + 1e-7:
+            fail(f"metric {key}: card {a!r} vs CPU {b!r}")
+    say("    metrics on 8 vs 8 clouds: card equals CPU (rtol 1e-5)")
+
+
+def phase_slice(card):
+    import math
+
+    import numpy as np
+    import torch
+
+    from go_with_the_flows_tpu_torch.eval.evaluating import evaluate
+    from go_with_the_flows_tpu_torch.ops.kernels.chamfer import nn_distance
+    from go_with_the_flows_tpu_torch.ops.kernels.pairwise import (
+        pairwise_cd_stats)
+    from go_with_the_flows_tpu_torch.ops.kernels.point_decode import (
+        point_decode)
+    from go_with_the_flows_tpu_torch.train.step import make_sample_step
+    from go_with_the_flows_tpu_torch.utils.config import FLAGSHIP_AIRPLANE
+
+    say("[3] slice: flagship airplane model on the card")
+    model = make_model(FLAGSHIP_AIRPLANE, 0, "cuda")
+    K = model.n_components
+    rng = np.random.default_rng(0)
+    batches = []
+    for _ in range(2):
+        clouds = reference_clouds(rng, BATCH)
+        batches.append({"cloud": clouds, "eval_cloud": clouds})
+    wrappers = (point_decode, nn_distance, pairwise_cd_stats)
+
+    for w in wrappers:
+        w.launches = 0
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    t0 = time.perf_counter()
+    gen_step = make_sample_step(model, N_POINTS, "generating")
+    samples, labels, _ = gen_step(
+        torch.from_numpy(batches[0]["cloud"]).cuda(), gen)
+    res_g = evaluate(batches, gen_step, gen, "cuda", util_mode="generating",
+                     cd=True, f1=True)
+    ae_step = make_sample_step(model, N_POINTS, "autoencoding")
+    res_a = evaluate(batches, ae_step, gen, "cuda",
+                     util_mode="autoencoding", cd=True, f1=True)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {w.__name__: w.launches for w in wrappers}
+    say(f"    evaluate (generating + autoencoding, 2 x {BATCH} clouds): "
+        f"{seconds:.2f} s; launches {launches}")
+
+    if tuple(samples.shape) != (BATCH, 3, N_POINTS):
+        fail(f"samples shape {tuple(samples.shape)}")
+    if int(labels.min()) < 1 or int(labels.max()) > K:
+        fail(f"labels outside 1..{K}: {int(labels.min())}..{int(labels.max())}")
+    report = {
+        "MMD-CD": res_g["cd_mmds"], "COV-CD": res_g["cd_covs"],
+        "1-NNA-CD": res_g["cd_1nns"], "CD": res_a["cd"],
+        "F1": res_a["f1_0.0010"],
+    }
+    say("    " + ", ".join(f"{k} {v:.4f}" for k, v in report.items()))
+    for k, v in report.items():
+        if not math.isfinite(v):
+            fail(f"{k} is not finite: {v}")
+    for name, n in launches.items():
+        if n < 1:
+            fail(f"{name} was not launched on the main path")
+
+    check_small_against_cpu(model, 5)
+
+    rates = {}
+    for B, reps in ((BATCH, 10), (1024, 3)):
+        g_in = torch.from_numpy(reference_clouds(rng, B)).cuda()
+        ref = torch.from_numpy(
+            reference_clouds(rng, B).transpose(0, 2, 1).copy()).cuda()
+        packed = model.pack_decoder()
+        kernel = cuda_ms(lambda: kernel_sample_cd(gen_step, g_in, ref, gen),
+                         reps)
+        plain = cuda_ms(
+            lambda: plain_sample_cd(model, packed, g_in, ref, gen), reps)
+        rates[B] = (1000.0 * B / kernel, 1000.0 * B / plain)
+        say(f"    sample+CD B={B}: kernel path {rates[B][0]:.1f} clouds/s "
+            f"({kernel:.2f} ms), plain path {rates[B][1]:.1f} clouds/s "
+            f"({plain:.2f} ms) [{card}]")
+    return launches
+
+
+def main() -> None:
+    try:
+        import torch
+    except ImportError:
+        fail("torch is not installed")
+    kind, card = phase_device()
+    sys.path.insert(0, ROOT)
+    try:
+        from go_with_the_flows_tpu_torch.ops import precision
+    except ImportError as e:
+        fail(f"the port package is not next to chip_smoke.py ({e})")
+    precision.get_matmul_precision()
+
+    phase_build()
+    measured = phase_kernels()
+    launches = phase_slice(card)
+    if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
+        fail("jax was imported")
+
+    sources = {
+        "point_decode": (
+            "go_with_the_flows_tpu_torch/csrc/point_decode.cu",
+            "go_with_the_flows_tpu/ops/pallas/coupling_kernel.py:453"),
+        "nn_distance": (
+            "go_with_the_flows_tpu_torch/csrc/nn_distance.cu",
+            "go_with_the_flows_tpu/ops/pallas/chamfer_kernel.py:150"),
+        "pairwise_cd_stats": (
+            "go_with_the_flows_tpu_torch/csrc/pairwise_cd.cu",
+            "go_with_the_flows_tpu/ops/pallas/pairwise_kernel.py:151"),
+    }
+    kernels = []
+    for name, (err, (ms, plain_ms)) in measured.items():
+        source, replaces = sources[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        })
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

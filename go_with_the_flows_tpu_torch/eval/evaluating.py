@@ -1,0 +1,143 @@
+"""Evaluation pass, generating and autoencoding modes, one process
+(counterpart of go_with_the_flows_tpu/eval/evaluating.py).
+
+`loader` is any iterable of batch dicts with numpy arrays: `cloud`
+(B, 3, N) for the encoder, `eval_cloud` (B, 3, N) for the metrics, and
+`orig_s` / `orig_c` when `orig_scale_evaluation` rescales. No h5 loader
+is needed.
+
+Not ported yet: the h5 dump (`saving`), reconstruction (SVR), EMD and
+the voxel JSD.
+"""
+
+from __future__ import annotations
+
+from time import perf_counter
+from typing import Callable, Dict
+
+import numpy as np
+import torch
+
+from ..metrics.evaluation import EMD_CD_F1, compute_all_metrics
+from ..utils.meters import AverageMeter
+
+
+def _denormalize(r_clouds, p_clouds, batch, **kwargs):
+    """Rescale model-frame clouds back to the evaluation frame. Clouds
+    are (B, 3, N) numpy."""
+    if kwargs.get("unit_scale_evaluation"):
+        if kwargs.get("cloud_scale"):
+            scale = kwargs["cloud_scale_scale"]
+            r_clouds = r_clouds * scale
+            p_clouds = p_clouds * scale
+    if kwargs.get("orig_scale_evaluation"):
+        if kwargs.get("cloud_scale"):
+            scale = kwargs["cloud_scale_scale"]
+            r_clouds = r_clouds * scale
+            p_clouds = p_clouds * scale
+        if kwargs.get("cloud_translate"):
+            shift = np.asarray(
+                kwargs["cloud_translate_shift"], np.float32
+            ).reshape(1, -1, 1)
+            r_clouds = r_clouds + shift
+            p_clouds = p_clouds + shift
+        if not kwargs.get("cloud_rescale2orig"):
+            s = np.asarray(batch["orig_s"]).reshape(-1, 1, 1)
+            r_clouds = r_clouds * s
+            p_clouds = p_clouds * s
+        if not kwargs.get("cloud_recenter2orig"):
+            c = np.asarray(batch["orig_c"]).reshape(-1, 3, 1)
+            r_clouds = r_clouds + c
+            p_clouds = p_clouds + c
+    return r_clouds, p_clouds
+
+
+def evaluate(loader, sample_step: Callable, generator: torch.Generator,
+             device, **kwargs) -> Dict[str, float]:
+    """One evaluation pass; returns the metric dict and prints the
+    reference's protocol lines.
+
+    `sample_step` comes from train/step.make_sample_step; `generator`
+    (on `device`) drives every random draw, so a seed fixes the result.
+    kwargs are the flat config keys the JAX `evaluate` reads (util_mode, cd,
+    f1, f1_threshold_lst, the de-normalisation keys, ref_cache).
+    """
+    util_mode = kwargs.get("util_mode")
+    if util_mode not in ("generating", "autoencoding"):
+        raise NotImplementedError(
+            f"util_mode {util_mode!r} is not ported yet")
+    for key in ("saving", "emd", "jsd"):
+        if kwargs.get(key):
+            raise NotImplementedError(f"{key!r} is not ported yet")
+    device = torch.device(device)
+
+    inf_time = AverageMeter()
+    gen_buf, ref_buf = [], []
+    thresholds = kwargs.get("f1_threshold_lst", [1e-3])
+    for batch in loader:
+        g_clouds = torch.as_tensor(
+            np.asarray(batch["cloud"], np.float32)).to(device)
+        start = perf_counter()
+        samples, _, _ = sample_step(g_clouds, generator)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        bsz = samples.shape[0]
+        inf_time.update((perf_counter() - start) / bsz, bsz)
+        r_clouds, p_clouds = _denormalize(
+            samples.cpu().numpy(), np.asarray(batch["eval_cloud"]), batch,
+            **kwargs)
+        gen_buf.append(r_clouds)
+        ref_buf.append(p_clouds)
+    print(f"Inference time: {inf_time.avg} sec/sample")
+
+    gen = np.transpose(np.concatenate(gen_buf), (0, 2, 1))
+    ref = np.transpose(np.concatenate(ref_buf), (0, 2, 1))
+    res: Dict[str, float] = {}
+    if util_mode == "autoencoding":
+        for thr in thresholds:
+            metrics = EMD_CD_F1(
+                gen, ref, batch_size=60, reduced=True,
+                cd_option=kwargs.get("cd", False),
+                f1_option=kwargs.get("f1", False), f1_threshold=thr,
+                device=device,
+            )
+            if kwargs.get("cd"):
+                res["cd"] = float(metrics["CD"]) * 1e4
+                print("CD:\t{:.2f}".format(res["cd"]))
+            if kwargs.get("f1"):
+                res[f"f1_{thr:.4f}"] = float(metrics["F1"])
+                print("F1-%.4f: %.2f" % (thr, res[f"f1_{thr:.4f}"]))
+        return res
+
+    # generating: a cloud with NaNs is replaced by a valid one, drawn with
+    # a seed taken from the evaluation generator
+    nan_inds = sorted(set(np.isnan(gen).sum(axis=(1, 2)).nonzero()[0]))
+    if nan_inds:
+        ok = sorted(set(range(gen.shape[0])) - set(nan_inds))
+        seed = int(torch.randint(2 ** 31 - 1, (1,), generator=generator,
+                                 device=device).item())
+        dup = np.random.default_rng(seed).choice(ok, size=len(nan_inds))
+        gen[nan_inds] = gen[dup]
+
+    for thr in thresholds:
+        metrics = compute_all_metrics(
+            gen, ref, batch_size=60, f1_threshold=thr,
+            cd_option=kwargs.get("cd", False),
+            f1_option=kwargs.get("f1", False),
+            ref_cache=kwargs.get("ref_cache"), device=device,
+        )
+        if kwargs.get("cd"):
+            res["cd_mmds"] = float(metrics["lgan_mmd-CD"]) * 1e4
+            res["cd_covs"] = float(metrics["lgan_cov-CD"]) * 1e2
+            res["cd_1nns"] = float(metrics["1-NN-CD-acc"]) * 1e2
+            print("MMD-CD:\t{:.2f}".format(res["cd_mmds"]))
+            print("COV-CD:\t{:.2f}".format(res["cd_covs"]))
+            print("1NN-CD:\t{:.2f}".format(res["cd_1nns"]))
+        if kwargs.get("f1"):
+            res[f"f1_{thr:.4f}_mmds"] = float(metrics["lgan_mmd-F1"])
+            res[f"f1_{thr:.4f}_covs"] = float(metrics["lgan_cov-F1"]) * 1e2
+            res[f"f1_{thr:.4f}_1nns"] = float(metrics["1-NN-F1-acc"]) * 1e2
+            print("MMD-F1-%.4f: %.2f" % (thr, res[f"f1_{thr:.4f}_mmds"]))
+            print("COV-F1-%.4f: %.2f" % (thr, res[f"f1_{thr:.4f}_covs"]))
+            print("1NN-F1-%.4f: %.2f" % (thr, res[f"f1_{thr:.4f}_1nns"]))
+    return res

@@ -1,0 +1,243 @@
+"""Mixture-of-flows point-cloud VAE, eval paths (counterpart of
+go_with_the_flows_tpu/models/mixture.py).
+
+The K point decoders are one PointDecoderFlow with K-stacked weights
+(`stack=(K,)`), not a loop over K modules. Sampling draws per-point
+component ids, decodes every point through all K components with the
+`point_decode` kernel, and keeps each point's own component, as the JAX
+package does.
+
+The model's methods are deterministic: the noise (g0's epsilon, the base
+epsilon (K, B, 3, N), the component ids) is an argument, drawn by the
+caller (`train/step.py`) from an explicit torch.Generator. The same noise
+therefore gives the same clouds as the JAX package.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Sequence, Tuple
+
+import torch
+from torch import nn
+
+from ..ops.kernels.point_decode import (
+    film_alpha_beta,
+    pack_point_decoder,
+    point_decode,
+)
+from ..ops.layers import reset_parameters
+from .encoders import FeatureEncoder, PointNetCloudEncoder, WeightsEncoder
+from .flows import LatentPriorFlow, PointDecoderFlow, point_decoder_param_count
+
+
+def reduce_decoder_params(
+    n_components: int,
+    params_reduce_mode: str,
+    p_decoder_n_flows: int,
+    p_decoder_n_features: int,
+    g_latent_space_size: int,
+) -> Tuple[int, int]:
+    """Per-component decoder (depth, width) so that K small decoders fit
+    the parameter budget of one full-size decoder (the reference's
+    `_get_decoder_params` arithmetic)."""
+    n = n_components
+    count = point_decoder_param_count
+    big = count(p_decoder_n_flows, p_decoder_n_features, g_latent_space_size)
+
+    def shrink_features(depth):
+        f = p_decoder_n_features
+        total = big * n
+        while total > big and f > 4:
+            f -= 1
+            total = count(depth, f, g_latent_space_size) * n
+        return f, (total > big, big, total)
+
+    if n == 1 or params_reduce_mode == "none":
+        return p_decoder_n_flows, p_decoder_n_features
+    if params_reduce_mode == "depth_and_feature":
+        depth = math.ceil(p_decoder_n_flows / math.sqrt(n))
+        feats, _ = shrink_features(depth)
+    elif params_reduce_mode == "depth_first":
+        depth = math.ceil(p_decoder_n_flows / n)
+        feats, _ = shrink_features(depth)
+    elif params_reduce_mode == "feature_first":
+        depth = p_decoder_n_flows
+        feats, (over, big_, total) = shrink_features(depth)
+        if over:
+            while total > big_:
+                depth -= 1
+                total = count(depth, feats, g_latent_space_size) * n
+    else:
+        raise ValueError(f"Unknown params_reduce_mode: {params_reduce_mode}")
+    return depth, feats
+
+
+class FlowMixtureModel(nn.Module):
+    """Mixture of K conditional RealNVP point decoders under a flow-prior
+    VAE. Constructor arguments are the reference YAML's model keys.
+
+    Parameters are drawn from `generator` (a CPU torch.Generator, so one
+    seed gives the same weights on every device; None means seed 0);
+    move the model with `.to(device)` and call `.eval()` before use.
+    """
+
+    def __init__(
+        self,
+        n_components: int,
+        params_reduce_mode: str = "depth_and_feature",
+        weights_type: str = "learned_weights",
+        g_latent_space_size: int = 128,
+        g_prior_n_flows: int = 7,
+        g_prior_n_features: int = 128,
+        g_posterior_n_layers: int = 1,
+        p_latent_space_size: int = 3,
+        p_prior_n_layers: int = 1,
+        p_decoder_n_flows: int = 21,
+        p_decoder_n_features: int = 64,
+        p_decoder_base_type: str = "free",
+        p_decoder_base_var: float = -3.9551,
+        pc_enc_init_n_channels: int = 3,
+        pc_enc_init_n_features: int = 64,
+        pc_enc_n_features: Sequence[int] = (128, 256, 512),
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        if weights_type not in ("global_weights", "learned_weights"):
+            raise ValueError(f"Unknown weights_type: {weights_type}")
+        if p_decoder_base_type not in ("free", "freevar", "fixed"):
+            raise ValueError(
+                f"Unknown p_decoder_base_type: {p_decoder_base_type}")
+        K, G = n_components, g_latent_space_size
+        self.n_components = K
+        self.weights_type = weights_type
+        self.g_latent_space_size = G
+        self.p_latent_space_size = p_latent_space_size
+        self.p_decoder_base_type = p_decoder_base_type
+        self.p_decoder_base_var = p_decoder_base_var
+
+        self.pc_encoder = PointNetCloudEncoder(
+            pc_enc_init_n_channels, pc_enc_init_n_features,
+            tuple(pc_enc_n_features))
+        self.g0_prior_mus = nn.Parameter(torch.empty(1, G))
+        self.g0_prior_logvars = nn.Parameter(torch.empty(1, G))
+        self.g_prior = LatentPriorFlow(g_prior_n_flows, g_prior_n_features, G)
+        self.g_posterior = FeatureEncoder(
+            pc_enc_n_features[-1], g_posterior_n_layers, G,
+            mu_weight_std=0.0033, logvar_weight_std=0.033)
+        if p_decoder_base_type in ("free", "freevar"):
+            free = p_decoder_base_type == "free"
+            self.p_prior = FeatureEncoder(
+                G, p_prior_n_layers, p_latent_space_size,
+                deterministic=not free,
+                mu_weight_std=0.001 if free else 0.01)
+        depth, feats = reduce_decoder_params(
+            K, params_reduce_mode, p_decoder_n_flows, p_decoder_n_features, G)
+        self.pc_decoder = PointDecoderFlow(depth, feats, G, stack=(K,))
+        self.mixture_weights_logits = nn.Parameter(torch.empty(K))
+        self.mixture_weights_encoder = WeightsEncoder(G, 3, K)
+        self.reset_parameters(generator or torch.Generator().manual_seed(0))
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        reset_parameters(self, generator)
+        G = self.g_latent_space_size
+        self.g0_prior_mus.copy_(
+            torch.randn(1, G, generator=generator) * 0.033)
+        self.g0_prior_logvars.copy_(
+            torch.randn(1, G, generator=generator) * 0.33)
+        self.mixture_weights_logits.zero_()
+
+    # ------------------------------------------------------------------ #
+    # encode                                                             #
+    # ------------------------------------------------------------------ #
+
+    def posterior(self, g_input: torch.Tensor):
+        """PointNet -> max-pool over points -> posterior (mus, logvars)."""
+        feats = self.pc_encoder(g_input)
+        return self.g_posterior(feats.amax(dim=2))
+
+    def encode(self, g_input: torch.Tensor, mode: str,
+               g0_eps: Optional[torch.Tensor] = None) -> Dict:
+        """Prior-flow encoding of a batch.
+
+        autoencoding: g = posterior mean, inverted through the prior flow;
+        generating: g0 = mu0 + exp(lv0 / 2) * g0_eps, pushed forward
+        through the prior flow (g0_eps (B, G) is required).
+        """
+        B, G = g_input.shape[0], self.g_latent_space_size
+        mu0 = self.g0_prior_mus.expand(B, G)
+        lv0 = self.g0_prior_logvars.expand(B, G)
+        out = {"g_prior_mus0": mu0, "g_prior_logvars0": lv0}
+        if mode == "autoencoding":
+            post_mus, post_logvars = self.posterior(g_input)
+            out["g_posterior_mus"] = post_mus
+            out["g_posterior_logvars"] = post_logvars
+            g_s = post_mus
+            g0, flow_lv_sum = self.g_prior(g_s, "inverse")
+        elif mode == "generating":
+            if g0_eps is None:
+                raise ValueError("generating mode needs g0_eps (B, G)")
+            g0 = mu0 + torch.exp(0.5 * lv0) * g0_eps
+            g_s, flow_lv_sum = self.g_prior(g0, "direct")
+        else:
+            raise NotImplementedError(
+                f"encode mode {mode!r} is not ported yet (the port has the "
+                "generating and autoencoding eval paths)")
+        out["g0_sample"] = g0
+        out["g_sample"] = g_s
+        out["g_prior_logvar_sum"] = lv0 + flow_lv_sum
+        return out
+
+    # ------------------------------------------------------------------ #
+    # decode                                                             #
+    # ------------------------------------------------------------------ #
+
+    def point_base(self, g_sample: torch.Tensor):
+        """Base distribution of the point flow, shared by the components:
+        (mus, logvars), each (B, 3, 1)."""
+        B, C = g_sample.shape[0], self.p_latent_space_size
+        if self.p_decoder_base_type == "free":
+            mus, logvars = self.p_prior(g_sample)
+            return mus[:, :, None], logvars[:, :, None]
+        if self.p_decoder_base_type == "freevar":
+            logvars = self.p_prior(g_sample)
+            return g_sample.new_zeros(B, C, 1), logvars[:, :, None]
+        return (g_sample.new_zeros(B, C, 1),
+                g_sample.new_full((B, C, 1), self.p_decoder_base_var))
+
+    def get_weights(self, g_sample: torch.Tensor,
+                    warmup: bool = False) -> torch.Tensor:
+        """Mixture log-weights (B, K): the global logits during warmup or
+        with global_weights, else the weights encoder."""
+        if warmup or self.weights_type == "global_weights":
+            B = g_sample.shape[0]
+            return self.mixture_weights_logits[None, :].expand(
+                B, self.n_components)
+        return self.mixture_weights_encoder(g_sample)
+
+    @torch.no_grad()
+    def pack_decoder(self) -> Dict[str, torch.Tensor]:
+        """The K decoders constant-folded for the `point_decode` kernel
+        (see ops/kernels/point_decode.py); recompute after the weights
+        change."""
+        return pack_point_decoder(self.pc_decoder)
+
+    def decode_sampling(self, g_sample: torch.Tensor, ids: torch.Tensor,
+                        base_eps: torch.Tensor,
+                        packed: Dict[str, torch.Tensor]):
+        """Labeled clouds from given noise.
+
+        ids (B, N): each point's component; base_eps (K, B, 3, N): each
+        component's base noise. Every component decodes every point; each
+        point keeps its own component's output. Returns samples (B, 3, N)
+        and labels ids + 1.
+        """
+        base_mus, base_logvars = self.point_base(g_sample)
+        base = base_mus[None] + torch.exp(0.5 * base_logvars)[None] * base_eps
+        ab = film_alpha_beta(packed, g_sample)
+        decoded, _ = point_decode(packed, ab, base.contiguous())
+        B, N = ids.shape
+        pick = ids[None, :, None, :].expand(1, B, 3, N)
+        samples = torch.gather(decoded, 0, pick)[0]
+        return samples, ids + 1

@@ -1,0 +1,134 @@
+"""Build and load the port's CUDA kernels.
+
+All `csrc/*.cu` files are compiled by `nvcc` into one shared library with
+a plain C interface, `_build/libgwtf_torch_kernels.so`, which is loaded
+with ctypes. The build runs at first use and again whenever a source is
+newer than the library (as `go_with_the_flows_tpu/data/native.py` does
+for the sampler). Nothing prebuilt is kept in the repository.
+
+Every C entry point returns its `cudaGetLastError()` after the launch;
+`check` turns a non-zero code into a RuntimeError. A machine without
+`nvcc` cannot build the kernels: that is an error, never a fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import os
+import shutil
+import subprocess
+import time
+from typing import Optional
+
+import torch
+
+_PKG = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+LIB_PATH = os.path.join(BUILD_DIR, "libgwtf_torch_kernels.so")
+PTXAS_LOG = os.path.join(BUILD_DIR, "ptxas.log")
+
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# name -> argtypes; every entry returns int (a cudaError_t)
+_SIGNATURES = {
+    # p, w0, b0, w1, w2, b2, ab, out, lv, K, B, C, N, f, inverse, stream
+    "gwtf_point_decode": [_P] * 9 + [_I] * 6 + [_P],
+    # a, b, dist_a, idx_a, dist_b, idx_b, B, N, M, stream
+    "gwtf_nn_distance": [_P] * 6 + [_I] * 3 + [_P],
+    # samples, refs, cdl, cdr, prec, rec, S, R, N, M, thr, stream
+    "gwtf_pairwise_cd_stats": [_P] * 6 + [_I] * 4 + [ctypes.c_float, _P],
+}
+
+_lib: Optional[ctypes.CDLL] = None
+
+
+def sources():
+    return sorted(glob.glob(os.path.join(CSRC, "*.cu"))
+                  + glob.glob(os.path.join(CSRC, "*.cuh")))
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    candidates = [os.path.join(home, "bin", "nvcc")] if home else []
+    candidates += [shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"]
+    for path in candidates:
+        if path and os.path.isfile(path):
+            return path
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built "
+                       "(set CUDA_HOME or put nvcc on PATH)")
+
+
+def is_stale() -> bool:
+    if not os.path.exists(LIB_PATH):
+        return True
+    built = os.path.getmtime(LIB_PATH)
+    return any(os.path.getmtime(s) > built for s in sources())
+
+
+def build(force: bool = False) -> float:
+    """Compile the library if it is missing or stale; returns the seconds
+    spent compiling (0.0 when it was up to date). Raises on failure."""
+    if not force and not is_stale():
+        return 0.0
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    cu = [s for s in sources() if s.endswith(".cu")]
+    tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu],
+        capture_output=True, text=True,
+    )
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+    with open(PTXAS_LOG, "w") as f:
+        f.write(proc.stdout + proc.stderr)
+    os.replace(tmp, LIB_PATH)  # atomic: concurrent builders never see half
+    return seconds
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built first if needed."""
+    global _lib
+    if _lib is None:
+        build()
+        lib = ctypes.CDLL(LIB_PATH)
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.gwtf_error_string.argtypes = [ctypes.c_int]
+        lib.gwtf_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def check(lib: ctypes.CDLL, code: int, what: str) -> None:
+    if code != 0:
+        msg = lib.gwtf_error_string(code).decode()
+        raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+
+
+def stream_handle(device) -> int:
+    """PyTorch's current stream on `device`, as the kernels take it."""
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def check_tensors(tensors, device) -> None:
+    """Raise unless every tensor is contiguous float32 on `device`."""
+    for t in tensors:
+        if t.device != device:
+            raise ValueError(f"tensors on {t.device} and {device}: all "
+                             "inputs of a kernel must be on one CUDA device")
+        if t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError("kernel inputs must be contiguous float32, "
+                             f"got {t.dtype}, contiguous={t.is_contiguous()}")
