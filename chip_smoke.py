@@ -9,13 +9,17 @@ non-zero at the first failure:
   0. device: needs CUDA; prints the card's name and power limit;
   1. build: compiles every kernel of go_with_the_flows_tpu_torch/csrc;
   2. kernels: each kernel against its plain PyTorch version at the main
-     path's shapes (jiggled BatchNorm statistics), with times;
+     path's shapes (jiggled BatchNorm statistics), with times; the EMD
+     kernels also at ragged and unequal sizes and at the SVR protocol's
+     2500 points, the EMD backward through autograd, and the EMD grid
+     against the paired EMD kernel bit for bit;
   3. slice: the flagship airplane model (random weights from seed 0) on
-     the card, `evaluate` in generating and autoencoding modes over two
-     seeded batches of 64 reference clouds of 2048 points, with all three
-     kernel launch counters read around it; a small-input check against
-     the CPU path; sample+CD clouds/s at B=64 and B=1024 for the kernel
-     path and the plain path.
+     the card, `evaluate` in generating and autoencoding modes with CD,
+     EMD and F1 over two seeded batches of 64 reference clouds of 2048
+     points, then the EMD between the samples and their references as a
+     differentiable loss, with all six kernel launch counters read around
+     them; a small-input check against the CPU path; sample+CD clouds/s
+     at B=64 and B=1024 for the kernel path and the plain path.
 
 Its last two lines are a JSON object with one entry per kernel and the
 JSON status line {"ok": true, "device": {...}}.
@@ -262,6 +266,78 @@ def check_pairwise(S, R, N, M, seed, timed, thr=1e-3):
     return err, times
 
 
+def check_emd(B, N, M, seed, timed):
+    """Kernel 5 against its plain version; kernel 6 against the plain
+    backward on the kernel's own residuals, reached through autograd with
+    a non-uniform upstream weight."""
+    import torch
+
+    from go_with_the_flows_tpu_torch.ops.kernels.emd import (
+        emd_cost_kernel, emd_backward, emd_backward_plain, emd_cost,
+        emd_cost_plain)
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    a = 0.3 * torch.randn(B, N, 3, device="cuda", generator=gen)
+    b = 0.3 * torch.randn(B, M, 3, device="cuda", generator=gen)
+    tag = f"emd B={B} N={N} M={M}"
+    cost = emd_cost(a, b)
+    cost_err = check_close(f"{tag} cost", cost, emd_cost_plain(a, b), 0.0,
+                           1e-4)
+    cost_r, rl, rr = emd_cost_kernel(a, b, True)
+    check_close(f"{tag} cost with residuals saved (exact)", cost_r, cost,
+                0.0)
+    da, db = emd_backward_plain(a, b, rl, rr)
+    w = 0.5 + torch.rand(B, device="cuda", generator=gen)
+    ga, gb = a.clone().requires_grad_(), b.clone().requires_grad_()
+    (w * emd_cost(ga, gb)).sum().backward()
+    w3 = w[:, None, None]
+    bwd_err = max(
+        check_close(f"{tag} da (autograd, weighted)", ga.grad, w3 * da,
+                    1e-5, 1e-4),
+        check_close(f"{tag} db (autograd, weighted)", gb.grad, w3 * db,
+                    1e-5, 1e-4))
+    times = None
+    if timed:
+        fwd = cuda_ms(lambda: emd_cost(a, b), 5)
+        fwd_plain = cuda_ms(lambda: emd_cost_plain(a, b), 1)
+        bwd = cuda_ms(lambda: emd_backward(a, b, rl, rr), 5)
+        bwd_plain = cuda_ms(lambda: emd_backward_plain(a, b, rl, rr), 1)
+        times = {"emd_cost": (fwd, fwd_plain),
+                 "emd_backward": (bwd, bwd_plain)}
+        say(f"    {tag}: cost kernel {fwd:.3f} ms, plain {fwd_plain:.3f} ms;"
+            f" backward kernel {bwd:.3f} ms, plain {bwd_plain:.3f} ms")
+    return cost_err, bwd_err, times
+
+
+def check_pairwise_emd(S, R, N, M, seed, timed):
+    """The EMD grid against the paired EMD kernel on the same pairs
+    (exact: the same device function) and against its plain version."""
+    import torch
+
+    from go_with_the_flows_tpu_torch.ops.kernels.emd import emd_cost
+    from go_with_the_flows_tpu_torch.ops.kernels.pairwise import (
+        pairwise_emd, pairwise_emd_plain)
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    s = 0.3 * torch.randn(S, N, 3, device="cuda", generator=gen)
+    r = 0.3 * torch.randn(R, M, 3, device="cuda", generator=gen)
+    tag = f"pairwise_emd S={S} R={R} N={N} M={M}"
+    got = pairwise_emd(s, r)
+    paired = emd_cost(s[:, None].expand(S, R, N, 3).reshape(S * R, N, 3),
+                      r[None].expand(S, R, M, 3).reshape(S * R, M, 3))
+    check_close(f"{tag} vs the paired kernel (exact)", got,
+                paired.reshape(S, R), 0.0)
+    err = check_close(f"{tag} vs plain", got, pairwise_emd_plain(s, r),
+                      1e-5, 2e-4)
+    times = None
+    if timed:
+        ms = cuda_ms(lambda: pairwise_emd(s, r), 2)
+        plain = cuda_ms(lambda: pairwise_emd_plain(s, r), 1, warmup=0)
+        times = (ms, plain)
+        say(f"    {tag}: kernel {ms:.3f} ms, plain {plain:.3f} ms")
+    return err, times
+
+
 def phase_kernels():
     from go_with_the_flows_tpu_torch.utils.config import FLAGSHIP_AIRPLANE
 
@@ -284,10 +360,27 @@ def phase_kernels():
     # on each side
     pw_main_err, _ = check_pairwise(2 * BATCH, 2 * BATCH, N_POINTS, N_POINTS,
                                     3, timed=False)
+
+    # EMD: ragged, unequal capacities (multiL = 2, then multiR = 2), the
+    # flagship batch (timed) and the SVR protocol's 2500 points, the
+    # largest cloud of the JAX package's protocols
+    cost_errs, bwd_errs = [], []
+    for B, N, M, seed in ((3, 50, 77, 10), (2, 40, 100, 11),
+                          (2, 100, 40, 12), (4, 2500, 2500, 13)):
+        c, g, _ = check_emd(B, N, M, seed, timed=False)
+        cost_errs.append(c)
+        bwd_errs.append(g)
+    c, g, emd_times = check_emd(BATCH, N_POINTS, N_POINTS, 14, timed=True)
+    pe_err, _ = check_pairwise_emd(5, 7, 50, 77, 15, timed=False)
+    pe_big_err, pe_times = check_pairwise_emd(32, 32, N_POINTS, N_POINTS, 16,
+                                              timed=True)
     return {
         "point_decode": (pd_err, pd_times["direct"]),
         "nn_distance": (nn_err, nn_times),
         "pairwise_cd_stats": (max(pw_err, pw_main_err), pw_times),
+        "emd_cost": (max(cost_errs + [c]), emd_times["emd_cost"]),
+        "emd_backward": (max(bwd_errs + [g]), emd_times["emd_backward"]),
+        "pairwise_emd": (max(pe_err, pe_big_err), pe_times),
     }
 
 
@@ -341,7 +434,7 @@ def check_small_against_cpu(model, seed):
     import torch
 
     from go_with_the_flows_tpu_torch.metrics.evaluation import (
-        compute_all_metrics)
+        EMD_CD_F1, compute_all_metrics)
 
     cpu = copy.deepcopy(model).cpu()
     gen = torch.Generator().manual_seed(seed)
@@ -375,6 +468,41 @@ def check_small_against_cpu(model, seed):
         if abs(a - b) > 1e-5 * abs(b) + 1e-7:
             fail(f"metric {key}: card {a!r} vs CPU {b!r}")
     say("    metrics on 8 vs 8 clouds: card equals CPU (rtol 1e-5)")
+    # EMD on the first 256 points of each cloud, so that the CPU's plain
+    # auction stays short; MMD and paired EMD rtol 1e-4 (the auction's sums
+    # run in another order), COV and 1-NNA equal
+    gen_pcs = np.ascontiguousarray(gen_pcs[:, :256])
+    ref_pcs = np.ascontiguousarray(ref_pcs[:, :256])
+    on_card = compute_all_metrics(gen_pcs, ref_pcs, 60, emd_option=True,
+                                  device="cuda")
+    on_cpu = compute_all_metrics(gen_pcs, ref_pcs, 60, emd_option=True,
+                                 device="cpu")
+    on_card["EMD"] = EMD_CD_F1(gen_pcs, ref_pcs, 60, emd_option=True,
+                               device="cuda")["EMD"]
+    on_cpu["EMD"] = EMD_CD_F1(gen_pcs, ref_pcs, 60, emd_option=True,
+                              device="cpu")["EMD"]
+    for key, rtol in (("lgan_mmd-EMD", 1e-4), ("EMD", 1e-4),
+                      ("lgan_cov-EMD", 0.0), ("1-NN-EMD-acc", 0.0)):
+        a, b = float(on_card[key]), float(on_cpu[key])
+        if abs(a - b) > rtol * abs(b):
+            fail(f"metric {key}: card {a!r} vs CPU {b!r}")
+    say("    EMD metrics on 8 vs 8 clouds of 256 points: card equals CPU "
+        "(MMD-EMD and EMD rtol 1e-4, COV-EMD and 1-NNA-EMD exact)")
+
+
+def emd_loss_grad(samples, ref_clouds):
+    """The EMD between generated clouds (B, 3, N) and their references
+    (B, 3, N) as a differentiable loss, as a user fitting clouds calls it:
+    emd_cost forward (kernel 5) and backward (kernel 6)."""
+    import torch
+
+    from go_with_the_flows_tpu_torch.ops.kernels.emd import emd_cost
+
+    x = samples.detach().transpose(1, 2).contiguous().requires_grad_()
+    ref = torch.from_numpy(ref_clouds.transpose(0, 2, 1).copy()).cuda()
+    loss = emd_cost(x, ref).mean() / x.shape[1]
+    loss.backward()
+    return loss.item(), x.grad
 
 
 def phase_slice(card):
@@ -385,8 +513,10 @@ def phase_slice(card):
 
     from go_with_the_flows_tpu_torch.eval.evaluating import evaluate
     from go_with_the_flows_tpu_torch.ops.kernels.chamfer import nn_distance
+    from go_with_the_flows_tpu_torch.ops.kernels.emd import (
+        emd_backward, emd_cost)
     from go_with_the_flows_tpu_torch.ops.kernels.pairwise import (
-        pairwise_cd_stats)
+        pairwise_cd_stats, pairwise_emd)
     from go_with_the_flows_tpu_torch.ops.kernels.point_decode import (
         point_decode)
     from go_with_the_flows_tpu_torch.train.step import make_sample_step
@@ -400,34 +530,48 @@ def phase_slice(card):
     for _ in range(2):
         clouds = reference_clouds(rng, BATCH)
         batches.append({"cloud": clouds, "eval_cloud": clouds})
-    wrappers = (point_decode, nn_distance, pairwise_cd_stats)
+    wrappers = (point_decode, nn_distance, pairwise_cd_stats, emd_cost,
+                emd_backward, pairwise_emd)
+    gen_step = make_sample_step(model, N_POINTS, "generating")
+    ae_step = make_sample_step(model, N_POINTS, "autoencoding")
+    metrics = dict(cd=True, emd=True, f1=True)
+
+    def run_evaluate(mode, **flags):
+        step = gen_step if mode == "generating" else ae_step
+        t = time.perf_counter()
+        res = evaluate(batches, step, gen, "cuda", util_mode=mode, **flags)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t
 
     for w in wrappers:
         w.launches = 0
     gen = torch.Generator(device="cuda").manual_seed(1)
     t0 = time.perf_counter()
-    gen_step = make_sample_step(model, N_POINTS, "generating")
     samples, labels, _ = gen_step(
         torch.from_numpy(batches[0]["cloud"]).cuda(), gen)
-    res_g = evaluate(batches, gen_step, gen, "cuda", util_mode="generating",
-                     cd=True, f1=True)
-    ae_step = make_sample_step(model, N_POINTS, "autoencoding")
-    res_a = evaluate(batches, ae_step, gen, "cuda",
-                     util_mode="autoencoding", cd=True, f1=True)
+    res_g, sec_g = run_evaluate("generating", **metrics)
+    res_a, sec_a = run_evaluate("autoencoding", **metrics)
+    loss, grad = emd_loss_grad(samples, batches[0]["eval_cloud"])
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = {w.__name__: w.launches for w in wrappers}
-    say(f"    evaluate (generating + autoencoding, 2 x {BATCH} clouds): "
-        f"{seconds:.2f} s; launches {launches}")
+    say(f"    evaluate with CD, EMD and F1 (2 x {BATCH} clouds): generating "
+        f"{sec_g:.2f} s, autoencoding {sec_a:.2f} s; with the EMD loss "
+        f"gradient {seconds:.2f} s in all; launches {launches}")
 
     if tuple(samples.shape) != (BATCH, 3, N_POINTS):
         fail(f"samples shape {tuple(samples.shape)}")
     if int(labels.min()) < 1 or int(labels.max()) > K:
         fail(f"labels outside 1..{K}: {int(labels.min())}..{int(labels.max())}")
+    if tuple(grad.shape) != (BATCH, N_POINTS, 3) \
+            or not bool(torch.isfinite(grad).all()):
+        fail("the EMD loss gradient is not finite or has the wrong shape")
     report = {
         "MMD-CD": res_g["cd_mmds"], "COV-CD": res_g["cd_covs"],
-        "1-NNA-CD": res_g["cd_1nns"], "CD": res_a["cd"],
-        "F1": res_a["f1_0.0010"],
+        "1-NNA-CD": res_g["cd_1nns"], "MMD-EMD": res_g["emd_mmds"],
+        "COV-EMD": res_g["emd_covs"], "1-NNA-EMD": res_g["emd_1nns"],
+        "CD": res_a["cd"], "EMD": res_a["emd"], "F1": res_a["f1_0.0010"],
+        "EMD loss": loss,
     }
     say("    " + ", ".join(f"{k} {v:.4f}" for k, v in report.items()))
     for k, v in report.items():
@@ -436,6 +580,13 @@ def phase_slice(card):
     for name, n in launches.items():
         if n < 1:
             fail(f"{name} was not launched on the main path")
+
+    # the EMD part of evaluate's time: warm passes without and with it
+    for mode in ("generating", "autoencoding"):
+        _, cd_only = run_evaluate(mode, cd=True, f1=True)
+        _, with_emd = run_evaluate(mode, **metrics)
+        say(f"    evaluate {mode} (warm): CD+F1 {cd_only:.3f} s, "
+            f"CD+EMD+F1 {with_emd:.3f} s [{card}]")
 
     check_small_against_cpu(model, 5)
 
@@ -461,6 +612,7 @@ def main() -> None:
         import torch
     except ImportError:
         fail("torch is not installed")
+    t_start = time.perf_counter()
     kind, card = phase_device()
     sys.path.insert(0, ROOT)
     try:
@@ -485,6 +637,15 @@ def main() -> None:
         "pairwise_cd_stats": (
             "go_with_the_flows_tpu_torch/csrc/pairwise_cd.cu",
             "go_with_the_flows_tpu/ops/pallas/pairwise_kernel.py:151"),
+        "emd_cost": (
+            "go_with_the_flows_tpu_torch/csrc/emd.cu",
+            "go_with_the_flows_tpu/ops/pallas/emd_kernel.py:275"),
+        "emd_backward": (
+            "go_with_the_flows_tpu_torch/csrc/emd.cu",
+            "go_with_the_flows_tpu/ops/pallas/emd_kernel.py:375"),
+        "pairwise_emd": (
+            "go_with_the_flows_tpu_torch/csrc/emd.cu",
+            "go_with_the_flows_tpu/ops/pallas/pairwise_kernel.py:187"),
     }
     kernels = []
     for name, (err, (ms, plain_ms)) in measured.items():
@@ -494,6 +655,7 @@ def main() -> None:
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
         })
+    say(f"chip_smoke wall time: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

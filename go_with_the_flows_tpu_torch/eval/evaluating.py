@@ -6,8 +6,8 @@
 `orig_s` / `orig_c` when `orig_scale_evaluation` rescales. No h5 loader
 is needed.
 
-Not ported yet: the h5 dump (`saving`), reconstruction (SVR), EMD and
-the voxel JSD.
+Not ported yet: the h5 dump (`saving`), reconstruction (SVR, and with
+it EMD in that mode) and the voxel JSD.
 """
 
 from __future__ import annotations
@@ -60,13 +60,13 @@ def evaluate(loader, sample_step: Callable, generator: torch.Generator,
     `sample_step` comes from train/step.make_sample_step; `generator`
     (on `device`) drives every random draw, so a seed fixes the result.
     kwargs are the flat config keys the JAX `evaluate` reads (util_mode, cd,
-    f1, f1_threshold_lst, the de-normalisation keys, ref_cache).
+    emd, f1, f1_threshold_lst, the de-normalisation keys, ref_cache).
     """
     util_mode = kwargs.get("util_mode")
     if util_mode not in ("generating", "autoencoding"):
         raise NotImplementedError(
             f"util_mode {util_mode!r} is not ported yet")
-    for key in ("saving", "emd", "jsd"):
+    for key in ("saving", "jsd"):
         if kwargs.get(key):
             raise NotImplementedError(f"{key!r} is not ported yet")
     device = torch.device(device)
@@ -98,12 +98,16 @@ def evaluate(loader, sample_step: Callable, generator: torch.Generator,
             metrics = EMD_CD_F1(
                 gen, ref, batch_size=60, reduced=True,
                 cd_option=kwargs.get("cd", False),
+                emd_option=kwargs.get("emd", False),
                 f1_option=kwargs.get("f1", False), f1_threshold=thr,
                 device=device,
             )
             if kwargs.get("cd"):
                 res["cd"] = float(metrics["CD"]) * 1e4
                 print("CD:\t{:.2f}".format(res["cd"]))
+            if kwargs.get("emd"):
+                res["emd"] = float(metrics["EMD"]) * 1e2
+                print("EMD:\t{:.2f}".format(res["emd"]))
             if kwargs.get("f1"):
                 res[f"f1_{thr:.4f}"] = float(metrics["F1"])
                 print("F1-%.4f: %.2f" % (thr, res[f"f1_{thr:.4f}"]))
@@ -123,6 +127,7 @@ def evaluate(loader, sample_step: Callable, generator: torch.Generator,
         metrics = compute_all_metrics(
             gen, ref, batch_size=60, f1_threshold=thr,
             cd_option=kwargs.get("cd", False),
+            emd_option=kwargs.get("emd", False),
             f1_option=kwargs.get("f1", False),
             ref_cache=kwargs.get("ref_cache"), device=device,
         )
@@ -133,6 +138,13 @@ def evaluate(loader, sample_step: Callable, generator: torch.Generator,
             print("MMD-CD:\t{:.2f}".format(res["cd_mmds"]))
             print("COV-CD:\t{:.2f}".format(res["cd_covs"]))
             print("1NN-CD:\t{:.2f}".format(res["cd_1nns"]))
+        if kwargs.get("emd"):
+            res["emd_mmds"] = float(metrics["lgan_mmd-EMD"]) * 1e2
+            res["emd_covs"] = float(metrics["lgan_cov-EMD"]) * 1e2
+            res["emd_1nns"] = float(metrics["1-NN-EMD-acc"]) * 1e2
+            print("MMD-EMD:\t{:.2f}".format(res["emd_mmds"]))
+            print("COV-EMD:\t{:.2f}".format(res["emd_covs"]))
+            print("1NN-EMD:\t{:.2f}".format(res["emd_1nns"]))
         if kwargs.get("f1"):
             res[f"f1_{thr:.4f}_mmds"] = float(metrics["lgan_mmd-F1"])
             res[f"f1_{thr:.4f}_covs"] = float(metrics["lgan_cov-F1"]) * 1e2

@@ -1,13 +1,13 @@
-"""Chamfer side of the evaluation protocol: CD / F1 / MMD / COV / 1-NNA
+"""The evaluation protocol's metrics: CD / EMD / F1 / MMD / COV / 1-NNA
 (counterpart of go_with_the_flows_tpu/metrics/evaluation.py).
 
 Cloud arguments are (S, N, 3) numpy arrays or tensors; `device` says
-where the metric work runs. On the card the paired distances go through
-the `nn_distance` kernel and the (S, R) matrices through the
-`pairwise_cd_stats` kernel; on the CPU through their plain versions.
+where the metric work runs. On the card the paired metrics go through
+the `nn_distance` and `emd_cost` kernels and the (S, R) matrices through
+the `pairwise_cd_stats` and `pairwise_emd` kernels; on the CPU through
+their plain versions.
 
-Not ported yet: EMD (its kernels belong to the EMD slice) and the voxel
-JSD (the card's machine has no scikit-learn).
+Not ported yet: the voxel JSD (the card's machine has no scikit-learn).
 """
 
 from __future__ import annotations
@@ -19,33 +19,29 @@ import numpy as np
 import torch
 
 from ..ops.kernels.chamfer import chamfer
-from ..ops.kernels.pairwise import pairwise_cd_stats
+from ..ops.kernels.emd import emd_cost
+from ..ops.kernels.pairwise import pairwise_cd_stats, pairwise_emd
 
-# pairs per pairwise_cd_stats launch, as in the JAX package's grid loop
+# pairs per chunk of the pairwise grid, as in the JAX package's grid loop
 _GRID_PAIR_BUDGET = 16384
-
-
-def _no_emd(emd_option: bool) -> None:
-    if emd_option:
-        raise NotImplementedError(
-            "EMD is not ported yet: it comes with the EMD slice and its "
-            "kernels (ROADMAP.md)")
 
 
 def _as_tensor(x, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(device)
 
 
-def _paired_stats(sample, ref, f1_threshold: float):
-    """Per-pair CD parts and F1 for equal-length batches (the JAX
-    package's `_paired_stats` without EMD)."""
+def _paired_stats(sample, ref, f1_threshold: float, with_emd: bool):
+    """Per-pair CD parts, EMD (cost / N, zeros without `with_emd`) and F1
+    for equal-length batches."""
     dl, dr = chamfer(sample, ref)
+    emd = (emd_cost(sample, ref) / sample.shape[1] if with_emd
+           else sample.new_zeros(sample.shape[0]))
     cdl = dl.mean(dim=1)
     cdr = dr.mean(dim=1)
     precision = 100.0 * (dr < f1_threshold).float().mean(dim=1)
     recall = 100.0 * (dl < f1_threshold).float().mean(dim=1)
     f1 = 2.0 * precision * recall / (precision + recall + 1e-7)
-    return cdl, cdr, f1
+    return cdl, cdr, emd, f1
 
 
 def EMD_CD_F1(
@@ -61,7 +57,6 @@ def EMD_CD_F1(
     device="cpu",
 ) -> Dict[str, np.ndarray]:
     """Paired (i-th sample vs i-th ref) metrics."""
-    _no_emd(emd_option)
     n = sample_pcs.shape[0]
     if n != ref_pcs.shape[0]:
         raise ValueError(f"REF:{ref_pcs.shape[0]} SMP:{n}")
@@ -71,16 +66,16 @@ def EMD_CD_F1(
             e = min(n, s + batch_size)
             stats = _paired_stats(_as_tensor(sample_pcs[s:e], device),
                                   _as_tensor(ref_pcs[s:e], device),
-                                  f1_threshold)
+                                  f1_threshold, emd_option)
             parts.append([x.cpu().numpy() for x in stats])
-    cdl, cdr, f1 = (np.concatenate(p) for p in zip(*parts))
+    cdl, cdr, emd, f1 = (np.concatenate(p) for p in zip(*parts))
 
     def red(x):
         return x.mean() if reduced else x
 
     return {
         "CD": red(cdl + cdr) if cd_option else 0,
-        "EMD": 0,
+        "EMD": red(emd) if emd_option else 0,
         "F1": red(f1) if f1_option else 0,
         "CDL": red(cdl) if one_part_of_cd else 0,
         "CDR": red(cdr) if one_part_of_cd else 0,
@@ -100,12 +95,14 @@ def pairwise_EMD_CD_F1(
     device="cpu",
 ):
     """Full (N_sample, N_ref) matrices (cd, emd, f1, cdl, cdr) as numpy
-    float32; emd stays zero. Samples are chunked so that one kernel
-    launch covers at most _GRID_PAIR_BUDGET pairs. `batch_size` is
-    accepted for the JAX package's signature and unused: the pair grid
-    needs no reference-side batching."""
-    _no_emd(emd_option)
+    float32; emd is the cost / N and stays zero without `emd_option`.
+    Samples are chunked so that one chunk covers at most
+    _GRID_PAIR_BUDGET pairs. `batch_size` is accepted for the JAX
+    package's signature and unused: the pair grid needs no
+    reference-side batching."""
     n_sample, n_ref = sample_pcs.shape[0], ref_pcs.shape[0]
+    n_pts = sample_pcs.shape[1]
+    emd_m = np.zeros((n_sample, n_ref), np.float32)
     cdl_m = np.zeros((n_sample, n_ref), np.float32)
     cdr_m = np.zeros((n_sample, n_ref), np.float32)
     f1_m = np.zeros((n_sample, n_ref), np.float32)
@@ -120,9 +117,11 @@ def pairwise_EMD_CD_F1(
             cdl_m[i0:i1] = cdl
             cdr_m[i0:i1] = cdr
             f1_m[i0:i1] = 2.0 * prec * rec / (prec + rec + 1e-7)
+            if emd_option:
+                emd_m[i0:i1] = pairwise_emd(samples[i0:i1],
+                                            refs).cpu().numpy() / n_pts
             if verbose:
                 print(f"pairwise: {i1}/{n_sample}")
-    emd_m = np.zeros((n_sample, n_ref), np.float32)
     return cdl_m + cdr_m, emd_m, f1_m, cdl_m, cdr_m
 
 
@@ -189,18 +188,17 @@ def compute_all_metrics(
     ref_cache: Optional[dict] = None,
     device="cpu",
 ) -> Dict[str, float]:
-    """MMD/COV (sample vs ref) and 1-NNA (ss, rs, rr) over CD and F1.
+    """MMD/COV (sample vs ref) and 1-NNA (ss, rs, rr) over CD, EMD and F1.
 
     `ref_cache`: a dict owned by the caller that survives repeated calls
     with the same reference set; the ref-vs-ref matrices are computed
     once, keyed by the options and guarded by a content hash of
     `ref_pcs`."""
-    _no_emd(emd_option)
     results: Dict[str, float] = {}
     opts = dict(f1_threshold=f1_threshold, cd_option=cd_option,
-                one_part_of_cd=one_part_of_cd, f1_option=f1_option,
-                verbose=verbose, device=device)
-    rs_cd, _, rs_f1, rs_cdl, rs_cdr = pairwise_EMD_CD_F1(
+                one_part_of_cd=one_part_of_cd, emd_option=emd_option,
+                f1_option=f1_option, verbose=verbose, device=device)
+    rs_cd, rs_emd, rs_f1, rs_cdl, rs_cdr = pairwise_EMD_CD_F1(
         sample_pcs, ref_pcs, batch_size, **opts)
 
     def upd(prefix, res):
@@ -208,6 +206,8 @@ def compute_all_metrics(
 
     if cd_option:
         upd("CD", lgan_mmd_cov(rs_cd))
+    if emd_option:
+        upd("EMD", lgan_mmd_cov(rs_emd))
     if f1_option:
         upd("F1", lgan_mmd_cov(rs_f1, "max"))
     if one_part_of_cd:
@@ -217,7 +217,7 @@ def compute_all_metrics(
     rr = None
     if ref_cache is not None:
         key = ("rr", tuple(ref_pcs.shape), float(f1_threshold), cd_option,
-               one_part_of_cd, f1_option)
+               one_part_of_cd, emd_option, f1_option)
         checksum = hashlib.sha1(
             np.ascontiguousarray(ref_pcs, np.float32).tobytes()).hexdigest()
         hit = ref_cache.get(key)
@@ -237,6 +237,8 @@ def compute_all_metrics(
 
     if cd_option:
         upd_nn("CD", ss[0], rs_cd, rr[0])
+    if emd_option:
+        upd_nn("EMD", ss[1], rs_emd, rr[1])
     if f1_option:
         upd_nn("F1", ss[2], rs_f1, rr[2])
     if one_part_of_cd:

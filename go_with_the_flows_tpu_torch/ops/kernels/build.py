@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
-All `csrc/*.cu` files are compiled by `nvcc` into one shared library with
-a plain C interface, `_build/libgwtf_torch_kernels.so`, which is loaded
-with ctypes. The build runs at first use and again whenever a source is
+Each `csrc/*.cu` file is compiled by its own `nvcc`, all of them at once,
+and the objects are linked into one shared library with a plain C
+interface, `_build/libgwtf_torch_kernels.so`, which is loaded with
+ctypes. The build runs at first use and again whenever a source is
 newer than the library (as `go_with_the_flows_tpu/data/native.py` does
 for the sampler). Nothing prebuilt is kept in the repository.
 
@@ -30,9 +31,9 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 LIB_PATH = os.path.join(BUILD_DIR, "libgwtf_torch_kernels.so")
 PTXAS_LOG = os.path.join(BUILD_DIR, "ptxas.log")
 
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = ARCH_FLAGS + [
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _P = ctypes.c_void_p
@@ -45,6 +46,13 @@ _SIGNATURES = {
     "gwtf_nn_distance": [_P] * 6 + [_I] * 3 + [_P],
     # samples, refs, cdl, cdr, prec, rec, S, R, N, M, thr, stream
     "gwtf_pairwise_cd_stats": [_P] * 6 + [_I] * 4 + [ctypes.c_float, _P],
+    # a, b, cost, ratio_l, ratio_r, B, N, M, multi_l, multi_r, stream
+    "gwtf_emd_cost": [_P] * 5 + [_I] * 3 + [ctypes.c_float] * 2 + [_P],
+    # a, b, ratio_l, ratio_r, da, db, B, N, M, stream
+    "gwtf_emd_backward": [_P] * 6 + [_I] * 3 + [_P],
+    # samples, refs, cost, R, N, M, multi_l, multi_r, pair0, pairs, stream
+    "gwtf_pairwise_emd": [_P] * 3 + [_I] * 3 + [ctypes.c_float] * 2
+    + [_I] * 2 + [_P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -80,18 +88,34 @@ def build(force: bool = False) -> float:
         return 0.0
     os.makedirs(BUILD_DIR, exist_ok=True)
     cu = [s for s in sources() if s.endswith(".cu")]
-    tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
+    tag = f"{os.getpid()}.tmp"
+    objs = [os.path.join(BUILD_DIR, os.path.basename(src)[:-3] + f".{tag}.o")
+            for src in cu]
+    tmp = f"{LIB_PATH}.{tag}"
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu],
-        capture_output=True, text=True,
-    )
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(cu, objs)]
+    logs = [p.communicate()[0] for p in procs]
+    try:
+        for src, p, log in zip(cu, procs, logs):
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {os.path.basename(src)} "
+                                   f"({p.returncode}):\n{log}")
+        link = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", tmp,
+                               *objs], capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                               f"{link.stdout}\n{link.stderr}")
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
     with open(PTXAS_LOG, "w") as f:
-        f.write(proc.stdout + proc.stderr)
+        f.write("".join(logs))
     os.replace(tmp, LIB_PATH)  # atomic: concurrent builders never see half
     return seconds
 

@@ -16,9 +16,18 @@ from go_with_the_flows_tpu_torch.ops.kernels.chamfer import (
     nn_distance,
     nn_distance_plain,
 )
+from go_with_the_flows_tpu_torch.ops.kernels.emd import (
+    emd_cost_kernel,
+    emd_backward,
+    emd_backward_plain,
+    emd_cost,
+    emd_cost_plain,
+)
 from go_with_the_flows_tpu_torch.ops.kernels.pairwise import (
     pairwise_cd_stats,
     pairwise_cd_stats_plain,
+    pairwise_emd,
+    pairwise_emd_plain,
 )
 from go_with_the_flows_tpu_torch.ops.kernels.point_decode import (
     film_alpha_beta,
@@ -102,6 +111,50 @@ def test_sample_step_never_waits_for_the_card(device, mode):
     assert torch.isfinite(samples).all()
 
 
+@pytest.mark.parametrize("B,N,M", [(3, 50, 77), (2, 40, 100), (2, 100, 40),
+                                   (64, 2048, 2048), (4, 2500, 2500)])
+def test_emd_kernels(device, B, N, M):
+    """Kernel 5 against its plain version (cost rtol 1e-4, the sums run in
+    another order); kernel 6 against the plain backward on the kernel's
+    own residuals (rtol 1e-4, atol 1e-5), reached through autograd with a
+    non-uniform upstream weight."""
+    gen = torch.Generator(device=device).manual_seed(B + N + M)
+    a = 0.3 * torch.randn(B, N, 3, device=device, generator=gen)
+    b = 0.3 * torch.randn(B, M, 3, device=device, generator=gen)
+    torch.testing.assert_close(emd_cost(a, b), emd_cost_plain(a, b),
+                               rtol=1e-4, atol=0)
+    w = torch.rand(B, device=device, generator=gen) + 0.5
+    ga, gb = a.clone().requires_grad_(), b.clone().requires_grad_()
+    (w * emd_cost(ga, gb)).sum().backward()
+    cost, rl, rr = emd_cost_kernel(a, b, True)
+    assert rl.shape == (B, 9, N) and rr.shape == (B, 9, M)
+    torch.testing.assert_close(cost, emd_cost(a, b), rtol=0, atol=0)
+    da, db = emd_backward_plain(a, b, rl, rr)
+    torch.testing.assert_close(ga.grad, w[:, None, None] * da, rtol=1e-4,
+                               atol=1e-5)
+    torch.testing.assert_close(gb.grad, w[:, None, None] * db, rtol=1e-4,
+                               atol=1e-5)
+    kda, kdb = emd_backward(a, b, rl, rr)
+    torch.testing.assert_close(kda, da, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(kdb, db, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("S,R,N,M", [(5, 7, 50, 77), (3, 4, 300, 200)])
+def test_pairwise_emd_kernel(device, S, R, N, M):
+    """The grid equals the paired kernel on the same pairs bit for bit
+    (the same device function); against the plain version rtol 2e-4,
+    atol 1e-5."""
+    gen = torch.Generator(device=device).manual_seed(S * R)
+    s = 0.3 * torch.randn(S, N, 3, device=device, generator=gen)
+    r = 0.3 * torch.randn(R, M, 3, device=device, generator=gen)
+    got = pairwise_emd(s, r)
+    pairs = emd_cost(s[:, None].expand(S, R, N, 3).reshape(S * R, N, 3),
+                     r[None].expand(S, R, M, 3).reshape(S * R, M, 3))
+    torch.testing.assert_close(got, pairs.reshape(S, R), rtol=0, atol=0)
+    torch.testing.assert_close(got, pairwise_emd_plain(s, r), rtol=2e-4,
+                               atol=1e-5)
+
+
 def test_kernels_reject_what_they_do_not_take(device):
     a = torch.randn(2, 10, 3, device=device)
     with pytest.raises(ValueError):
@@ -110,3 +163,10 @@ def test_kernels_reject_what_they_do_not_take(device):
         nn_distance(a.double(), a.double())
     with pytest.raises(ValueError):
         pairwise_cd_stats(a.transpose(0, 1), a, 0.1)
+    with pytest.raises(ValueError):
+        emd_cost(a, torch.randn(3, 10, 3, device=device))  # batch differs
+    with pytest.raises(ValueError):
+        pairwise_emd(a, a.double())
+    big = torch.randn(1, 6000, 3, device=device)
+    with pytest.raises(ValueError, match="shared memory"):
+        emd_cost(big, big)  # 288 KB of shared memory

@@ -1,7 +1,8 @@
 """Properties of the port that are not about numbers: it loads no jax,
 its flagship dict is the airplane YAML's model keys, its precision is
-fp32 'highest', CPU tensors never launch a kernel, and its weight
-converter is the inverse of the JAX package's torch importer."""
+fp32 'highest', CPU tensors never launch a kernel (the EMD gradient
+included), and its weight converter is the inverse of the JAX package's
+torch importer."""
 
 import os
 import subprocess
@@ -22,8 +23,13 @@ from go_with_the_flows_tpu_torch.ops.kernels.chamfer import (
     chamfer,
     nn_distance,
 )
+from go_with_the_flows_tpu_torch.ops.kernels.emd import (
+    emd_backward,
+    emd_cost,
+)
 from go_with_the_flows_tpu_torch.ops.kernels.pairwise import (
     pairwise_cd_stats,
+    pairwise_emd,
 )
 from go_with_the_flows_tpu_torch.ops.kernels.point_decode import (
     film_alpha_beta,
@@ -82,7 +88,8 @@ def test_precision_is_highest_only():
 
 
 def test_cpu_tensors_never_launch_a_kernel():
-    wrappers = (point_decode, nn_distance, pairwise_cd_stats)
+    wrappers = (point_decode, nn_distance, pairwise_cd_stats, emd_cost,
+                emd_backward, pairwise_emd)
     before = [w.launches for w in wrappers]
     model = FlowMixtureModel(n_components=2, g_latent_space_size=12,
                              g_prior_n_flows=1, p_decoder_n_flows=2,
@@ -94,12 +101,19 @@ def test_cpu_tensors_never_launch_a_kernel():
     nn_distance(a, b)
     chamfer(a, b)
     pairwise_cd_stats(a, b, 0.1)
-    assert [w.launches for w in wrappers] == before == [0, 0, 0]
+    pairwise_emd(a, b)
+    a.requires_grad_()
+    emd_cost(a, b[:, :5]).sum().backward()
+    assert a.grad.shape == a.shape
+    assert [w.launches for w in wrappers] == before == [0] * 6
 
 
 def test_kernel_sources_are_the_three_cuda_files():
+    """Named for the three files of the first slice; the EMD slice added
+    the fourth."""
     names = sorted(os.path.basename(s) for s in build.sources())
-    assert names == ["nn_distance.cu", "pairwise_cd.cu", "point_decode.cu"]
+    assert names == ["emd.cu", "nn_distance.cu", "pairwise_cd.cu",
+                     "point_decode.cu"]
     assert build.BUILD_DIR.endswith(os.path.join("go_with_the_flows_tpu_torch",
                                                  "_build"))
 

@@ -1,9 +1,11 @@
-"""The port's Chamfer-side metrics against the JAX package's, 6 vs 6
-clouds on the CPU (both sides in fp32 from the same numpy clouds).
+"""The port's metrics against the JAX package's, 6 vs 6 clouds on the
+CPU (both sides in fp32 from the same numpy clouds).
 
 Tolerances: MMD and CD rtol 1e-5 (the same per-pair minima, averaged in
-another order); COV and 1-NNA exact (argmins and nearest neighbours of
-matrices that agree to 1e-5).
+another order); MMD-EMD and paired EMD rtol 1e-4 (the auction's sums run
+in another order, the bound of tests/test_pallas_kernels.py); COV and
+1-NNA exact (argmins and nearest neighbours of matrices that agree to
+1e-4 on these sets).
 """
 
 import numpy as np
@@ -64,9 +66,49 @@ def test_ref_cache_reuses_and_guards():
     assert moved["1-NN-CD-acc"] == want["1-NN-CD-acc"]
 
 
-def test_emd_is_not_ported():
-    gen, ref = _sets(4)
-    with pytest.raises(NotImplementedError, match="EMD"):
-        tev.compute_all_metrics(gen, ref, 60, emd_option=True)
-    with pytest.raises(NotImplementedError, match="EMD"):
-        tev.EMD_CD_F1(gen, ref, 60, emd_option=True)
+@pytest.mark.parametrize("seed", [4, 5])
+def test_compute_all_metrics_emd_matches_jax(seed):
+    gen, ref = _sets(seed)
+    opts = dict(f1_threshold=THR, cd_option=True, emd_option=True)
+    got = tev.compute_all_metrics(gen, ref, 60, **opts)
+    want = jev.compute_all_metrics(gen, ref, 60, **opts)
+    for key in ("lgan_mmd", "lgan_mmd_smp"):
+        np.testing.assert_allclose(got[f"{key}-EMD"], want[f"{key}-EMD"],
+                                   rtol=1e-4)
+    assert got["lgan_cov-EMD"] == want["lgan_cov-EMD"]
+    np.testing.assert_array_equal(got["idx_mmd-EMD"], want["idx_mmd-EMD"])
+    for key in ("acc", "acc_t", "acc_f"):
+        assert got[f"1-NN-EMD-{key}"] == want[f"1-NN-EMD-{key}"]
+    assert got["1-NN-CD-acc"] == want["1-NN-CD-acc"]
+
+
+def test_paired_emd_matches_jax():
+    gen, ref = _sets(6)
+    for reduced in (True, False):
+        got = tev.EMD_CD_F1(gen, ref, 4, reduced=reduced, emd_option=True,
+                            cd_option=True)
+        want = jev.EMD_CD_F1(gen, ref, 4, reduced=reduced, emd_option=True,
+                             cd_option=True)
+        np.testing.assert_allclose(got["EMD"], want["EMD"], rtol=1e-4)
+        np.testing.assert_allclose(got["CD"], want["CD"], rtol=1e-5)
+    assert tev.EMD_CD_F1(gen, ref, 4, cd_option=True)["EMD"] == 0
+
+
+def test_ref_cache_is_keyed_by_emd_option():
+    """A cache filled by a CD-only call holds an all-zero EMD rr matrix;
+    a later call with EMD must compute its own."""
+    gen, ref = _sets(7)
+    cache = {}
+    tev.compute_all_metrics(gen, ref, 60, f1_threshold=THR, cd_option=True,
+                            ref_cache=cache)
+    opts = dict(f1_threshold=THR, cd_option=True, emd_option=True)
+    got = tev.compute_all_metrics(gen, ref, 60, ref_cache=cache, **opts)
+    assert len(cache) == 2
+    want = jev.compute_all_metrics(gen, ref, 60, **opts)
+    for key in ("acc", "acc_t", "acc_f"):
+        assert got[f"1-NN-EMD-{key}"] == want[f"1-NN-EMD-{key}"]
+    np.testing.assert_allclose(got["lgan_mmd-EMD"], want["lgan_mmd-EMD"],
+                               rtol=1e-4)
+    again = tev.compute_all_metrics(gen, ref, 60, ref_cache=cache, **opts)
+    assert len(cache) == 2
+    assert again["1-NN-EMD-acc"] == got["1-NN-EMD-acc"]

@@ -31,6 +31,10 @@ from go_with_the_flows_tpu.models.mixture import (
 )
 from go_with_the_flows_tpu.utils.config import count_params as j_count_params
 from go_with_the_flows_tpu_torch.eval.evaluating import _denormalize, evaluate
+from go_with_the_flows_tpu_torch.metrics.evaluation import (
+    EMD_CD_F1,
+    compute_all_metrics,
+)
 from go_with_the_flows_tpu_torch.models.mixture import FlowMixtureModel
 from go_with_the_flows_tpu_torch.train.step import make_sample_step
 from go_with_the_flows_tpu_torch.utils.config import count_params
@@ -157,6 +161,43 @@ def test_sample_step_and_evaluate(mode):
                for _ in range(2)]
     assert results[0] == results[1]
     assert results[0] and all(np.isfinite(x) for x in results[0].values())
+
+
+@pytest.mark.parametrize("mode,keys", [
+    ("generating", ("emd_mmds", "emd_covs", "emd_1nns")),
+    ("autoencoding", ("emd",)),
+])
+def test_evaluate_with_emd(mode, keys):
+    """evaluate(..., emd=True) on the CPU: the JAX package's keys and
+    scales, the CD keys unchanged by it, and the EMD values those of the
+    metrics on the same clouds (the samples are fixed by the seed)."""
+    port = FlowMixtureModel(**CONFIG,
+                            generator=torch.Generator().manual_seed(9))
+    rng = np.random.RandomState(10)
+    clouds = (rng.randn(3, 3, N) * 0.3).astype(np.float32)
+    batches = [{"cloud": clouds, "eval_cloud": clouds}]
+    step = make_sample_step(port, N, mode)
+    got = evaluate(batches, step, torch.Generator().manual_seed(2), "cpu",
+                   util_mode=mode, cd=True, emd=True)
+    cd_only = evaluate(batches, step, torch.Generator().manual_seed(2),
+                       "cpu", util_mode=mode, cd=True)
+    assert set(got) == set(cd_only) | set(keys)
+    assert all(got[k] == v for k, v in cd_only.items())
+    samples, _, _ = step(torch.from_numpy(clouds),
+                         torch.Generator().manual_seed(2))
+    gen = samples.numpy().transpose(0, 2, 1)
+    ref = clouds.transpose(0, 2, 1)
+    if mode == "autoencoding":
+        want = {"emd": float(EMD_CD_F1(gen, ref, 60,
+                                       emd_option=True)["EMD"]) * 1e2}
+    else:
+        m = compute_all_metrics(gen, ref, 60, emd_option=True)
+        want = {"emd_mmds": float(m["lgan_mmd-EMD"]) * 1e2,
+                "emd_covs": float(m["lgan_cov-EMD"]) * 1e2,
+                "emd_1nns": float(m["1-NN-EMD-acc"]) * 1e2}
+    for k in keys:
+        assert np.isfinite(got[k])
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-6)
 
 
 @pytest.mark.parametrize("flags", [
