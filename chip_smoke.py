@@ -19,7 +19,17 @@ non-zero at the first failure:
      points, then the EMD between the samples and their references as a
      differentiable loss, with all six kernel launch counters read around
      them; a small-input check against the CPU path; sample+CD clouds/s
-     at B=64 and B=1024 for the kernel path and the plain path.
+     at B=64 and B=1024 for the kernel path and the plain path;
+  4. train: the flagship model's training step (make_train_step) at
+     B=64: one step from one state through the train-decode kernels and
+     through the decoder's modules (the plain path), compared; twenty
+     kernel-path steps on seeded clouds with the two train-decode launch
+     counters read around them; ms/step, clouds/s and peak memory of both
+     paths; a torch.profiler pass over one warm kernel-path step.
+
+Phase 2 also holds the train-decode kernels (forward, backward) against
+their plain versions at the flagship decoder's shape and at a ragged N
+and a small batch, and checks that two launches give equal bits.
 
 Its last two lines are a JSON object with one entry per kernel and the
 JSON status line {"ok": true, "device": {...}}.
@@ -36,6 +46,12 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 N_POINTS = 2048
 BATCH = 64
+# optimizer keys of configs/config_generative_modeling_airplane.yaml
+# (epoch_length is the dataset's; the flagship's lr and beta2 are
+# constant, so it does not matter here)
+TRAIN_HP = dict(epoch_length=100, cycle_length=400, min_lr=0.000256,
+                max_lr=0.000256, beta1=0.9, min_beta2=0.99, max_beta2=0.99,
+                wd=1e-6)
 
 
 def fail(msg: str) -> None:
@@ -338,6 +354,119 @@ def check_pairwise_emd(S, R, N, M, seed, timed):
     return err, times
 
 
+def train_decode_inputs(config, B, N, seed):
+    """Packed train-mode arrays of the config's K-component decoder (random
+    weights from `seed`, as the training path's first step sees them),
+    FiLM affines for a random latent, and a state p (K, B, 3, N), all on
+    the card."""
+    import torch
+
+    from go_with_the_flows_tpu_torch.models.mixture import FlowMixtureModel
+    from go_with_the_flows_tpu_torch.ops.kernels.train_decode import (
+        film_ab_train, pack_point_decoder_train)
+
+    gen = torch.Generator().manual_seed(seed)
+    model = FlowMixtureModel(**config, generator=gen)
+    dec = model.pc_decoder.cuda()
+    packed = {k: v.detach() for k, v in pack_point_decoder_train(dec).items()}
+    g = torch.randn(B, model.g_latent_space_size, generator=gen).cuda()
+    ab, _ = film_ab_train(packed, g)
+    p = 0.3 * torch.randn(model.n_components, B, 3, N, generator=gen).cuda()
+    return packed, ab.detach(), p
+
+
+def check_train_decode(config, B, N, seed, timed):
+    """Kernel 7 against its plain version (p0, logvar sum and saved states
+    atol 1e-4; batch statistics rtol 1e-5, atol 1e-5 for entries near 0);
+    kernel 8 against its plain version on kernel 7's residuals (every
+    packed array's and ab's gradient within 3e-2 of its own largest
+    entry); both bit-equal over two launches.
+
+    The input cotangent is held in norm: |dp - plain| / |plain| <= 3e-3,
+    and at most 3 in 10,000 entries beyond 1e-3 of the largest. Its
+    largest entries differ more, in both versions alike: a point whose
+    pre-ReLU value lies within rounding of 0 in a BatchNorm feature of
+    small batch variance (1 / sqrt(var + eps) up to about 300) takes the
+    other side of the kink in each float32 order of operations, and its
+    gradient moves by that factor. At the flagship shape the plain
+    version is itself up to 2.6e-2 of its largest entry from the same
+    computation in float64, on a few dozen of 1.6 M entries (the timed
+    call prints kernel and plain against float64)."""
+    import torch
+
+    from go_with_the_flows_tpu_torch.ops.kernels.train_decode import (
+        train_decode_bwd, train_decode_bwd_plain, train_decode_fwd,
+        train_decode_fwd_plain)
+
+    packed, ab, p = train_decode_inputs(config, B, N, seed)
+    K, C, _, f = packed["w1"].shape[:4]
+    tag = f"train_decode K={K} B={B} N={N} C={C} f={f}"
+    got = train_decode_fwd(packed, ab, p)
+    want = train_decode_fwd_plain(packed, ab, p)
+    fwd_err = max(check_close(f"{tag} p0", got[0], want[0], 1e-4),
+                  check_close(f"{tag} logvar", got[1], want[1], 1e-4))
+    check_close(f"{tag} saved states", got[2], want[2], 1e-4)
+    check_close(f"{tag} batch stats", got[3], want[3], 1e-5, 1e-5)
+    if not all(torch.equal(a, b) for a, b in
+               zip(got, train_decode_fwd(packed, ab, p))):
+        fail(f"{tag}: two forward launches differ")
+    _, _, xsave, stats = got
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    dp0 = torch.randn(p.shape, device="cuda", generator=gen)
+    dlv = torch.randn(p.shape, device="cuda", generator=gen)
+    kb = train_decode_bwd(packed, ab, xsave, stats, dp0, dlv)
+    dp, grads, dab = train_decode_bwd_plain(packed, ab, xsave, stats, dp0,
+                                            dlv)
+
+    def rel(a, b):
+        return ((a.double() - b.double()).abs().max()
+                / b.double().abs().max().clamp_min(1e-30)).item()
+
+    pairs = [("dp", kb[0], dp)] + [
+        (f"d{k}", kb[1][k], v) for k, v in grads.items()] + [
+        ("dab", kb[2], dab)]
+    bwd_err = max((a - b).abs().max().item() for _, a, b in pairs)
+    dp_norm = ((kb[0] - dp).norm() / dp.norm()).item()
+    dp_far = ((kb[0] - dp).abs() > 1e-3 * dp.abs().max()).float().mean().item()
+    say(f"    {tag} backward, |diff| / max |plain|: " + ", ".join(
+        f"{name} {rel(a, b):.2g}" for name, a, b in pairs)
+        + f"; dp in norm {dp_norm:.2g}, share of dp beyond 1e-3 of its "
+        f"max {dp_far:.2g}; max |diff| {bwd_err:.3g}")
+    if not (dp_norm <= 3e-3 and dp_far <= 3e-4):
+        fail(f"{tag} backward dp: {dp_norm:.3g} in norm (bound 3e-3), "
+             f"{dp_far:.3g} of entries beyond 1e-3 of the max (bound 3e-4)")
+    for name, a, b in pairs[1:]:
+        if not rel(a, b) <= 3e-2:
+            fail(f"{tag} backward {name}: {rel(a, b):.3g} of its largest "
+                 "entry (bound 3e-2)")
+    again = train_decode_bwd(packed, ab, xsave, stats, dp0, dlv)
+    if not (torch.equal(kb[0], again[0]) and torch.equal(kb[2], again[2])
+            and all(torch.equal(kb[1][k], again[1][k]) for k in grads)):
+        fail(f"{tag}: two backward launches differ")
+    times = None
+    if timed:
+        f64 = train_decode_bwd_plain(
+            {k: v.double() for k, v in packed.items()}, ab.double(),
+            xsave.double(), stats.double(), dp0.double(), dlv.double())
+        say(f"    {tag} backward against float64 (|diff| / max), kernel / "
+            f"plain: dp {rel(kb[0], f64[0]):.2g} / {rel(dp, f64[0]):.2g}, dw1 "
+            f"{rel(kb[1]['w1'], f64[1]['w1']):.2g} / "
+            f"{rel(grads['w1'], f64[1]['w1']):.2g}, dab "
+            f"{rel(kb[2], f64[2]):.2g} / {rel(dab, f64[2]):.2g}")
+        del f64
+        fwd = cuda_ms(lambda: train_decode_fwd(packed, ab, p), 5)
+        fwd_plain = cuda_ms(lambda: train_decode_fwd_plain(packed, ab, p), 2)
+        bwd = cuda_ms(
+            lambda: train_decode_bwd(packed, ab, xsave, stats, dp0, dlv), 3)
+        bwd_plain = cuda_ms(lambda: train_decode_bwd_plain(
+            packed, ab, xsave, stats, dp0, dlv), 1)
+        times = {"train_decode_fwd": (fwd, fwd_plain),
+                 "train_decode_bwd": (bwd, bwd_plain)}
+        say(f"    {tag}: forward kernel {fwd:.3f} ms, plain {fwd_plain:.3f} "
+            f"ms; backward kernel {bwd:.3f} ms, plain {bwd_plain:.3f} ms")
+    return fwd_err, bwd_err, times
+
+
 def phase_kernels():
     from go_with_the_flows_tpu_torch.utils.config import FLAGSHIP_AIRPLANE
 
@@ -374,6 +503,16 @@ def phase_kernels():
     pe_err, _ = check_pairwise_emd(5, 7, 50, 77, 15, timed=False)
     pe_big_err, pe_times = check_pairwise_emd(32, 32, N_POINTS, N_POINTS, 16,
                                               timed=True)
+
+    # train decode: a ragged N, a small batch, then the flagship shape
+    td_fwd, td_bwd = [], []
+    for B, N, seed in ((16, 2000, 17), (2, N_POINTS, 18)):
+        f_err, b_err, _ = check_train_decode(FLAGSHIP_AIRPLANE, B, N, seed,
+                                             timed=False)
+        td_fwd.append(f_err)
+        td_bwd.append(b_err)
+    f_err, b_err, td_times = check_train_decode(
+        FLAGSHIP_AIRPLANE, BATCH, N_POINTS, 19, timed=True)
     return {
         "point_decode": (pd_err, pd_times["direct"]),
         "nn_distance": (nn_err, nn_times),
@@ -381,6 +520,10 @@ def phase_kernels():
         "emd_cost": (max(cost_errs + [c]), emd_times["emd_cost"]),
         "emd_backward": (max(bwd_errs + [g]), emd_times["emd_backward"]),
         "pairwise_emd": (max(pe_err, pe_big_err), pe_times),
+        "train_decode_fwd": (max(td_fwd + [f_err]),
+                             td_times["train_decode_fwd"]),
+        "train_decode_bwd": (max(td_bwd + [b_err]),
+                             td_times["train_decode_bwd"]),
     }
 
 
@@ -607,6 +750,229 @@ def phase_slice(card):
     return launches
 
 
+def device_kernels(prof):
+    """(milliseconds, launches, name) of every kernel and copy that ran on
+    the card in a profile, the longest first (user annotations, which
+    span other kernels, left out)."""
+    from torch.autograd import DeviceType
+
+    rows = [(e.self_device_time_total / 1000.0, e.count, e.key)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+    return sorted(rows, reverse=True)
+
+
+def host_ops(prof):
+    """(self host milliseconds, calls, name) of the host-side operations
+    of a profile, the longest first."""
+    from torch.autograd import DeviceType
+
+    rows = [(e.self_cpu_time_total / 1000.0, e.count, e.key)
+            for e in prof.key_averages() if e.device_type == DeviceType.CPU]
+    return sorted(rows, reverse=True)
+
+
+def train_step_ms(step, batches, reps):
+    """Host milliseconds per step over `reps` steps, ending in a
+    synchronize, and the peak device memory over them (GB)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    for i in range(reps):
+        clouds = batches[i % len(batches)]
+        step(clouds, clouds)
+    torch.cuda.synchronize()
+    ms = 1000.0 * (time.perf_counter() - t) / reps
+    return ms, torch.cuda.max_memory_allocated() / 1e9
+
+
+def check_train_steps(base, clouds, eps):
+    """One step from one state through the kernels and through the
+    decoder's modules: metrics rtol 1e-4, every parameter's gradient
+    within 3e-2 of its own largest entry, parameters atol 5e-4, BatchNorm
+    buffers atol 1e-4. The PointNet's last BatchNorm bias is invariant
+    under the loss (the posterior's first BatchNorm removes it), so its
+    gradient is rounding noise and AMSGrad moves it by +-lr either way
+    (RESULTS.md round 5): it is held to 2 lr. The step runs at lr 2e-4,
+    as tests/test_train_kernel.py holds the TPU kernels' step."""
+    import copy
+
+    import torch
+
+    from go_with_the_flows_tpu_torch.ops.layers import BatchNorm
+    from go_with_the_flows_tpu_torch.optim import make_optimizer
+    from go_with_the_flows_tpu_torch.train.step import make_train_step
+
+    hp = dict(TRAIN_HP, min_lr=2e-4, max_lr=2e-4)
+    walker = "pc_encoder." + [n for n, m in base.pc_encoder.named_modules()
+                              if isinstance(m, BatchNorm)][-1] + ".bias"
+    say(f"    one step at B={clouds.shape[0]}, lr {hp['max_lr']:g}")
+    out = {}
+    for fused in (False, True):
+        model = copy.deepcopy(base).cuda()
+        step = make_train_step(model, make_optimizer(
+            list(model.parameters()), **hp), fused_decoder=fused)
+        metrics = step(clouds, clouds, posterior_eps=eps)
+        grads = {n: q.grad for n, q in model.named_parameters()}
+        out[fused] = ({k: float(v) for k, v in metrics.items()}, grads,
+                      model.state_dict())
+        del model, step
+    (mp, gp, sp), (mk, gk, sk) = out[False], out[True]
+    for k in mp:
+        if abs(mk[k] - mp[k]) > 1e-4 * abs(mp[k]):
+            fail(f"train step {k}: kernel path {mk[k]!r}, plain {mp[k]!r}")
+    say("    one step, kernel path vs plain path: " + ", ".join(
+        f"{k} {mk[k]:.6g} vs {mp[k]:.6g}" for k in mp))
+    worst_grad = (0.0, "")
+    for name, want in gp.items():
+        got = gk[name]
+        if (want is None) != (got is None):
+            fail(f"train step: {name} has a gradient on one path only")
+        if want is None:
+            continue
+        rel = ((got - want).abs().max()
+               / (want.abs().max() + 1e-30)).item()
+        if name != walker:
+            worst_grad = max(worst_grad, (rel, name))
+    buffers = {n for n, _ in base.named_buffers()}
+    worst = {True: (0.0, ""), False: (0.0, "")}
+    for name, want in sp.items():
+        diff = (sk[name].float() - want.float()).abs().max().item()
+        if name == walker:
+            bound = 2 * hp["max_lr"] * (1 + 1e-3)
+            walk = diff
+        else:
+            bound = 1e-4 if name in buffers else 5e-4
+            worst[name in buffers] = max(worst[name in buffers],
+                                         (diff, name))
+        if diff > bound:
+            fail(f"train step: {name} differs by {diff:.3g} (bound {bound:g})")
+    if worst_grad[0] > 3e-2:
+        fail(f"train step: gradient of {worst_grad[1]} differs by "
+             f"{worst_grad[0]:.3g} of its largest entry (bound 3e-2)")
+    say(f"    worst gradient {worst_grad[0]:.3g} of its max "
+        f"({worst_grad[1]}); worst parameter |diff| {worst[False][0]:.3g} "
+        f"({worst[False][1]}); worst buffer |diff| {worst[True][0]:.3g} "
+        f"({worst[True][1]}); {walker} |diff| {walk:.3g} (bound 2 lr)")
+
+
+def phase_train(card):
+    import copy
+    import math
+
+    import numpy as np
+    import torch
+
+    from go_with_the_flows_tpu_torch.models.mixture import FlowMixtureModel
+    from go_with_the_flows_tpu_torch.ops.kernels.train_decode import (
+        train_decode_bwd, train_decode_fwd)
+    from go_with_the_flows_tpu_torch.optim import make_optimizer
+    from go_with_the_flows_tpu_torch.train.step import make_train_step
+    from go_with_the_flows_tpu_torch.utils.config import FLAGSHIP_AIRPLANE
+
+    say(f"[4] train: flagship airplane model, B={BATCH}, N={N_POINTS}")
+    base = FlowMixtureModel(**FLAGSHIP_AIRPLANE,
+                            generator=torch.Generator().manual_seed(0))
+    jiggle_batch_norms(base, 1000)
+    rng = np.random.default_rng(3)
+    batches = [torch.from_numpy(reference_clouds(rng, BATCH)).cuda()
+               for _ in range(4)]
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    eps = torch.randn(BATCH, base.g_latent_space_size, device="cuda",
+                      generator=gen)
+    # the plain path's autograd holds every coupling's activations: the
+    # comparison runs at the largest batch at which it fits
+    for B in (BATCH, BATCH // 2, BATCH // 4):
+        try:
+            check_train_steps(base, batches[0][:B].contiguous(), eps[:B])
+            break
+        except torch.cuda.OutOfMemoryError:
+            torch.cuda.empty_cache()
+            say(f"    one-step comparison: the plain path is out of memory "
+                f"at B={B}")
+    else:
+        fail("the plain training path does not fit at any batch tried")
+    torch.cuda.empty_cache()
+
+    def trainer(fused):
+        model = copy.deepcopy(base).cuda()
+        opt = make_optimizer(list(model.parameters()), **TRAIN_HP)
+        step = make_train_step(model, opt, fused_decoder=fused)
+        return lambda p, g: step(p, g, gen)
+
+    # the main path: twenty kernel-path steps from the seeded state
+    step_k = trainer(None)
+    wrappers = (train_decode_fwd, train_decode_bwd)
+    for w in wrappers:
+        w.launches = 0
+    losses = []
+    for i in range(20):
+        clouds = batches[i % len(batches)]
+        losses.append(step_k(clouds, clouds)["loss"])
+    losses = [float(v) for v in losses]
+    launches = {w.__name__: w.launches for w in wrappers}
+    say(f"    20 kernel-path steps: loss {losses[0]:.2f} -> {losses[-1]:.2f}"
+        f"; launches {launches}")
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"train losses are not finite: {losses}")
+    for name, n in launches.items():
+        if n < 1:
+            fail(f"{name} was not launched on the training path")
+
+    ms_k, mem_k = train_step_ms(step_k, batches, 10)
+    say(f"    kernel path B={BATCH}: {ms_k:.2f} ms/step, "
+        f"{1000.0 * BATCH / ms_k:.1f} train clouds/s, peak "
+        f"{mem_k:.2f} GB [{card}]")
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step_k(batches[0], batches[0])
+        torch.cuda.synchronize()
+    rows = device_kernels(prof)
+    busy = sum(r[0] for r in rows)
+    if busy <= 0:
+        say("    profiler: no device time recorded (idle share not "
+            "measured)")
+    else:
+        # one stream: the kernels' sum is the time the card was busy
+        say(f"    profiled step: device busy {busy:.2f} ms of {ms_k:.2f} "
+            f"ms/step, idle share {max(0.0, 1.0 - busy / ms_k):.3f}; "
+            f"{sum(r[1] for r in rows)} device operations")
+        for t, n, name in rows[:12]:
+            say(f"      {t:9.3f} ms {n:6d}x {name[:70]}")
+    hosts = host_ops(prof)
+    say(f"    profiled step, host side (profiler overhead included): "
+        f"{sum(r[1] for r in hosts)} operations, top by self time:")
+    for t, n, name in hosts[:8]:
+        say(f"      {t:9.3f} ms {n:6d}x {name[:70]}")
+    del step_k
+    torch.cuda.empty_cache()
+
+    # the plain path, at the largest batch that fits on the card
+    for B in (BATCH, BATCH // 2, BATCH // 4):
+        try:
+            step_p = trainer(False)
+            small = [c[:B].contiguous() for c in batches]
+            step_p(small[0], small[0])
+            ms_p, mem_p = train_step_ms(step_p, small, 3)
+        except torch.cuda.OutOfMemoryError:
+            step_p = None
+            torch.cuda.empty_cache()
+            say(f"    plain path: out of memory at B={B}")
+            continue
+        say(f"    plain path B={B}: {ms_p:.2f} ms/step, "
+            f"{1000.0 * B / ms_p:.1f} train clouds/s, peak {mem_p:.2f} GB "
+            f"[{card}]")
+        break
+    else:
+        fail("the plain training path does not fit at any batch tried")
+    return launches
+
+
 def main() -> None:
     try:
         import torch
@@ -621,9 +987,18 @@ def main() -> None:
         fail(f"the port package is not next to chip_smoke.py ({e})")
     precision.get_matmul_precision()
 
+    marks = [time.perf_counter()]
     phase_build()
+    marks.append(time.perf_counter())
     measured = phase_kernels()
+    marks.append(time.perf_counter())
     launches = phase_slice(card)
+    marks.append(time.perf_counter())
+    launches.update(phase_train(card))
+    marks.append(time.perf_counter())
+    say("phase seconds: " + ", ".join(
+        f"{name} {b - a:.1f}" for name, a, b in
+        zip(("build", "kernels", "slice", "train"), marks, marks[1:])))
     if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
         fail("jax was imported")
 
@@ -646,6 +1021,12 @@ def main() -> None:
         "pairwise_emd": (
             "go_with_the_flows_tpu_torch/csrc/emd.cu",
             "go_with_the_flows_tpu/ops/pallas/pairwise_kernel.py:187"),
+        "train_decode_fwd": (
+            "go_with_the_flows_tpu_torch/csrc/train_decode.cu",
+            "go_with_the_flows_tpu/ops/pallas/train_kernel.py:806"),
+        "train_decode_bwd": (
+            "go_with_the_flows_tpu_torch/csrc/train_decode.cu",
+            "go_with_the_flows_tpu/ops/pallas/train_kernel.py:880"),
     }
     kernels = []
     for name, (err, (ms, plain_ms)) in measured.items():

@@ -1,4 +1,4 @@
-"""Encoders, eval mode (counterpart of go_with_the_flows_tpu/models/encoders.py).
+"""Encoders (counterpart of go_with_the_flows_tpu/models/encoders.py).
 
 Point clouds are (B, C, N); latent features are (B, F). Module names
 follow the reference's torch modules (`features.init_sd`,
@@ -46,12 +46,14 @@ class PointNetCloudEncoder(nn.Module):
 class FeatureEncoder(nn.Module):
     """n-layer Linear + BN + SiLU MLP with a `mus` head and, unless
     deterministic, a `logvars` head (near-identity heads: weight
-    N(0, std), constant bias)."""
+    N(0, std), constant bias). `bn_momentum` is its BatchNorms' running
+    statistics momentum (flax convention)."""
 
     def __init__(self, in_features: int, n_layers: int,
                  latent_space_size: int, deterministic: bool = False,
                  mu_weight_std: float = 0.001, mu_bias: float = 0.0,
-                 logvar_weight_std: float = 0.01, logvar_bias: float = 0.0):
+                 logvar_weight_std: float = 0.01, logvar_bias: float = 0.0,
+                 bn_momentum: float = 0.9):
         super().__init__()
         self.n_layers = n_layers
         self.deterministic = deterministic
@@ -59,7 +61,8 @@ class FeatureEncoder(nn.Module):
         for i in range(n_layers):
             self.features.add_module(
                 f"mlp{i}", Linear(in_features, in_features, bias=False))
-            self.features.add_module(f"mlp{i}_bn", BatchNorm(in_features))
+            self.features.add_module(
+                f"mlp{i}_bn", BatchNorm(in_features, momentum=bn_momentum))
         self.mus = nn.Module()
         self.mus.mu_mlp0 = Linear(in_features, latent_space_size,
                                   init_std=mu_weight_std, bias_value=mu_bias)

@@ -1,5 +1,6 @@
-"""Conditional RealNVP coupling flows, eval mode (counterpart of
-go_with_the_flows_tpu/models/flows.py).
+"""Conditional RealNVP coupling flows (counterpart of
+go_with_the_flows_tpu/models/flows.py); their BatchNorms follow the
+module's train/eval mode.
 
 Module and parameter names follow the reference's torch modules, as
 go_with_the_flows_tpu/utils/torch_import.py spells them

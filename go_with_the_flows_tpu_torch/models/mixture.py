@@ -1,5 +1,6 @@
-"""Mixture-of-flows point-cloud VAE, eval paths (counterpart of
-go_with_the_flows_tpu/models/mixture.py).
+"""Mixture-of-flows point-cloud VAE (counterpart of
+go_with_the_flows_tpu/models/mixture.py): the training forward and the
+eval paths.
 
 The K point decoders are one PointDecoderFlow with K-stacked weights
 (`stack=(K,)`), not a loop over K modules. Sampling draws per-point
@@ -7,10 +8,16 @@ component ids, decodes every point through all K components with the
 `point_decode` kernel, and keeps each point's own component, as the JAX
 package does.
 
-The model's methods are deterministic: the noise (g0's epsilon, the base
-epsilon (K, B, 3, N), the component ids) is an argument, drawn by the
-caller (`train/step.py`) from an explicit torch.Generator. The same noise
-therefore gives the same clouds as the JAX package.
+The model's methods are deterministic: the noise (g0's epsilon, the
+posterior's epsilon, the base epsilon (K, B, 3, N), the component ids)
+is an argument, drawn by the caller (`train/step.py`) from an explicit
+torch.Generator. The same noise therefore gives the same clouds and the
+same losses as the JAX package.
+
+Training mode is the module's `self.training` (BatchNorm batch
+statistics); `decode_training` runs the point decoder's inverse either
+through the modules (autograd, the plain path) or through the
+`train_decode` kernels (ops/kernels/train_decode.py).
 """
 
 from __future__ import annotations
@@ -25,6 +32,12 @@ from ..ops.kernels.point_decode import (
     film_alpha_beta,
     pack_point_decoder,
     point_decode,
+)
+from ..ops.kernels.train_decode import (
+    decoder_stats_update,
+    film_ab_train,
+    fused_train_decode,
+    pack_point_decoder_train,
 )
 from ..ops.layers import reset_parameters
 from .encoders import FeatureEncoder, PointNetCloudEncoder, WeightsEncoder
@@ -79,7 +92,8 @@ class FlowMixtureModel(nn.Module):
 
     Parameters are drawn from `generator` (a CPU torch.Generator, so one
     seed gives the same weights on every device; None means seed 0);
-    move the model with `.to(device)` and call `.eval()` before use.
+    move the model with `.to(device)`, and call `.eval()` before sampling
+    or `.train()` before a training forward.
     """
 
     def __init__(
@@ -127,10 +141,14 @@ class FlowMixtureModel(nn.Module):
             mu_weight_std=0.0033, logvar_weight_std=0.033)
         if p_decoder_base_type in ("free", "freevar"):
             free = p_decoder_base_type == "free"
+            # the reference calls the shared p_prior once per component,
+            # K same-batch BatchNorm updates per step: one update with
+            # momentum 0.9^K is the same
             self.p_prior = FeatureEncoder(
                 G, p_prior_n_layers, p_latent_space_size,
                 deterministic=not free,
-                mu_weight_std=0.001 if free else 0.01)
+                mu_weight_std=0.001 if free else 0.01,
+                bn_momentum=0.9 ** K)
         depth, feats = reduce_decoder_params(
             K, params_reduce_mode, p_decoder_n_flows, p_decoder_n_features, G)
         self.pc_decoder = PointDecoderFlow(depth, feats, G, stack=(K,))
@@ -158,22 +176,31 @@ class FlowMixtureModel(nn.Module):
         return self.g_posterior(feats.amax(dim=2))
 
     def encode(self, g_input: torch.Tensor, mode: str,
-               g0_eps: Optional[torch.Tensor] = None) -> Dict:
+               g0_eps: Optional[torch.Tensor] = None,
+               posterior_eps: Optional[torch.Tensor] = None) -> Dict:
         """Prior-flow encoding of a batch.
 
-        autoencoding: g = posterior mean, inverted through the prior flow;
-        generating: g0 = mu0 + exp(lv0 / 2) * g0_eps, pushed forward
-        through the prior flow (g0_eps (B, G) is required).
+        training: g = mu + exp(lv / 2) * posterior_eps from the posterior
+        (posterior_eps (B, G) is required); autoencoding: g = posterior
+        mean; both inverted through the prior flow. generating:
+        g0 = mu0 + exp(lv0 / 2) * g0_eps, pushed forward through the
+        prior flow (g0_eps (B, G) is required).
         """
         B, G = g_input.shape[0], self.g_latent_space_size
         mu0 = self.g0_prior_mus.expand(B, G)
         lv0 = self.g0_prior_logvars.expand(B, G)
         out = {"g_prior_mus0": mu0, "g_prior_logvars0": lv0}
-        if mode == "autoencoding":
+        if mode in ("training", "autoencoding"):
             post_mus, post_logvars = self.posterior(g_input)
             out["g_posterior_mus"] = post_mus
             out["g_posterior_logvars"] = post_logvars
-            g_s = post_mus
+            if mode == "training":
+                if posterior_eps is None:
+                    raise ValueError("training mode needs posterior_eps "
+                                     "(B, G)")
+                g_s = post_mus + torch.exp(0.5 * post_logvars) * posterior_eps
+            else:
+                g_s = post_mus
             g0, flow_lv_sum = self.g_prior(g_s, "inverse")
         elif mode == "generating":
             if g0_eps is None:
@@ -183,7 +210,7 @@ class FlowMixtureModel(nn.Module):
         else:
             raise NotImplementedError(
                 f"encode mode {mode!r} is not ported yet (the port has the "
-                "generating and autoencoding eval paths)")
+                "training, generating and autoencoding modes)")
         out["g0_sample"] = g0
         out["g_sample"] = g_s
         out["g_prior_logvar_sum"] = lv0 + flow_lv_sum
@@ -209,12 +236,47 @@ class FlowMixtureModel(nn.Module):
     def get_weights(self, g_sample: torch.Tensor,
                     warmup: bool = False) -> torch.Tensor:
         """Mixture log-weights (B, K): the global logits during warmup or
-        with global_weights, else the weights encoder."""
+        with global_weights, else the weights encoder. The unused one is
+        not called, so its parameters get no gradient (the JAX package
+        gives them zeros and its optimizer skips them)."""
         if warmup or self.weights_type == "global_weights":
             B = g_sample.shape[0]
             return self.mixture_weights_logits[None, :].expand(
                 B, self.n_components)
         return self.mixture_weights_encoder(g_sample)
+
+    def decode_training(self, p_input: torch.Tensor, g_sample: torch.Tensor,
+                        warmup: bool = False, fused: bool = False) -> Dict:
+        """Inverse-decode p_input (B, 3, N) through all K components with
+        train-mode BatchNorm; returns what flow_mixture_loss reads:
+        p0_samples and p_logvar_sums (K, B, 3, N), p_base_mus and
+        p_base_logvars (B, 3, 1), mixture_weights_logits (B, K).
+
+        fused=False runs the decoder's modules under autograd; fused=True
+        runs `fused_train_decode` (the kernels on a CUDA tensor, their
+        plain versions on a CPU tensor) and writes the batch statistics
+        it returns into the decoder's running statistics.
+        """
+        K = self.n_components
+        B, _, N = p_input.shape
+        p_stack = p_input[None].expand(K, B, 3, N)
+        if fused:
+            packed = pack_point_decoder_train(self.pc_decoder)
+            ab, film_stats = film_ab_train(packed, g_sample)
+            p0, lv_sums, stats = fused_train_decode(
+                packed, ab, p_stack.contiguous())
+            decoder_stats_update(self.pc_decoder, stats, film_stats,
+                                 n_sd=B * N, n_film=B)
+        else:
+            p0, lv_sums = self.pc_decoder(p_stack, g_sample, "inverse")
+        base_mus, base_logvars = self.point_base(g_sample)
+        return {
+            "p0_samples": p0,
+            "p_logvar_sums": lv_sums,
+            "p_base_mus": base_mus,
+            "p_base_logvars": base_logvars,
+            "mixture_weights_logits": self.get_weights(g_sample, warmup),
+        }
 
     @torch.no_grad()
     def pack_decoder(self) -> Dict[str, torch.Tensor]:

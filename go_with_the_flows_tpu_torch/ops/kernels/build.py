@@ -53,6 +53,18 @@ _SIGNATURES = {
     # samples, refs, cost, R, N, M, multi_l, multi_r, pair0, pairs, stream
     "gwtf_pairwise_emd": [_P] * 3 + [_I] * 3 + [ctypes.c_float] * 2
     + [_I] * 2 + [_P],
+    # p, w0, s0, b0, w1, w2, b2, ab, p0, lv, xsave, stats, work,
+    # K, B, C, N, f, stream
+    "gwtf_train_decode_fwd": [_P] * 13 + [_I] * 5 + [_P],
+    # xsave, stats, w0, s0, b0, w1, w2, b2, ab, dp0, dlv, dp, dw0, ds0,
+    # db0, dw1, dw2, db2, dab, work, K, B, C, N, f, stream
+    "gwtf_train_decode_bwd": [_P] * 20 + [_I] * 5 + [_P],
+}
+# entry points that return something else than a cudaError_t
+_OTHER_SIGNATURES = {
+    # which (0 forward, 1 backward), K, B, C, N, f -> floats of scratch
+    "gwtf_train_decode_workspace": ([_I] * 6, ctypes.c_longlong),
+    "gwtf_error_string": ([_I], ctypes.c_char_p),
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -130,8 +142,10 @@ def library() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-        lib.gwtf_error_string.argtypes = [ctypes.c_int]
-        lib.gwtf_error_string.restype = ctypes.c_char_p
+        for name, (argtypes, restype) in _OTHER_SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = restype
         _lib = lib
     return _lib
 

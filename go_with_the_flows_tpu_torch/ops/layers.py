@@ -101,19 +101,26 @@ class Linear(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """BatchNorm over the channel axis with running statistics (eval mode).
-
-    Same arithmetic as TorchBatchNorm with use_running_average:
+    """BatchNorm over the channel axis, as the JAX package's TorchBatchNorm:
     (x - mean) * rsqrt(var + eps), then * weight + bias when affine.
-    Train-mode batch statistics belong to the training step, which the
-    port does not have yet, so a module in training mode raises.
+
+    Eval mode uses the running statistics. Training mode
+    (`self.training`) normalises with the batch statistics, reduced over
+    every axis but the stack axes and the channel axis ((B, N) for point
+    features, B for latents), with the biased variance
+    max(E[x^2] - E[x]^2, 0), and blends them into the running statistics
+    with `momentum` in the flax convention (0.9 here is torch's 0.1):
+    running_var takes the Bessel-corrected variance var * n / (n - 1),
+    as torch does.
     """
 
     def __init__(self, num_features: int, affine: bool = True,
-                 stack: Sequence[int] = (), eps: float = 1e-5):
+                 stack: Sequence[int] = (), eps: float = 1e-5,
+                 momentum: float = 0.9):
         super().__init__()
         self.stack = tuple(stack)
         self.eps = eps
+        self.momentum = momentum
         self.register_buffer("running_mean",
                              torch.zeros(*stack, num_features))
         self.register_buffer("running_var", torch.ones(*stack, num_features))
@@ -132,21 +139,49 @@ class BatchNorm(nn.Module):
             self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError(
-                "train-mode BatchNorm is not ported yet; call .eval()")
         # (..., B, C) or (..., B, C, N): one trailing axis after C for points
-        trailing = x.ndim - len(self.stack) - 2
+        s = len(self.stack)
+        trailing = x.ndim - s - 2
         shape = self.running_mean.shape[:-1] + (1, -1) + (1,) * trailing
 
         def view(t):
             return t.reshape(shape)
 
-        y = (x - view(self.running_mean)) * torch.rsqrt(
-            view(self.running_var) + self.eps)
+        if self.training:
+            red = (s,) + tuple(range(s + 2, x.ndim))
+            mean = x.mean(dim=red)
+            var = torch.clamp(x.square().mean(dim=red) - mean.square(),
+                              min=0.0)
+            n = math.prod(x.shape[i] for i in red)
+            update_running_stats([self], [mean.detach()], [var.detach()], n)
+        else:
+            mean, var = self.running_mean, self.running_var
+        y = (x - view(mean)) * torch.rsqrt(view(var) + self.eps)
         if self.weight is not None:
             y = y * view(self.weight) + view(self.bias)
         return y
+
+
+@torch.no_grad()
+def update_running_stats(bns: Sequence[BatchNorm],
+                         means: Sequence[torch.Tensor],
+                         variances: Sequence[torch.Tensor], n: int) -> None:
+    """Blend batch statistics (mean, biased var), each over n values,
+    into the running statistics of BatchNorms of one momentum m:
+    ra = m * ra + (1 - m) * batch, the running variance taking
+    var * n / (n - 1). One launch per operation for the whole list."""
+    m = bns[0].momentum
+    if any(bn.momentum != m for bn in bns):
+        raise ValueError("update_running_stats: BatchNorms of different "
+                         "momenta")
+    bessel = float(n) / float(max(n - 1, 1))
+    ra_mean = [bn.running_mean for bn in bns]
+    ra_var = [bn.running_var for bn in bns]
+    torch._foreach_mul_(ra_mean, m)
+    torch._foreach_add_(ra_mean, list(means), alpha=1.0 - m)
+    torch._foreach_mul_(ra_var, m)
+    torch._foreach_add_(ra_var, torch._foreach_mul(list(variances), bessel),
+                        alpha=1.0 - m)
 
 
 def reset_parameters(module: nn.Module, generator: torch.Generator) -> None:

@@ -1,12 +1,64 @@
-"""Sampling step (counterpart of `make_sample_step` in
-go_with_the_flows_tpu/train/step.py). The train and eval-loss steps are
-not ported yet."""
+"""Training and sampling steps (counterparts of `make_train_step` and
+`make_sample_step` in go_with_the_flows_tpu/train/step.py). The eval-loss
+step (`make_eval_step`) is not ported yet."""
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Dict, Optional
 
 import torch
+
+from ..losses import flow_mixture_loss
+
+
+def make_train_step(model, optimizer, pnll_weight: float = 1.0,
+                    gnll_weight: float = 1.0, gent_weight: float = 1.0,
+                    fused_decoder: Optional[bool] = None) -> Callable:
+    """Training step of a FlowMixtureModel.
+
+    step(g_clouds (B, 3, N'), p_clouds (B, 3, N), generator, warmup=False,
+    posterior_eps=None) -> {"loss", "pnll", "gnll", "gent"} as 0-d
+    tensors. One forward with train-mode BatchNorm, the loss, the
+    backward and one optimizer step; the model's parameters, its
+    BatchNorm running statistics and the optimizer change in place. The
+    posterior noise (B, G) is drawn from `generator` on the model's
+    device, unless `posterior_eps` hands it in.
+
+    fused_decoder: the point decoder's train-mode inverse and its
+    backward through the `train_decode` kernels (True) or through the
+    decoder's modules under autograd (False); None takes the kernels on
+    a CUDA tensor and the modules on a CPU tensor. True on a CPU tensor
+    raises: the kernels run only on the card.
+    """
+    G = model.g_latent_space_size
+
+    def train_step(g_clouds: torch.Tensor, p_clouds: torch.Tensor,
+                   generator: Optional[torch.Generator] = None,
+                   warmup: bool = False,
+                   posterior_eps: Optional[torch.Tensor] = None
+                   ) -> Dict[str, torch.Tensor]:
+        on_card = p_clouds.device.type == "cuda"
+        fused = on_card if fused_decoder is None else bool(fused_decoder)
+        if fused and not on_card:
+            raise ValueError("fused_decoder=True needs CUDA tensors: the "
+                             "train_decode kernels run only on the card")
+        if posterior_eps is None:
+            posterior_eps = torch.randn(g_clouds.shape[0], G,
+                                        generator=generator,
+                                        device=g_clouds.device)
+        model.train()
+        optimizer.zero_grad(set_to_none=True)
+        out = model.encode(g_clouds, "training",
+                           posterior_eps=posterior_eps)
+        out.update(model.decode_training(p_clouds, out["g_sample"], warmup,
+                                         fused))
+        loss, metrics = flow_mixture_loss(out, pnll_weight, gnll_weight,
+                                          gent_weight)
+        loss.backward()
+        optimizer.step()
+        return {k: v.detach() for k, v in metrics.items()}
+
+    return train_step
 
 
 def make_sample_step(model, n_sampled_points: int,

@@ -34,7 +34,20 @@ from go_with_the_flows_tpu_torch.ops.kernels.point_decode import (
     point_decode,
     point_decode_plain,
 )
-from go_with_the_flows_tpu_torch.train.step import make_sample_step
+from go_with_the_flows_tpu_torch.ops.kernels.train_decode import (
+    film_ab_train,
+    fused_train_decode,
+    pack_point_decoder_train,
+    train_decode_bwd,
+    train_decode_bwd_plain,
+    train_decode_fwd,
+    train_decode_fwd_plain,
+)
+from go_with_the_flows_tpu_torch.optim import make_optimizer
+from go_with_the_flows_tpu_torch.train.step import (
+    make_sample_step,
+    make_train_step,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -170,3 +183,141 @@ def test_kernels_reject_what_they_do_not_take(device):
     big = torch.randn(1, 6000, 3, device=device)
     with pytest.raises(ValueError, match="shared memory"):
         emd_cost(big, big)  # 288 KB of shared memory
+
+
+def _train_decode_inputs(device, f, B, N, seed, n_flows=2, K=2):
+    """Packed train-mode arrays of a K-component decoder whose weights are
+    moved off their near-identity init, FiLM affines for a random latent,
+    and a state p (K, B, 3, N)."""
+    gen = torch.Generator().manual_seed(seed)
+    model = FlowMixtureModel(n_components=K, g_latent_space_size=12,
+                             g_prior_n_flows=1, p_decoder_n_flows=n_flows,
+                             p_decoder_n_features=f, params_reduce_mode="none",
+                             generator=gen)
+    with torch.no_grad():
+        for q in model.pc_decoder.parameters():
+            q.add_(0.05 * torch.randn(q.shape, generator=gen))
+    dec = model.pc_decoder.to(device)
+    packed = {k: v.detach() for k, v in pack_point_decoder_train(dec).items()}
+    g = torch.randn(B, 12, generator=gen).to(device)
+    ab, _ = film_ab_train(packed, g)
+    p = (0.5 * torch.randn(K, B, 3, N, generator=gen)).to(device)
+    return packed, ab.detach(), p
+
+
+def _rel_err(got, want):
+    return ((got - want).abs().max() / (want.abs().max() + 1e-12)).item()
+
+
+@pytest.mark.parametrize("f,B,N", [(8, 3, 333), (37, 4, 700), (64, 2, 129)])
+def test_train_decode_fwd_kernel(device, f, B, N):
+    """Kernel 7 against its plain version at ragged N: p0, the logvar sum
+    and the saved states atol 1e-4, the batch statistics rtol 1e-5
+    (atol 1e-5 for entries near 0); two launches give equal bits."""
+    packed, ab, p = _train_decode_inputs(device, f, B, N, f)
+    got = train_decode_fwd(packed, ab, p)
+    want = train_decode_fwd_plain(packed, ab, p)
+    for a, b in zip(got[:3], want[:3]):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-4)
+    torch.testing.assert_close(got[3], want[3], rtol=1e-5, atol=1e-5)
+    again = train_decode_fwd(packed, ab, p)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("f,B,N", [(8, 3, 333), (37, 4, 700), (64, 2, 129)])
+def test_train_decode_bwd_kernel(device, f, B, N):
+    """Kernel 8 against its plain version on the same residuals: the input
+    cotangent within 1e-3 of its largest entry, every packed array's and
+    ab's gradient within 3e-2 of its own; two launches give equal bits."""
+    packed, ab, p = _train_decode_inputs(device, f, B, N, f + 1)
+    _, _, xsave, stats = train_decode_fwd(packed, ab, p)
+    gen = torch.Generator(device=device).manual_seed(f)
+    dp0 = torch.randn(p.shape, device=device, generator=gen)
+    dlv = torch.randn(p.shape, device=device, generator=gen)
+    got = train_decode_bwd(packed, ab, xsave, stats, dp0, dlv)
+    dp, grads, dab = train_decode_bwd_plain(packed, ab, xsave, stats, dp0,
+                                            dlv)
+    assert _rel_err(got[0], dp) < 1e-3
+    for k, want in grads.items():
+        assert _rel_err(got[1][k], want) < 3e-2, k
+    assert _rel_err(got[2], dab) < 3e-2
+    again = train_decode_bwd(packed, ab, xsave, stats, dp0, dlv)
+    assert torch.equal(got[0], again[0]) and torch.equal(got[2], again[2])
+    for k in grads:
+        assert torch.equal(got[1][k], again[1][k]), k
+
+
+def test_fused_train_decode_autograd(device):
+    """fused_train_decode through autograd (kernels 7 and 8) against the
+    plain pair on the same input."""
+    packed, ab, p = _train_decode_inputs(device, 37, 3, 500, 5)
+    leaves = {k: v.clone().requires_grad_() for k, v in packed.items()}
+    ab_l, p_l = ab.clone().requires_grad_(), p.clone().requires_grad_()
+    gen = torch.Generator(device=device).manual_seed(6)
+    wp = torch.randn(p.shape, device=device, generator=gen)
+    wl = torch.randn(p.shape, device=device, generator=gen)
+    p0, lv, stats = fused_train_decode(leaves, ab_l, p_l)
+    ((p0 * wp).sum() + (lv * wl).sum()).backward()
+    want_p0, want_lv, xsave, want_stats = train_decode_fwd_plain(packed, ab, p)
+    torch.testing.assert_close(p0, want_p0, rtol=0, atol=1e-4)
+    torch.testing.assert_close(lv, want_lv, rtol=0, atol=1e-4)
+    assert not stats.requires_grad
+    dp, grads, dab = train_decode_bwd_plain(packed, ab, xsave, want_stats,
+                                            wp, wl)
+    assert _rel_err(p_l.grad, dp) < 1e-3
+    assert _rel_err(ab_l.grad, dab) < 3e-2
+    for k, want in grads.items():
+        assert _rel_err(leaves[k].grad, want) < 3e-2, k
+
+
+def test_train_step_kernel_matches_plain(device):
+    """One make_train_step step through the kernels against one through
+    the decoder's modules, from the same state and noise: metrics rtol
+    1e-4, BatchNorm buffers atol 1e-4, parameters atol 5e-4."""
+    import copy
+
+    config = dict(n_components=2, g_latent_space_size=12, g_prior_n_flows=2,
+                  g_prior_n_features=8, p_decoder_n_flows=2,
+                  p_decoder_n_features=8, pc_enc_init_n_features=8,
+                  pc_enc_n_features=(8, 16))
+    hp = dict(epoch_length=10, cycle_length=2, min_lr=1e-4, max_lr=1e-4,
+              beta1=0.9, min_beta2=0.99, max_beta2=0.99, wd=1e-6)
+    base = FlowMixtureModel(**config,
+                            generator=torch.Generator().manual_seed(7))
+    gen = torch.Generator(device=device).manual_seed(8)
+    clouds = 0.3 * torch.randn(4, 3, 300, device=device, generator=gen)
+    eps = torch.randn(4, 12, device=device, generator=gen)
+    out = []
+    for fused in (True, False):
+        model = copy.deepcopy(base).to(device)
+        step = make_train_step(model, make_optimizer(
+            list(model.parameters()), **hp), fused_decoder=fused)
+        launches = train_decode_fwd.launches
+        metrics = step(clouds, clouds, posterior_eps=eps)
+        assert (train_decode_fwd.launches - launches) == int(fused)
+        out.append((metrics, model.state_dict()))
+    (mk, sk), (mp, sp) = out
+    for k in mk:
+        torch.testing.assert_close(mk[k], mp[k], rtol=1e-4, atol=0)
+    buffers = {name for name, _ in base.named_buffers()}
+    for name in sk:
+        atol = 1e-4 if name in buffers else 5e-4
+        torch.testing.assert_close(sk[name], sp[name], rtol=0, atol=atol,
+                                   msg=name)
+
+
+def test_train_decode_rejects_what_it_does_not_take(device):
+    packed, ab, p = _train_decode_inputs(device, 8, 2, 50, 9)
+    with pytest.raises(ValueError, match="ab shape"):
+        train_decode_fwd(packed, ab[:, :1], p)
+    with pytest.raises(ValueError):
+        train_decode_fwd(packed, ab.cpu(), p)  # CPU and CUDA mixed
+    with pytest.raises(ValueError):
+        train_decode_fwd(packed, ab, p.double())
+    wide, wide_ab, wide_p = _train_decode_inputs(device, 72, 2, 50, 10)
+    with pytest.raises(ValueError, match="shared-memory"):
+        train_decode_fwd(wide, wide_ab, wide_p)
+    _, _, xsave, stats = train_decode_fwd(packed, ab, p)
+    with pytest.raises(ValueError, match="shape"):
+        train_decode_bwd(packed, ab, xsave[:, 1:], stats, p, p)

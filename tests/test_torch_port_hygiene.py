@@ -35,6 +35,13 @@ from go_with_the_flows_tpu_torch.ops.kernels.point_decode import (
     film_alpha_beta,
     point_decode,
 )
+from go_with_the_flows_tpu_torch.ops.kernels.train_decode import (
+    film_ab_train,
+    fused_train_decode,
+    pack_point_decoder_train,
+    train_decode_bwd,
+    train_decode_fwd,
+)
 from go_with_the_flows_tpu_torch.ops.layers import SharedDot
 from go_with_the_flows_tpu_torch.utils.config import (
     FLAGSHIP_AIRPLANE,
@@ -89,7 +96,8 @@ def test_precision_is_highest_only():
 
 def test_cpu_tensors_never_launch_a_kernel():
     wrappers = (point_decode, nn_distance, pairwise_cd_stats, emd_cost,
-                emd_backward, pairwise_emd)
+                emd_backward, pairwise_emd, train_decode_fwd,
+                train_decode_bwd)
     before = [w.launches for w in wrappers]
     model = FlowMixtureModel(n_components=2, g_latent_space_size=12,
                              g_prior_n_flows=1, p_decoder_n_flows=2,
@@ -105,15 +113,21 @@ def test_cpu_tensors_never_launch_a_kernel():
     a.requires_grad_()
     emd_cost(a, b[:, :5]).sum().backward()
     assert a.grad.shape == a.shape
-    assert [w.launches for w in wrappers] == before == [0] * 6
+    train_packed = pack_point_decoder_train(model.pc_decoder)
+    ab, _ = film_ab_train(train_packed, g)
+    p0, lv, _ = fused_train_decode(train_packed, ab,
+                                   torch.randn(2, 2, 3, 9))
+    (p0.sum() + lv.sum()).backward()
+    assert all(q.grad is not None for q in model.pc_decoder.parameters())
+    assert [w.launches for w in wrappers] == before == [0] * 8
 
 
 def test_kernel_sources_are_the_three_cuda_files():
     """Named for the three files of the first slice; the EMD slice added
-    the fourth."""
+    the fourth, the training slice the fifth."""
     names = sorted(os.path.basename(s) for s in build.sources())
     assert names == ["emd.cu", "nn_distance.cu", "pairwise_cd.cu",
-                     "point_decode.cu"]
+                     "point_decode.cu", "train_decode.cu"]
     assert build.BUILD_DIR.endswith(os.path.join("go_with_the_flows_tpu_torch",
                                                  "_build"))
 

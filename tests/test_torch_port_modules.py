@@ -195,3 +195,42 @@ def test_stacked_decoder_matches_per_component():
             o, l = single(pk[k], t(g))
             torch.testing.assert_close(out[k], o, rtol=RTOL, atol=ATOL)
             torch.testing.assert_close(lv[k], l, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("shape,axis,affine,momentum,stack", [
+    ((3, 6, 9), 1, True, 0.9, ()),
+    ((5, 6), -1, True, 0.9 ** 4, ()),
+    ((3, 6, 9), 1, False, 0.9, ()),
+    ((2, 3, 6, 9), 1, True, 0.9, (2,)),
+    ((2, 5, 6), -1, True, 0.9, (2,)),
+])
+def test_batch_norm_train(shape, axis, affine, momentum, stack):
+    """Train mode: batch statistics over every axis but the stack and
+    channel axes, the biased variance for the output, and the running
+    statistics blended with `momentum` and the Bessel-corrected variance,
+    against TorchBatchNorm(use_running_average=False); a stack axis is
+    the JAX module applied to each slice."""
+    x = np.random.RandomState(20).randn(*shape).astype(np.float32) + 0.7
+    jm = TorchBatchNorm(use_running_average=False, axis=axis,
+                        momentum=momentum, use_scale=affine, use_bias=affine)
+    K = stack[0] if stack else 1
+    xs = x if stack else x[None]
+    vs = [randomize(jm.init(jax.random.PRNGKey(0), xs[0]), 21 + k)
+          for k in range(K)]
+    port = BatchNorm(6, affine=affine, stack=stack, momentum=momentum)
+    sd = {"running_mean": np.stack([v["batch_stats"]["mean"] for v in vs]),
+          "running_var": np.stack([v["batch_stats"]["var"] for v in vs])}
+    if affine:
+        sd["weight"] = np.stack([v["params"]["scale"] for v in vs])
+        sd["bias"] = np.stack([v["params"]["bias"] for v in vs])
+    port.load_state_dict({k: t(a if stack else a[0]) for k, a in sd.items()})
+    port.train()
+    y = port(t(x))
+    y = y if stack else y[None]
+    for k, v in enumerate(vs):
+        want, mut = jm.apply(v, xs[k], mutable=["batch_stats"])
+        close(y[k], want)
+        rm = port.running_mean if stack else port.running_mean[None]
+        rv = port.running_var if stack else port.running_var[None]
+        close(rm[k], mut["batch_stats"]["mean"])
+        close(rv[k], mut["batch_stats"]["var"])
