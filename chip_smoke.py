@@ -29,10 +29,15 @@ non-zero at the first failure:
 
 Phase 2 also holds the train-decode kernels (forward, backward) against
 their plain versions at the flagship decoder's shape and at a ragged N
-and a small batch, and checks that two launches give equal bits.
+and a small batch, and checks that two launches give equal bits; beside
+the backward's dW1 pass it times torch.bmm on the materialised operands
+(a yardstick the port never calls). Phase 4's profile splits the
+backward into its passes.
 
-Its last two lines are a JSON object with one entry per kernel and the
-JSON status line {"ok": true, "device": {...}}.
+Its last two lines are a JSON object with one entry per kernel (its time
+beside `bound_ms`, the least time the card could take for the same work
+at the published peaks, from the operations and bytes that the timed
+call's shapes need) and the JSON status line {"ok": true, "device": ...}.
 """
 
 from __future__ import annotations
@@ -66,6 +71,32 @@ def say(msg: str) -> None:
 # --------------------------------------------------------------------- #
 # helpers                                                               #
 # --------------------------------------------------------------------- #
+
+# published peaks of one H100 SXM at 700 W: FP32 outside the tensor cores,
+# the special-function units (expf, rsqrtf: 16 a clock per SM against 128
+# FP32 lanes, so 1/16 of the FP32 FLOP rate), HBM3
+FP32_FLOPS = 67e12
+SFU_OPS = FP32_FLOPS / 16
+HBM_BYTES = 3.35e12
+
+
+def bound(flop: float = 0.0, sfu: float = 0.0, nbytes: float = 0.0):
+    """(bound_ms, bound_by): the larger of the operations' time at the
+    peaks of their units and the bytes' time at the HBM rate."""
+    ops_ms = 1e3 * max(flop / FP32_FLOPS, sfu / SFU_OPS)
+    bytes_ms = 1e3 * nbytes / HBM_BYTES
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms,
+                                                              "bytes")
+
+
+def decode_work(K, B, N, C, f, flop_per_point, extra_bytes_per_point=0):
+    """Operations and bytes of a coupling-chain kernel: `flop_per_point`
+    per point, coupling and component; the points read once (12 B) and
+    `extra_bytes_per_point` more per point and component."""
+    points = K * B * N
+    return dict(flop=points * C * flop_per_point,
+                nbytes=points * (12 + extra_bytes_per_point))
+
 
 def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     """Mean milliseconds per call of fn() on the current stream."""
@@ -164,10 +195,17 @@ def phase_build():
     build.library()
     say(f"[1] build: {len(build.sources())} sources -> "
         f"{os.path.relpath(build.LIB_PATH, ROOT)} in {seconds:.1f} s")
-    for name, regs, spill in ptxas_summary(build.PTXAS_LOG):
+    report = ptxas_summary(build.PTXAS_LOG)
+    for name, regs, spill in report:
         at = name.find("_kernel")
         short = name[max(0, at - 12):at + 24] if at >= 0 else name[:36]
         say(f"    ptxas {short}: {regs} registers, {spill} B spilled")
+    # kernel 8's hidden pass: B1 and B2 are built to fit 128 registers
+    for kernel in ("bwd_hidden_kernel", "bwd_dw1_kernel"):
+        mine = [(regs, spill) for name, regs, spill in report if kernel in name]
+        say(f"    ptxas {kernel}, all {len(mine)} widths: at most "
+            f"{max(r for r, _ in mine)} registers and "
+            f"{max(s for _, s in mine)} B spilled")
 
 
 def check_close(what, got, want, atol, rtol=0.0):
@@ -202,8 +240,9 @@ def check_point_decode(config, B, N, seed, timed):
         out, lv = point_decode(packed, ab, p, inverse)
         want_out, want_lv = point_decode_plain(packed, ab, p, inverse)
         torch.cuda.synchronize()
-        tag = (f"point_decode {name} K={K} B={B} N={N} "
-               f"C={packed['w1'].shape[1]} f={packed['w1'].shape[-1]}")
+        C, f = packed["w1"].shape[1], packed["w1"].shape[-1]
+        times["dims"] = (K, B, N, C, f)
+        tag = f"point_decode {name} K={K} B={B} N={N} C={C} f={f}"
         errs.append(check_close(f"{tag} points", out, want_out, 1e-4))
         errs.append(check_close(f"{tag} logvar", lv, want_lv, 1e-4))
         if timed:
@@ -464,7 +503,26 @@ def check_train_decode(config, B, N, seed, timed):
                  "train_decode_bwd": (bwd, bwd_plain)}
         say(f"    {tag}: forward kernel {fwd:.3f} ms, plain {fwd_plain:.3f} "
             f"ms; backward kernel {bwd:.3f} ms, plain {bwd_plain:.3f} ms")
+        bmm = dw1_bmm_ms(K, B * N, f, C)
+        say(f"    {tag}: the backward's dW1 pass as torch.bmm of the "
+            f"materialised (2K, f, BN) dh2 and (2K, BN, f) a, fp32 highest: "
+            f"{bmm:.3f} ms for all {C} couplings")
     return fwd_err, bwd_err, times
+
+
+def dw1_bmm_ms(K, n, f, C):
+    """C times one torch.bmm of one coupling's dW1 operands, (2K, f, n) and
+    (2K, n, f) (random values: the time does not depend on them), at fp32
+    'highest': the library yardstick of kernel 8's dW1 pass, which the
+    port never calls."""
+    import torch
+
+    if torch.get_float32_matmul_precision() != "highest":
+        fail("the fp32 matmul precision is not 'highest'")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    dh2 = torch.randn(2 * K, f, n, device="cuda", generator=gen)
+    a = torch.randn(2 * K, n, f, device="cuda", generator=gen)
+    return C * cuda_ms(lambda: torch.bmm(dh2, a), 10)
 
 
 def phase_kernels():
@@ -483,7 +541,8 @@ def phase_kernels():
                                           0, timed=True)
     nn_err, nn_times = check_nn_distance(BATCH, N_POINTS, N_POINTS, 1,
                                          timed=True)
-    pw_err, pw_times = check_pairwise(64, 64, N_POINTS, N_POINTS, 2,
+    S = R = 64  # the timed CD grid
+    pw_err, pw_times = check_pairwise(S, R, N_POINTS, N_POINTS, 2,
                                       timed=True)
     # the (S, R) grid that phase 3's evaluate gives it: 2 x BATCH clouds
     # on each side
@@ -501,7 +560,8 @@ def phase_kernels():
         bwd_errs.append(g)
     c, g, emd_times = check_emd(BATCH, N_POINTS, N_POINTS, 14, timed=True)
     pe_err, _ = check_pairwise_emd(5, 7, 50, 77, 15, timed=False)
-    pe_big_err, pe_times = check_pairwise_emd(32, 32, N_POINTS, N_POINTS, 16,
+    E = 32  # the timed EMD grid, E x E pairs
+    pe_big_err, pe_times = check_pairwise_emd(E, E, N_POINTS, N_POINTS, 16,
                                               timed=True)
 
     # train decode: a ragged N, a small batch, then the flagship shape
@@ -513,6 +573,39 @@ def phase_kernels():
         td_bwd.append(b_err)
     f_err, b_err, td_times = check_train_decode(
         FLAGSHIP_AIRPLANE, BATCH, N_POINTS, 19, timed=True)
+
+    # the least time of each timed call: operations per point, pair or
+    # pair element as the kernels' sources count them (an FMA is 2 FLOP;
+    # expf and rsqrtf one special-function operation each)
+    B, N = BATCH, N_POINTS
+    K, _, _, C, f = pd_times["dims"]
+    fwd_flop = 4 * f * f + 24 * f  # 2 heads x (W0, W1, W2 products)
+    pairs = B * N * N
+    bounds = {
+        "point_decode": bound(**decode_work(K, B, N, C, f, fwd_flop, 24)),
+        "nn_distance": bound(flop=2 * pairs * 9, nbytes=2 * B * N * 16),
+        "pairwise_cd_stats": bound(flop=S * R * 2 * N * N * 9,
+                                   nbytes=(S + R) * N * 12 + S * R * 16),
+        # 9 levels x 3 sweeps, each a distance (8), exp (1 + 1 SFU), 2 FMAs
+        "emd_cost": bound(flop=27 * pairs * 12, sfu=27 * pairs,
+                          nbytes=2 * B * N * 12),
+        # a row and a column pass, each a distance and rsqrt, 9 levels of
+        # exp and 5 FLOP, 3 FMAs of coordinates
+        "emd_backward": bound(flop=2 * pairs * (8 + 9 * 5 + 6),
+                              sfu=2 * pairs * 10,
+                              nbytes=2 * B * N * (12 + 12 + 36)),
+        "pairwise_emd": bound(flop=E * E * 27 * N * N * 12,
+                              sfu=E * E * 27 * N * N,
+                              nbytes=2 * E * N * 12),
+        # kernel 7 writes xsave (12 C bytes a point)
+        "train_decode_fwd": bound(**decode_work(K, B, N, C, f, fwd_flop,
+                                                24 + 12 * C)),
+        # kernel 8: the forward's recompute, dW2 and dfz (24 f), dW1 and
+        # W1^T dh2 (8 f^2 + 12 f), the input pass (36 f); it reads xsave,
+        # dp0 and dlv, writes dp
+        "train_decode_bwd": bound(**decode_work(
+            K, B, N, C, f, 12 * f * f + 96 * f, 24 + 12 * C)),
+    }
     return {
         "point_decode": (pd_err, pd_times["direct"]),
         "nn_distance": (nn_err, nn_times),
@@ -524,7 +617,7 @@ def phase_kernels():
                              td_times["train_decode_fwd"]),
         "train_decode_bwd": (max(td_bwd + [b_err]),
                              td_times["train_decode_bwd"]),
-    }
+    }, bounds
 
 
 def plain_sample_cd(model, packed, g_in, ref, gen):
@@ -763,6 +856,30 @@ def device_kernels(prof):
     return sorted(rows, reverse=True)
 
 
+# the device functions of the two train-decode kernels, by pass
+TRAIN_DECODE_PASSES = {
+    "kernel 8 (train_decode_bwd)": {
+        "head": "bwd_head_kernel", "B1 hidden": "bwd_hidden_kernel",
+        "B2 dW1": "bwd_dw1_kernel", "input": "bwd_input_kernel",
+        "reductions": "sum_rows_kernel"},
+    "kernel 7 (train_decode_fwd)": {
+        "hidden": "fwd_hidden_kernel", "update": "fwd_update_kernel",
+        "statistics": ("seed_moments_kernel", "stats0_kernel",
+                       "stats1_kernel")},
+}
+
+
+def passes_of(rows, passes):
+    """{label: (ms, launches)} of the profile rows whose name holds one of
+    the pass's device function names."""
+    out = {}
+    for label, names in passes.items():
+        names = (names,) if isinstance(names, str) else names
+        hit = [(t, n) for t, n, name in rows if any(x in name for x in names)]
+        out[label] = (sum(t for t, _ in hit), sum(n for _, n in hit))
+    return out
+
+
 def host_ops(prof):
     """(self host milliseconds, calls, name) of the host-side operations
     of a profile, the longest first."""
@@ -944,6 +1061,10 @@ def phase_train(card):
             f"{sum(r[1] for r in rows)} device operations")
         for t, n, name in rows[:12]:
             say(f"      {t:9.3f} ms {n:6d}x {name[:70]}")
+        for what, passes in TRAIN_DECODE_PASSES.items():
+            say(f"    {what} by pass: " + "; ".join(
+                f"{label} {t:.3f} ms in {n} launches"
+                for label, (t, n) in passes_of(rows, passes).items()))
     hosts = host_ops(prof)
     say(f"    profiled step, host side (profiler overhead included): "
         f"{sum(r[1] for r in hosts)} operations, top by self time:")
@@ -990,7 +1111,7 @@ def main() -> None:
     marks = [time.perf_counter()]
     phase_build()
     marks.append(time.perf_counter())
-    measured = phase_kernels()
+    measured, bounds = phase_kernels()
     marks.append(time.perf_counter())
     launches = phase_slice(card)
     marks.append(time.perf_counter())
@@ -1031,10 +1152,13 @@ def main() -> None:
     kernels = []
     for name, (err, (ms, plain_ms)) in measured.items():
         source, replaces = sources[name]
+        bound_ms, bound_by = bounds[name]
+        # no single PyTorch call computes any of these functions (PERF.md)
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         })
     say(f"chip_smoke wall time: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

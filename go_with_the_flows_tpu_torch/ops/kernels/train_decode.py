@@ -266,9 +266,10 @@ def _check(packed, ab, p, what):
         raise ValueError(f"{what}: f={f} outside 1..{MAX_F}: the kernels' "
                          "shared-memory layout takes at most "
                          f"{MAX_F} features")
-    if min(K, B, N, C) < 1 or max(K, B) > 65535:
+    if min(K, B, N, C) < 1 or max(K, B) > 65535 or 2 * f * N >= 2**31:
         raise ValueError(f"{what}: (K={K}, B={B}, C={C}, N={N}) outside "
-                         "the kernels' launch limits")
+                         "the kernels' launch limits (and 32-bit offsets "
+                         "within a cloud's 2f x N cache block)")
     build.check_tensors([p, ab] + [packed[k] for k in _KERNEL_KEYS],
                         p.device)
     return K, B, C, N, f

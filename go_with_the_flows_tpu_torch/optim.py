@@ -22,27 +22,43 @@ would spend the step enqueueing small kernels.
 from __future__ import annotations
 
 import math
-from typing import Callable, Iterable
+from dataclasses import dataclass
+from typing import Iterable
 
 import torch
 
 
-def cosine_cycle_schedule(epoch_length: int, cycle_length: int,
-                          min_value: float, max_value: float
-                          ) -> Callable[[int], float]:
+@dataclass(frozen=True)
+class CosineCycle:
     """The reference's LRUpdater as a pure function of the global step:
     s = ((epoch % cycle_length) * epoch_length + iteration)
         / (cycle_length * epoch_length);
-    v = min + 0.5 * (max - min) * (1 + cos(pi * s))."""
+    v = min + 0.5 * (max - min) * (1 + cos(pi * s)).
 
-    def schedule(step: int) -> float:
-        epoch, iteration = divmod(int(step), epoch_length)
-        s = ((epoch % cycle_length) * epoch_length + iteration) / (
-            cycle_length * epoch_length)
-        return min_value + 0.5 * (max_value - min_value) * (
+    A plain object rather than a closure, so that an optimizer's
+    `state_dict`, whose parameter group holds it, pickles."""
+
+    epoch_length: int
+    cycle_length: int
+    min_value: float
+    max_value: float
+
+    def __call__(self, step: int) -> float:
+        epoch, iteration = divmod(int(step), self.epoch_length)
+        s = ((epoch % self.cycle_length) * self.epoch_length + iteration) / (
+            self.cycle_length * self.epoch_length)
+        return self.min_value + 0.5 * (self.max_value - self.min_value) * (
             1.0 + math.cos(math.pi * s))
 
-    return schedule
+
+# checkpoints load with torch.load's default weights_only=True
+torch.serialization.add_safe_globals([CosineCycle])
+
+
+def cosine_cycle_schedule(epoch_length: int, cycle_length: int,
+                          min_value: float, max_value: float) -> CosineCycle:
+    """The cosine cycle of `CosineCycle` from the reference's config keys."""
+    return CosineCycle(epoch_length, cycle_length, min_value, max_value)
 
 
 class AmsgradWD(torch.optim.Optimizer):
@@ -52,7 +68,12 @@ class AmsgradWD(torch.optim.Optimizer):
     One parameter group. The state is flat: `exp_avg`, `exp_avg_sq` and
     `max_exp_avg_sq` hold every parameter's elements in order, `counts`
     each parameter's own step count, `global_step` the steps taken.
+    `state_dict()` carries all five (under "flat") beside the parameter
+    group, and `load_state_dict` restores them onto the parameters'
+    device, so that save, load and step equals steps without a break.
     """
+
+    _FLAT = ("exp_avg", "exp_avg_sq", "max_exp_avg_sq", "counts")
 
     def __init__(self, params: Iterable[torch.Tensor], lr, b1: float = 0.9,
                  b2=0.999, eps: float = 1e-8, weight_decay: float = 0.0):
@@ -60,8 +81,6 @@ class AmsgradWD(torch.optim.Optimizer):
                                       weight_decay=weight_decay))
         if len(self.param_groups) != 1:
             raise ValueError("AmsgradWD takes one parameter group")
-        self.lr_fn = lr if callable(lr) else (lambda _: lr)
-        self.b2_fn = b2 if callable(b2) else (lambda _: b2)
         self.global_step = 0
         params = self.param_groups[0]["params"]
         if not params:
@@ -79,6 +98,31 @@ class AmsgradWD(torch.optim.Optimizer):
             torch.arange(len(params)), torch.tensor(self._sizes)
         ).to(first.device)
 
+    def state_dict(self):
+        state = super().state_dict()
+        state["flat"] = {k: getattr(self, k).clone() for k in self._FLAT}
+        state["flat"]["global_step"] = self.global_step
+        return state
+
+    def load_state_dict(self, state_dict) -> None:
+        flat = state_dict["flat"]
+        for k in self._FLAT:
+            mine, saved = getattr(self, k), flat[k]
+            if saved.shape != mine.shape or saved.dtype != mine.dtype:
+                raise ValueError(
+                    f"AmsgradWD.load_state_dict: {k} is {saved.dtype} "
+                    f"{tuple(saved.shape)}, this optimizer's "
+                    f"{mine.dtype} {tuple(mine.shape)}")
+        super().load_state_dict(
+            {k: v for k, v in state_dict.items() if k != "flat"})
+        for k in self._FLAT:
+            getattr(self, k).copy_(flat[k])
+        self.global_step = int(flat["global_step"])
+
+    @staticmethod
+    def _at(value, step: int) -> float:
+        return value(step) if callable(value) else value
+
     @torch.no_grad()
     def step(self, closure=None):
         if closure is not None:
@@ -86,8 +130,8 @@ class AmsgradWD(torch.optim.Optimizer):
         group = self.param_groups[0]
         params = group["params"]
         b1, eps, wd = group["b1"], group["eps"], group["weight_decay"]
-        lr = self.lr_fn(self.global_step)
-        b2 = self.b2_fn(self.global_step)
+        lr = self._at(group["lr"], self.global_step)
+        b2 = self._at(group["b2"], self.global_step)
         g = torch.cat([
             (p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1)
             for p in params])

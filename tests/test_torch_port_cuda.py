@@ -225,11 +225,15 @@ def test_train_decode_fwd_kernel(device, f, B, N):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("f,B,N", [(8, 3, 333), (37, 4, 700), (64, 2, 129)])
+@pytest.mark.parametrize("f,B,N", [(8, 3, 333), (37, 4, 700), (64, 2, 129),
+                                   (37, 3, 1000), (5, 3, 1000)])
 def test_train_decode_bwd_kernel(device, f, B, N):
     """Kernel 8 against its plain version on the same residuals: the input
-    cotangent within 1e-3 of its largest entry, every packed array's and
-    ab's gradient within 3e-2 of its own; two launches give equal bits."""
+    cotangent within 1e-3 of its largest entry, within 3e-3 in norm, and
+    at most 3e-4 of its entries beyond 1e-3 of its largest; every packed
+    array's and ab's gradient within 3e-2 of its own; two launches give
+    equal bits. N=1000 is not a multiple of the 512-point segments of the
+    hidden pass and its dW1 product, f=37 and f=5 are padded to 40 and 8."""
     packed, ab, p = _train_decode_inputs(device, f, B, N, f + 1)
     _, _, xsave, stats = train_decode_fwd(packed, ab, p)
     gen = torch.Generator(device=device).manual_seed(f)
@@ -239,6 +243,9 @@ def test_train_decode_bwd_kernel(device, f, B, N):
     dp, grads, dab = train_decode_bwd_plain(packed, ab, xsave, stats, dp0,
                                             dlv)
     assert _rel_err(got[0], dp) < 1e-3
+    assert ((got[0] - dp).norm() / dp.norm()).item() <= 3e-3
+    far = (got[0] - dp).abs() > 1e-3 * dp.abs().max()
+    assert far.float().mean().item() <= 3e-4
     for k, want in grads.items():
         assert _rel_err(got[1][k], want) < 3e-2, k
     assert _rel_err(got[2], dab) < 3e-2
