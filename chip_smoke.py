@@ -8,6 +8,8 @@ non-zero at the first failure:
 
   0. device: needs CUDA; prints the card's name and power limit;
   1. build: compiles every kernel of go_with_the_flows_tpu_torch/csrc;
+     ptxas registers and spills of kernel 8's B1/B2 and of the EMD
+     forward, which must not spill;
   2. kernels: each kernel against its plain PyTorch version at the main
      path's shapes (jiggled BatchNorm statistics), with times; the EMD
      kernels also at ragged and unequal sizes and at the SVR protocol's
@@ -73,17 +75,40 @@ def say(msg: str) -> None:
 # --------------------------------------------------------------------- #
 
 # published peaks of one H100 SXM at 700 W: FP32 outside the tensor cores,
-# the special-function units (expf, rsqrtf: 16 a clock per SM against 128
+# the special-function units (exp, rsqrt: 16 a clock per SM against 128
 # FP32 lanes, so 1/16 of the FP32 FLOP rate), HBM3
 FP32_FLOPS = 67e12
 SFU_OPS = FP32_FLOPS / 16
 HBM_BYTES = 3.35e12
+# an exp or a root can also run on the FP32 pipe as a polynomial: a range
+# reduction (3 adds) and a degree-5 polynomial (5 FMAs), 13 FLOP
+SFU_AS_FLOP = 13
+# the EMD cost's work per point pair (kernels 4 and 5) as the function
+# needs it, D, sqrt D and each level's E formed once (the TPU kernel
+# caches them, emd_kernel.py:133-156): the distance (8 FLOP) and its root;
+# each of the 9 levels the exponent's product (1), its exp, sweep 1's and
+# sweep 2's products and sums (4), sweep 3's two products and two sums (4)
+EMD_FLOP = 8 + 9 * 9
+EMD_SFU = 1 + 9
+# what kernels 4 and 5 do instead, having no room for those caches: each
+# of the 19 passes forms D again, 27 exps and 9 roots
+EMD_SFU_RECOMPUTED = 27 + 9
+# the EMD gradient's (kernel 6) per point pair: the distance (8), its
+# rsqrt; 9 levels of the exponent's product, exp and the match's two
+# products and sum (4); the coefficient (1); da's and db's 3 FMAs (12)
+EMD_BWD_FLOP = 8 + 9 * 4 + 1 + 12
+EMD_BWD_SFU = 1 + 9
 
 
 def bound(flop: float = 0.0, sfu: float = 0.0, nbytes: float = 0.0):
-    """(bound_ms, bound_by): the larger of the operations' time at the
-    peaks of their units and the bytes' time at the HBM rate."""
-    ops_ms = 1e3 * max(flop / FP32_FLOPS, sfu / SFU_OPS)
+    """(bound_ms, bound_by): the larger of the operations' time and the
+    bytes' time at the HBM rate. The operations' time: the FP32 work at its
+    peak, the special-function operations split between their units and
+    the FP32 pipe (SFU_AS_FLOP each there) so that both finish soonest."""
+    ops_s = max(flop / FP32_FLOPS,
+                min(sfu / SFU_OPS, (flop + SFU_AS_FLOP * sfu)
+                    / (FP32_FLOPS + SFU_AS_FLOP * SFU_OPS)))
+    ops_ms = 1e3 * ops_s
     bytes_ms = 1e3 * nbytes / HBM_BYTES
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms,
                                                               "bytes")
@@ -200,12 +225,21 @@ def phase_build():
         at = name.find("_kernel")
         short = name[max(0, at - 12):at + 24] if at >= 0 else name[:36]
         say(f"    ptxas {short}: {regs} registers, {spill} B spilled")
-    # kernel 8's hidden pass: B1 and B2 are built to fit 128 registers
-    for kernel in ("bwd_hidden_kernel", "bwd_dw1_kernel"):
-        mine = [(regs, spill) for name, regs, spill in report if kernel in name]
-        say(f"    ptxas {kernel}, all {len(mine)} widths: at most "
+    # kernel 8's hidden pass (B1 and B2, built to fit 128 registers) and
+    # the EMD forward (kernels 4 and 5), which must not spill
+    for kernel, no_spill in (("bwd_hidden_kernel", False),
+                             ("bwd_dw1_kernel", False),
+                             ("emd_cost_kernel", True),
+                             ("pairwise_emd_kernel", True)):
+        mine = [(regs, spill) for name, regs, spill in report
+                if kernel in name]
+        if not mine:
+            fail(f"ptxas reported no instantiation of {kernel}")
+        say(f"    ptxas {kernel}: {len(mine)} instantiation(s), at most "
             f"{max(r for r, _ in mine)} registers and "
             f"{max(s for _, s in mine)} B spilled")
+        if no_spill and max(s for _, s in mine) > 0:
+            fail(f"{kernel} spills registers")
 
 
 def check_close(what, got, want, atol, rtol=0.0):
@@ -214,7 +248,11 @@ def check_close(what, got, want, atol, rtol=0.0):
     err = (got - want).abs().max().item()
     bound = (atol + rtol * want.abs()).min().item() if rtol else atol
     ok = torch.allclose(got, want, rtol=rtol, atol=atol)
-    say(f"    {what}: max |diff| {err:.3g} (atol {atol:g}, rtol {rtol:g})")
+    # the largest |diff| over its allowance, atol + rtol |want|
+    used = ((got - want).abs() / (atol + rtol * want.abs()).clamp_min(
+        1e-30)).max().item()
+    say(f"    {what}: max |diff| {err:.3g} (atol {atol:g}, rtol {rtol:g}; "
+        f"{used:.3g} of the allowance)")
     if not ok:
         fail(f"{what} disagrees with the plain version (bound {bound:g})")
     return err
@@ -351,6 +389,7 @@ def check_emd(B, N, M, seed, timed):
                     1e-5, 1e-4),
         check_close(f"{tag} db (autograd, weighted)", gb.grad, w3 * db,
                     1e-5, 1e-4))
+    check_match_forms(tag, a, b, rl, rr)
     times = None
     if timed:
         fwd = cuda_ms(lambda: emd_cost(a, b), 5)
@@ -362,6 +401,28 @@ def check_emd(B, N, M, seed, timed):
         say(f"    {tag}: cost kernel {fwd:.3f} ms, plain {fwd_plain:.3f} ms;"
             f" backward kernel {bwd:.3f} ms, plain {bwd_plain:.3f} ms")
     return cost_err, bwd_err, times
+
+
+def check_match_forms(tag, a, b, rl, rr, pairs=4):
+    """The forward's and the backward's E on the same residuals (kernel
+    5's, of the first `pairs` pairs): the gradient of the match that each
+    form defines, in float64 (emd_backward_f64), held against the other,
+    and kernel 6's gradient against both, at the EMD backward's
+    tolerance (atol 1e-5, rtol 1e-4)."""
+    from go_with_the_flows_tpu_torch.ops.kernels.emd import (
+        emd_backward, emd_backward_f64)
+
+    a, b, rl, rr = (t[:pairs] for t in (a, b, rl, rr))
+    fwd = emd_backward_f64(a, b, rl, rr, "forward")
+    bwd = emd_backward_f64(a, b, rl, rr, "backward")
+    kernel = emd_backward(a, b, rl, rr)
+    for i, side in enumerate(("da", "db")):
+        check_close(f"{tag} {side} of the forward's match vs the "
+                    "backward's (float64)", fwd[i], bwd[i], 1e-5, 1e-4)
+        check_close(f"{tag} {side} kernel 6 vs the forward's match",
+                    kernel[i].double(), fwd[i], 1e-5, 1e-4)
+        check_close(f"{tag} {side} kernel 6 vs its own form (float64)",
+                    kernel[i].double(), bwd[i], 1e-5, 1e-4)
 
 
 def check_pairwise_emd(S, R, N, M, seed, timed):
@@ -576,7 +637,7 @@ def phase_kernels():
 
     # the least time of each timed call: operations per point, pair or
     # pair element as the kernels' sources count them (an FMA is 2 FLOP;
-    # expf and rsqrtf one special-function operation each)
+    # an exp and a root or rsqrt one special-function operation each)
     B, N = BATCH, N_POINTS
     K, _, _, C, f = pd_times["dims"]
     fwd_flop = 4 * f * f + 24 * f  # 2 heads x (W0, W1, W2 products)
@@ -586,16 +647,14 @@ def phase_kernels():
         "nn_distance": bound(flop=2 * pairs * 9, nbytes=2 * B * N * 16),
         "pairwise_cd_stats": bound(flop=S * R * 2 * N * N * 9,
                                    nbytes=(S + R) * N * 12 + S * R * 16),
-        # 9 levels x 3 sweeps, each a distance (8), exp (1 + 1 SFU), 2 FMAs
-        "emd_cost": bound(flop=27 * pairs * 12, sfu=27 * pairs,
+        "emd_cost": bound(flop=pairs * EMD_FLOP, sfu=pairs * EMD_SFU,
                           nbytes=2 * B * N * 12),
-        # a row and a column pass, each a distance and rsqrt, 9 levels of
-        # exp and 5 FLOP, 3 FMAs of coordinates
-        "emd_backward": bound(flop=2 * pairs * (8 + 9 * 5 + 6),
-                              sfu=2 * pairs * 10,
+        # it reads both clouds and both residuals, writes da and db
+        "emd_backward": bound(flop=pairs * EMD_BWD_FLOP,
+                              sfu=pairs * EMD_BWD_SFU,
                               nbytes=2 * B * N * (12 + 12 + 36)),
-        "pairwise_emd": bound(flop=E * E * 27 * N * N * 12,
-                              sfu=E * E * 27 * N * N,
+        "pairwise_emd": bound(flop=E * E * N * N * EMD_FLOP,
+                              sfu=E * E * N * N * EMD_SFU,
                               nbytes=2 * E * N * 12),
         # kernel 7 writes xsave (12 C bytes a point)
         "train_decode_fwd": bound(**decode_work(K, B, N, C, f, fwd_flop,
@@ -606,6 +665,11 @@ def phase_kernels():
         "train_decode_bwd": bound(**decode_work(
             K, B, N, C, f, 12 * f * f + 96 * f, 24 + 12 * C)),
     }
+    say(f"    EMD forward: the cost needs {EMD_SFU} exps and roots and "
+        f"{EMD_FLOP} FLOP a point pair, the kernels do {EMD_SFU_RECOMPUTED} "
+        f"exps and roots ({EMD_SFU_RECOMPUTED / EMD_SFU:.1f}x); the grid "
+        f"{pe_times[0]:.3f} ms against its bound "
+        f"{bounds['pairwise_emd'][0]:.3f} ms")
     return {
         "point_decode": (pd_err, pd_times["direct"]),
         "nn_distance": (nn_err, nn_times),

@@ -2,10 +2,11 @@
 (counterpart of go_with_the_flows_tpu/metrics/evaluation.py).
 
 Cloud arguments are (S, N, 3) numpy arrays or tensors; `device` says
-where the metric work runs. On the card the paired metrics go through
-the `nn_distance` and `emd_cost` kernels and the (S, R) matrices through
-the `pairwise_cd_stats` and `pairwise_emd` kernels; on the CPU through
-their plain versions.
+where the metric work runs: the card (the default) unless the caller
+names the CPU. On the card the paired metrics go through the
+`nn_distance` and `emd_cost` kernels and the (S, R) matrices through the
+`pairwise_cd_stats` and `pairwise_emd` kernels; on the CPU through their
+plain versions.
 
 Not ported yet: the voxel JSD (the card's machine has no scikit-learn).
 """
@@ -54,7 +55,7 @@ def EMD_CD_F1(
     one_part_of_cd: bool = False,
     f1_option: bool = False,
     f1_threshold: float = 1e-4,
-    device="cpu",
+    device="cuda",
 ) -> Dict[str, np.ndarray]:
     """Paired (i-th sample vs i-th ref) metrics."""
     n = sample_pcs.shape[0]
@@ -92,7 +93,7 @@ def pairwise_EMD_CD_F1(
     emd_option: bool = False,
     f1_option: bool = False,
     verbose: bool = False,
-    device="cpu",
+    device="cuda",
 ):
     """Full (N_sample, N_ref) matrices (cd, emd, f1, cdl, cdr) as numpy
     float32; emd is the cost / N and stays zero without `emd_option`.
@@ -186,7 +187,7 @@ def compute_all_metrics(
     f1_option: bool = False,
     verbose: bool = False,
     ref_cache: Optional[dict] = None,
-    device="cpu",
+    device="cuda",
 ) -> Dict[str, float]:
     """MMD/COV (sample vs ref) and 1-NNA (ss, rs, rr) over CD, EMD and F1.
 

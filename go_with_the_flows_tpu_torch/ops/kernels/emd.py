@@ -104,6 +104,48 @@ def emd_backward_plain(a: torch.Tensor, b: torch.Tensor,
     return torch.cat(das), torch.cat(dbs)
 
 
+def emd_backward_f64(a: torch.Tensor, b: torch.Tensor,
+                     ratio_l: torch.Tensor, ratio_r: torch.Tensor,
+                     rounding: str):
+    """(da, db) in float64 of the match that the residuals define, with
+    D and the exponent rounded to float32 as one of the kernels rounds
+    them: "forward" as kernels 4 and 5 (D as fma(dx, dx, fma(dy, dy,
+    dz dz)), E = 2^fl(c_l D) with c_l = fl(level_l log2 e)), "backward"
+    as kernel 6 and the plain versions (D as (dx^2 + dy^2) + dz^2, E =
+    exp(level_l D)). The float32 roundings are reproduced, the rest is
+    exact to float64 (an FMA's sum is rounded twice, through float64,
+    which differs from one rounding about once in 2^29). The two forms
+    hold the forward's match against the backward's on the same
+    residuals. One pair at a time."""
+    if rounding not in ("forward", "backward"):
+        raise ValueError(f"rounding {rounding!r}: 'forward' or 'backward'")
+    log2e = torch.tensor(1.44269504088896341, dtype=torch.float32)
+    das, dbs = [], []
+    for k in range(a.shape[0]):
+        diff = a[k, :, None, :] - b[k, None, :, :]  # float32, (N, M, 3)
+        sq = diff * diff
+        if rounding == "forward":
+            inner = (diff[..., 1].double() ** 2 + sq[..., 2].double()).float()
+            d = (diff[..., 0].double() ** 2 + inner.double()).float()
+        else:
+            d = (sq[..., 0] + sq[..., 1]) + sq[..., 2]
+        match = torch.zeros(d.shape, dtype=torch.float64, device=d.device)
+        for j, level in enumerate(levels()):
+            if rounding == "forward":
+                c = (log2e * level).to(d.device)  # exact: level is 2^(2k)
+                e = torch.exp2((c * d).double())
+            else:
+                e = torch.exp((level * d).double())
+            match += e * ratio_l[k, j, :, None].double() \
+                * ratio_r[k, j, None, :].double()
+        coeff = torch.where(d > 1e-12, match * torch.rsqrt(
+            torch.clamp(d, min=1e-12).double()), torch.zeros_like(match))
+        grad = coeff[..., None] * diff.double()
+        das.append(grad.sum(dim=1))
+        dbs.append(-grad.sum(dim=0))
+    return torch.stack(das), torch.stack(dbs)
+
+
 def _check_pair(what: str, a: torch.Tensor, b: torch.Tensor) -> None:
     if a.ndim != 3 or b.ndim != 3 or a.shape[2] != 3 or b.shape[2] != 3 \
             or a.shape[0] != b.shape[0]:

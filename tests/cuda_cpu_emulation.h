@@ -1,6 +1,7 @@
-// A CPU stand-in for the few CUDA constructs csrc/train_decode.cu uses, so
-// that g++ can build that source and its kernels can run on the CPU in the
-// tests (tests/test_torch_port_train_decode_emulated.py). Each CUDA thread
+// A CPU stand-in for the few CUDA constructs csrc/train_decode.cu and
+// csrc/emd.cu use, so that g++ can build those sources and their kernels
+// can run on the CPU in the tests
+// (tests/test_torch_port_{train_decode,emd}_emulated.py). Each CUDA thread
 // of a block is a std::thread; the blocks of a launch run one after
 // another; a barrier stands for __syncthreads, and shuffles exchange
 // through a per-block array between two barriers. It checks the kernels'
@@ -47,6 +48,15 @@ inline cudaError_t cudaMemsetAsync(void* d, int v, size_t n, cudaStream_t) {
   return cudaSuccess;
 }
 inline float rsqrtf(float x) { return 1.f / std::sqrt(x); }
+inline float2 make_float2(float x, float y) { return {x, y}; }
+inline float4 make_float4(float x, float y, float z, float w) {
+  return {x, y, z, w};
+}
+// x86-64 without -mfma rounds each float operation once, as these do
+inline float __fadd_rn(float a, float b) { return a + b; }
+inline float __fsub_rn(float a, float b) { return a - b; }
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fmaf_rn(float a, float b, float c) { return std::fma(a, b, c); }
 
 inline thread_local dim3 threadIdx, blockIdx;
 inline dim3 gridDim, blockDim;
@@ -64,6 +74,15 @@ inline float __shfl_xor_sync(unsigned, float v, int m) {
   emu_block->lanes[t] = v;
   emu_block->bar->arrive_and_wait();
   const float r = emu_block->lanes[(t & ~31) | ((t & 31) ^ m)];
+  emu_block->bar->arrive_and_wait();
+  return r;
+}
+
+inline float __shfl_down_sync(unsigned, float v, int d) {
+  const int t = threadIdx.x;
+  emu_block->lanes[t] = v;
+  emu_block->bar->arrive_and_wait();
+  const float r = (t & 31) + d < 32 ? emu_block->lanes[t + d] : v;
   emu_block->bar->arrive_and_wait();
   return r;
 }

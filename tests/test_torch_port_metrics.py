@@ -8,6 +8,8 @@ in another order, the bound of tests/test_pallas_kernels.py); COV and
 1e-4 on these sets).
 """
 
+import inspect
+
 import numpy as np
 import pytest
 
@@ -28,7 +30,7 @@ def _sets(seed, n=6, pts=32):
 def test_compute_all_metrics_matches_jax(seed):
     gen, ref = _sets(seed)
     opts = dict(f1_threshold=THR, cd_option=True, f1_option=True)
-    got = tev.compute_all_metrics(gen, ref, 60, **opts)
+    got = tev.compute_all_metrics(gen, ref, 60, device="cpu", **opts)
     want = jev.compute_all_metrics(gen, ref, 60, **opts)
     for metric in ("CD", "F1"):
         for key in ("lgan_mmd", "lgan_mmd_smp"):
@@ -46,7 +48,8 @@ def test_paired_metrics_match_jax():
     opts = dict(cd_option=True, f1_option=True, one_part_of_cd=True,
                 f1_threshold=THR)
     for reduced in (True, False):
-        got = tev.EMD_CD_F1(gen, ref, 4, reduced=reduced, **opts)
+        got = tev.EMD_CD_F1(gen, ref, 4, reduced=reduced, device="cpu",
+                            **opts)
         want = jev.EMD_CD_F1(gen, ref, 4, reduced=reduced, **opts)
         for key in ("CD", "F1", "CDL", "CDR"):
             np.testing.assert_allclose(got[key], want[key], rtol=1e-5)
@@ -56,12 +59,14 @@ def test_ref_cache_reuses_and_guards():
     gen, ref = _sets(3)
     opts = dict(f1_threshold=THR, cd_option=True, f1_option=True)
     cache = {}
-    first = tev.compute_all_metrics(gen, ref, 60, ref_cache=cache, **opts)
+    first = tev.compute_all_metrics(gen, ref, 60, ref_cache=cache,
+                                    device="cpu", **opts)
     assert len(cache) == 1
-    again = tev.compute_all_metrics(gen, ref, 60, ref_cache=cache, **opts)
+    again = tev.compute_all_metrics(gen, ref, 60, ref_cache=cache,
+                                    device="cpu", **opts)
     assert again["1-NN-CD-acc"] == first["1-NN-CD-acc"]
     moved = tev.compute_all_metrics(gen, ref + 0.5, 60, ref_cache=cache,
-                                    **opts)
+                                    device="cpu", **opts)
     want = jev.compute_all_metrics(gen, ref + 0.5, 60, **opts)
     assert moved["1-NN-CD-acc"] == want["1-NN-CD-acc"]
 
@@ -70,7 +75,7 @@ def test_ref_cache_reuses_and_guards():
 def test_compute_all_metrics_emd_matches_jax(seed):
     gen, ref = _sets(seed)
     opts = dict(f1_threshold=THR, cd_option=True, emd_option=True)
-    got = tev.compute_all_metrics(gen, ref, 60, **opts)
+    got = tev.compute_all_metrics(gen, ref, 60, device="cpu", **opts)
     want = jev.compute_all_metrics(gen, ref, 60, **opts)
     for key in ("lgan_mmd", "lgan_mmd_smp"):
         np.testing.assert_allclose(got[f"{key}-EMD"], want[f"{key}-EMD"],
@@ -86,12 +91,13 @@ def test_paired_emd_matches_jax():
     gen, ref = _sets(6)
     for reduced in (True, False):
         got = tev.EMD_CD_F1(gen, ref, 4, reduced=reduced, emd_option=True,
-                            cd_option=True)
+                            cd_option=True, device="cpu")
         want = jev.EMD_CD_F1(gen, ref, 4, reduced=reduced, emd_option=True,
                              cd_option=True)
         np.testing.assert_allclose(got["EMD"], want["EMD"], rtol=1e-4)
         np.testing.assert_allclose(got["CD"], want["CD"], rtol=1e-5)
-    assert tev.EMD_CD_F1(gen, ref, 4, cd_option=True)["EMD"] == 0
+    assert tev.EMD_CD_F1(gen, ref, 4, cd_option=True,
+                         device="cpu")["EMD"] == 0
 
 
 def test_ref_cache_is_keyed_by_emd_option():
@@ -100,15 +106,26 @@ def test_ref_cache_is_keyed_by_emd_option():
     gen, ref = _sets(7)
     cache = {}
     tev.compute_all_metrics(gen, ref, 60, f1_threshold=THR, cd_option=True,
-                            ref_cache=cache)
+                            ref_cache=cache, device="cpu")
     opts = dict(f1_threshold=THR, cd_option=True, emd_option=True)
-    got = tev.compute_all_metrics(gen, ref, 60, ref_cache=cache, **opts)
+    got = tev.compute_all_metrics(gen, ref, 60, ref_cache=cache,
+                                  device="cpu", **opts)
     assert len(cache) == 2
     want = jev.compute_all_metrics(gen, ref, 60, **opts)
     for key in ("acc", "acc_t", "acc_f"):
         assert got[f"1-NN-EMD-{key}"] == want[f"1-NN-EMD-{key}"]
     np.testing.assert_allclose(got["lgan_mmd-EMD"], want["lgan_mmd-EMD"],
                                rtol=1e-4)
-    again = tev.compute_all_metrics(gen, ref, 60, ref_cache=cache, **opts)
+    again = tev.compute_all_metrics(gen, ref, 60, ref_cache=cache,
+                                    device="cpu", **opts)
     assert len(cache) == 2
     assert again["1-NN-EMD-acc"] == got["1-NN-EMD-acc"]
+
+
+@pytest.mark.parametrize("entry", ["EMD_CD_F1", "pairwise_EMD_CD_F1",
+                                   "compute_all_metrics"])
+def test_metric_entry_points_default_to_the_card(entry):
+    """The metrics run on the card unless the caller names the CPU (the
+    tests above do)."""
+    fn = getattr(tev, entry)
+    assert inspect.signature(fn).parameters["device"].default == "cuda"

@@ -188,10 +188,10 @@ def test_evaluate_with_emd(mode, keys):
     gen = samples.numpy().transpose(0, 2, 1)
     ref = clouds.transpose(0, 2, 1)
     if mode == "autoencoding":
-        want = {"emd": float(EMD_CD_F1(gen, ref, 60,
-                                       emd_option=True)["EMD"]) * 1e2}
+        want = {"emd": float(EMD_CD_F1(gen, ref, 60, emd_option=True,
+                                       device="cpu")["EMD"]) * 1e2}
     else:
-        m = compute_all_metrics(gen, ref, 60, emd_option=True)
+        m = compute_all_metrics(gen, ref, 60, emd_option=True, device="cpu")
         want = {"emd_mmds": float(m["lgan_mmd-EMD"]) * 1e2,
                 "emd_covs": float(m["lgan_cov-EMD"]) * 1e2,
                 "emd_1nns": float(m["1-NN-EMD-acc"]) * 1e2}
