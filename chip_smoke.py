@@ -8,8 +8,9 @@ non-zero at the first failure:
 
   0. device: needs CUDA; prints the card's name and power limit;
   1. build: compiles every kernel of go_with_the_flows_tpu_torch/csrc;
-     ptxas registers and spills of kernel 8's B1/B2 and of the EMD
-     forward, which must not spill;
+     ptxas registers and spills of kernel 7's hidden and update passes,
+     of kernel 8's B1/B2 and of the EMD forward; kernel 7's passes and the
+     EMD forward must not spill;
   2. kernels: each kernel against its plain PyTorch version at the main
      path's shapes (jiggled BatchNorm statistics), with times; the EMD
      kernels also at ragged and unequal sizes and at the SVR protocol's
@@ -32,9 +33,12 @@ non-zero at the first failure:
 Phase 2 also holds the train-decode kernels (forward, backward) against
 their plain versions at the flagship decoder's shape and at a ragged N
 and a small batch, and checks that two launches give equal bits; beside
-the backward's dW1 pass it times torch.bmm on the materialised operands
-(a yardstick the port never calls). Phase 4's profile splits the
-backward into its passes.
+the forward's hidden pass it times torch.bmm of its W1 product alone,
+and beside the backward's dW1 pass torch.bmm on the materialised
+operands (yardsticks the port never calls). Phase 4's profile splits
+both kernels into their passes, fails if a pass took no time, and
+counts the forward's statistics launches (at most one a coupling and
+the seed).
 
 Its last two lines are a JSON object with one entry per kernel (its time
 beside `bound_ms`, the least time the card could take for the same work
@@ -225,9 +229,12 @@ def phase_build():
         at = name.find("_kernel")
         short = name[max(0, at - 12):at + 24] if at >= 0 else name[:36]
         say(f"    ptxas {short}: {regs} registers, {spill} B spilled")
-    # kernel 8's hidden pass (B1 and B2, built to fit 128 registers) and
-    # the EMD forward (kernels 4 and 5), which must not spill
-    for kernel, no_spill in (("bwd_hidden_kernel", False),
+    # kernel 7's hidden and update passes, kernel 8's hidden pass (B1 and
+    # B2, built to fit 128 registers) and the EMD forward (kernels 4 and
+    # 5); kernel 7's and the EMD forward must not spill
+    for kernel, no_spill in (("fwd_hidden_kernel", True),
+                             ("fwd_update_kernel", True),
+                             ("bwd_hidden_kernel", False),
                              ("bwd_dw1_kernel", False),
                              ("emd_cost_kernel", True),
                              ("pairwise_emd_kernel", True)):
@@ -564,11 +571,31 @@ def check_train_decode(config, B, N, seed, timed):
                  "train_decode_bwd": (bwd, bwd_plain)}
         say(f"    {tag}: forward kernel {fwd:.3f} ms, plain {fwd_plain:.3f} "
             f"ms; backward kernel {bwd:.3f} ms, plain {bwd_plain:.3f} ms")
+        w1 = w1_bmm_ms(K, B * N, f, C)
+        say(f"    {tag}: the forward's W1 product alone as torch.bmm of "
+            f"(2K, f, f) W1 and (2K, f, BN) a, fp32 highest: {w1:.3f} ms "
+            f"for all {C} couplings")
         bmm = dw1_bmm_ms(K, B * N, f, C)
         say(f"    {tag}: the backward's dW1 pass as torch.bmm of the "
             f"materialised (2K, f, BN) dh2 and (2K, BN, f) a, fp32 highest: "
             f"{bmm:.3f} ms for all {C} couplings")
     return fwd_err, bwd_err, times
+
+
+def w1_bmm_ms(K, n, f, C):
+    """C times one torch.bmm of one coupling's hidden W1 product, (2K, f,
+    f) by (2K, f, n) (random values), at fp32 'highest': the library
+    yardstick of kernel 7's hidden pass (its W1 product alone, without
+    the BatchNorms, the cache and the sums), which the port never
+    calls."""
+    import torch
+
+    if torch.get_float32_matmul_precision() != "highest":
+        fail("the fp32 matmul precision is not 'highest'")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    w1 = torch.randn(2 * K, f, f, device="cuda", generator=gen)
+    a = torch.randn(2 * K, f, n, device="cuda", generator=gen)
+    return C * cuda_ms(lambda: torch.bmm(w1, a), 10)
 
 
 def dw1_bmm_ms(K, n, f, C):
@@ -928,8 +955,7 @@ TRAIN_DECODE_PASSES = {
         "reductions": "sum_rows_kernel"},
     "kernel 7 (train_decode_fwd)": {
         "hidden": "fwd_hidden_kernel", "update": "fwd_update_kernel",
-        "statistics": ("seed_moments_kernel", "stats0_kernel",
-                       "stats1_kernel")},
+        "statistics": ("seed_moments_kernel", "fwd_stats_kernel")},
 }
 
 
@@ -1126,9 +1152,24 @@ def phase_train(card):
         for t, n, name in rows[:12]:
             say(f"      {t:9.3f} ms {n:6d}x {name[:70]}")
         for what, passes in TRAIN_DECODE_PASSES.items():
+            split = passes_of(rows, passes)
             say(f"    {what} by pass: " + "; ".join(
                 f"{label} {t:.3f} ms in {n} launches"
-                for label, (t, n) in passes_of(rows, passes).items()))
+                for label, (t, n) in split.items()))
+            for label, (t, _) in split.items():
+                if t <= 0:
+                    fail(f"{what}: the profile shows no time in its "
+                         f"{label} pass")
+        # kernel 7's statistics: one launch a coupling (a launch for every
+        # hidden pass) and the seed
+        count = {name: sum(n for _, n, key in rows if name in key)
+                 for name in ("seed_moments_kernel", "fwd_stats_kernel",
+                              "fwd_hidden_kernel")}
+        say(f"    kernel 7 statistics launches: {count['seed_moments_kernel']}"
+            f" seed, {count['fwd_stats_kernel']} for "
+            f"{count['fwd_hidden_kernel']} couplings")
+        if count["fwd_stats_kernel"] > count["fwd_hidden_kernel"]:
+            fail("kernel 7 takes more than one statistics launch a coupling")
     hosts = host_ops(prof)
     say(f"    profiled step, host side (profiler overhead included): "
         f"{sum(r[1] for r in hosts)} operations, top by self time:")

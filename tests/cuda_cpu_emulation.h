@@ -16,6 +16,7 @@
 
 #define __global__
 #define __device__
+#define __host__
 #define __forceinline__ inline
 #define __launch_bounds__(...)
 #define __shared__ static  // one block at a time: static is per block
@@ -38,6 +39,23 @@ cudaError_t cudaFuncSetAttribute(K, cudaFuncAttribute, int) {
   return cudaSuccess;
 }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+// a small card: 3 SMs of 2 blocks, so that a persistent grid's blocks
+// each take several tiles in the tests
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount };
+inline cudaError_t cudaGetDevice(int* d) {
+  *d = 0;
+  return cudaSuccess;
+}
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
+  *v = 3;
+  return cudaSuccess;
+}
+template <class K>
+cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, K, int,
+                                                          size_t) {
+  *n = 2;
+  return cudaSuccess;
+}
 inline cudaError_t cudaMemcpyAsync(void* d, const void* s, size_t n,
                                    cudaMemcpyKind, cudaStream_t) {
   memcpy(d, s, n);

@@ -5,9 +5,13 @@ through its C entry points, against the plain PyTorch versions: the
 kernels' indexing, padding, ragged segments, partial-row layout and
 reductions, without a card. The emulation runs one std::thread per CUDA
 thread, so the shapes are small: f=5 (padded to 8) with a ragged second
-512-point segment, f=13 (padded to 16) with B=1. Tolerances are the card
-tests' (tests/test_torch_port_cuda.py): the CPU's float rounding differs
-from the GPU's, not the algorithm."""
+512-point segment, f=13 (padded to 16) with B=1; the forward also at
+f=8 (the narrowest width, no padding) over three segments ragged in
+every tile size (B=3: 9 partial rows a component), and at f=45 (padded
+to 48, above the flagship's 40). The forward runs twice and must give
+equal bits. Tolerances are the card tests'
+(tests/test_torch_port_cuda.py): the CPU's float rounding differs from
+the GPU's, not the algorithm."""
 
 import ctypes
 import os
@@ -103,24 +107,38 @@ def _rel_err(got, want):
 
 
 SHAPES = [(5, 2, 600), (13, 1, 130)]
+# N = 1100: three 512-point segments (9 partial rows a component, more
+# than the reductions' 8 row groups), the last ragged in the 128-point
+# tiles of the hidden and update passes; the emulated card's 3 SMs give
+# the hidden pass 3 persistent blocks a component, 9 tiles each
+FWD_SHAPES = SHAPES + [(8, 3, 1100), (45, 1, 70)]
 
 
-@pytest.mark.parametrize("f,B,N", SHAPES)
+@pytest.mark.parametrize("f,B,N", FWD_SHAPES)
 def test_emulated_train_decode_fwd(lib, f, B, N):
     """Kernel 7: p0, the logvar sum and the saved states atol 1e-4, the
-    batch statistics rtol 1e-5 (atol 1e-5 near 0)."""
+    batch statistics rtol 1e-5 (atol 1e-5 near 0); two launches give
+    equal bits."""
     packed, ab, p = _inputs(f, B, N, f)
     K, C = p.shape[0], packed["w1"].shape[1]
-    got = [torch.empty_like(p), torch.empty_like(p),
-           p.new_empty(K, C, B, 3, N), p.new_empty(K, C, 4, 2 * f)]
-    work = p.new_empty(lib.gwtf_train_decode_workspace(0, K, B, C, N, f))
-    args = [p] + [packed[k] for k in _KERNEL_KEYS] + [ab] + got + [work]
-    assert lib.gwtf_train_decode_fwd(*(t.data_ptr() for t in args), K, B, C,
-                                     N, f, None) == 0
+
+    def run():
+        got = [torch.empty_like(p), torch.empty_like(p),
+               p.new_empty(K, C, B, 3, N), p.new_empty(K, C, 4, 2 * f)]
+        work = torch.full((lib.gwtf_train_decode_workspace(0, K, B, C, N, f),),
+                          float("nan"))
+        args = [p] + [packed[k] for k in _KERNEL_KEYS] + [ab] + got + [work]
+        assert lib.gwtf_train_decode_fwd(*(t.data_ptr() for t in args), K, B,
+                                         C, N, f, None) == 0
+        return got
+
+    got = run()
     want = train_decode_fwd_plain(packed, ab, p)
     for a, b in zip(got[:3], want[:3]):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-4)
     torch.testing.assert_close(got[3], want[3], rtol=1e-5, atol=1e-5)
+    for a, b in zip(got, run()):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("f,B,N", SHAPES)
