@@ -8,9 +8,10 @@ non-zero at the first failure:
 
   0. device: needs CUDA; prints the card's name and power limit;
   1. build: compiles every kernel of go_with_the_flows_tpu_torch/csrc;
-     ptxas registers and spills of kernel 7's hidden and update passes,
-     of kernel 8's B1/B2 and of the EMD forward; kernel 7's passes and the
-     EMD forward must not spill;
+     ptxas registers and spills of kernel 1 (`point_decode_kernel`, all
+     16 instantiations), kernel 3 (`cd_stats_kernel`), kernel 7's hidden
+     and update passes, kernel 8's B1/B2 and the EMD forward; all but
+     kernel 8's must not spill, and kernels 1 and 3 keep no stack frame;
   2. kernels: each kernel against its plain PyTorch version at the main
      path's shapes (jiggled BatchNorm statistics), with times; the EMD
      kernels also at ragged and unequal sizes and at the SVR protocol's
@@ -30,12 +31,16 @@ non-zero at the first failure:
      counters read around them; ms/step, clouds/s and peak memory of both
      paths; a torch.profiler pass over one warm kernel-path step.
 
-Phase 2 also holds the train-decode kernels (forward, backward) against
-their plain versions at the flagship decoder's shape and at a ragged N
-and a small batch, and checks that two launches give equal bits; beside
-the forward's hidden pass it times torch.bmm of its W1 product alone,
-and beside the backward's dW1 pass torch.bmm on the materialised
-operands (yardsticks the port never calls). Phase 4's profile splits
+Phase 2 also checks that two launches of kernel 1 give equal bits, and
+holds kernel 3's precision and recall equal to the plain version's (its
+minima are the plain version's bit for bit); it holds the train-decode
+kernels (forward, backward) against their plain versions at the flagship
+decoder's shape and at a ragged N and a small batch, and checks that two
+launches give equal bits; beside kernel 1 and the train forward's hidden
+pass it times torch.bmm of their W1 products alone, and beside the
+backward's dW1 pass torch.bmm on the materialised operands (yardsticks
+the port never calls). Phase 3 also times kernel 1 alone at the B=1024
+sampling batch, the decode's share of sample+CD. Phase 4's profile splits
 both kernels into their passes, fails if a pass took no time, and
 counts the forward's statistics launches (at most one a coupling and
 the seed).
@@ -102,6 +107,8 @@ EMD_SFU_RECOMPUTED = 27 + 9
 # products and sum (4); the coefficient (1); da's and db's 3 FMAs (12)
 EMD_BWD_FLOP = 8 + 9 * 4 + 1 + 12
 EMD_BWD_SFU = 1 + 9
+# a Chamfer point pair's work: the distance (8 FLOP) and two minima
+CD_FLOP = 8 + 2
 
 
 def bound(flop: float = 0.0, sfu: float = 0.0, nbytes: float = 0.0):
@@ -180,17 +187,19 @@ def reference_clouds(rng, n: int):
 
 
 def ptxas_summary(log_path: str):
-    """(kernel, registers, spill bytes) per compiled entry function."""
-    rows, name, spill = [], None, 0
+    """(kernel, registers, spill bytes, stack frame bytes) per compiled
+    entry function."""
+    rows, name, spill, stack = [], None, 0, 0
     with open(log_path) as f:
         for line in f:
             if "Compiling entry function" in line:
                 name = line.split("'")[1]
             elif "spill stores" in line:
                 spill = int(line.split("bytes spill stores")[0].split(",")[-1])
+                stack = int(line.split("bytes stack frame")[0].split()[-1])
             elif "Used" in line and "registers" in line and name:
                 regs = int(line.split("Used")[1].split("registers")[0])
-                rows.append((name, regs, spill))
+                rows.append((name, regs, spill, stack))
                 name = None
     return rows
 
@@ -225,28 +234,36 @@ def phase_build():
     say(f"[1] build: {len(build.sources())} sources -> "
         f"{os.path.relpath(build.LIB_PATH, ROOT)} in {seconds:.1f} s")
     report = ptxas_summary(build.PTXAS_LOG)
-    for name, regs, spill in report:
+    for name, regs, spill, stack in report:
         at = name.find("_kernel")
         short = name[max(0, at - 12):at + 24] if at >= 0 else name[:36]
-        say(f"    ptxas {short}: {regs} registers, {spill} B spilled")
-    # kernel 7's hidden and update passes, kernel 8's hidden pass (B1 and
-    # B2, built to fit 128 registers) and the EMD forward (kernels 4 and
-    # 5); kernel 7's and the EMD forward must not spill
-    for kernel, no_spill in (("fwd_hidden_kernel", True),
-                             ("fwd_update_kernel", True),
-                             ("bwd_hidden_kernel", False),
-                             ("bwd_dw1_kernel", False),
-                             ("emd_cost_kernel", True),
-                             ("pairwise_emd_kernel", True)):
-        mine = [(regs, spill) for name, regs, spill in report
+        say(f"    ptxas {short}: {regs} registers, {spill} B spilled, "
+            f"{stack} B stack frame")
+    # kernels 1 and 3, kernel 7's hidden and update passes, kernel 8's
+    # hidden pass (B1 and B2, built to fit 128 registers) and the EMD
+    # forward (kernels 4 and 5); all but kernel 8's must not spill, and
+    # kernels 1 and 3 keep no array in local memory (a stack frame)
+    for kernel, no_spill, no_stack in (
+            ("point_decode_kernel", True, True),
+            ("cd_stats_kernel", True, True),
+            ("fwd_hidden_kernel", True, False),
+            ("fwd_update_kernel", True, False),
+            ("bwd_hidden_kernel", False, False),
+            ("bwd_dw1_kernel", False, False),
+            ("emd_cost_kernel", True, False),
+            ("pairwise_emd_kernel", True, False)):
+        mine = [(regs, spill, stack) for name, regs, spill, stack in report
                 if kernel in name]
         if not mine:
             fail(f"ptxas reported no instantiation of {kernel}")
         say(f"    ptxas {kernel}: {len(mine)} instantiation(s), at most "
-            f"{max(r for r, _ in mine)} registers and "
-            f"{max(s for _, s in mine)} B spilled")
-        if no_spill and max(s for _, s in mine) > 0:
+            f"{max(m[0] for m in mine)} registers, "
+            f"{max(m[1] for m in mine)} B spilled, "
+            f"{max(m[2] for m in mine)} B stack frame")
+        if no_spill and max(m[1] for m in mine) > 0:
             fail(f"{kernel} spills registers")
+        if no_stack and max(m[2] for m in mine) > 0:
+            fail(f"{kernel} keeps a stack frame in local memory")
 
 
 def check_close(what, got, want, atol, rtol=0.0):
@@ -290,12 +307,20 @@ def check_point_decode(config, B, N, seed, timed):
         tag = f"point_decode {name} K={K} B={B} N={N} C={C} f={f}"
         errs.append(check_close(f"{tag} points", out, want_out, 1e-4))
         errs.append(check_close(f"{tag} logvar", lv, want_lv, 1e-4))
+        again = point_decode(packed, ab, p, inverse)
+        if not (torch.equal(out, again[0]) and torch.equal(lv, again[1])):
+            fail(f"{tag}: two launches differ")
         if timed:
             ms = cuda_ms(lambda: point_decode(packed, ab, p, inverse), 10)
             plain = cuda_ms(
                 lambda: point_decode_plain(packed, ab, p, inverse), 3)
             times[name] = (ms, plain)
             say(f"    {tag}: kernel {ms:.3f} ms, plain {plain:.3f} ms")
+    if timed:
+        w1 = w1_bmm_ms(K, B * N, f, C)
+        say(f"    point_decode K={K} B={B} N={N} C={C} f={f}: its W1 "
+            f"products alone as torch.bmm of (2K, f, f) W1 and (2K, f, BN) "
+            f"h0, fp32 highest: {w1:.3f} ms for all {C} couplings")
     return max(errs), times
 
 
@@ -352,9 +377,9 @@ def check_pairwise(S, R, N, M, seed, timed, thr=1e-3):
     tag = f"pairwise_cd_stats S={S} R={R} N={N} M={M}"
     err = max(check_close(f"{tag} cdl", got[0], want[0], 0.0, 1e-5),
               check_close(f"{tag} cdr", got[1], want[1], 0.0, 1e-5))
-    # one point's share of a percentage
-    check_close(f"{tag} precision", got[2], want[2], 100.0 / M)
-    check_close(f"{tag} recall", got[3], want[3], 100.0 / N)
+    # every minimum is the plain version's bit for bit, so every count is
+    check_close(f"{tag} precision (exact)", got[2], want[2], 0.0)
+    check_close(f"{tag} recall (exact)", got[3], want[3], 0.0)
     say(f"    {tag}: mean precision {got[2].mean().item():.2f} %, "
         f"recall {got[3].mean().item():.2f} %")
     times = None
@@ -585,9 +610,9 @@ def check_train_decode(config, B, N, seed, timed):
 def w1_bmm_ms(K, n, f, C):
     """C times one torch.bmm of one coupling's hidden W1 product, (2K, f,
     f) by (2K, f, n) (random values), at fp32 'highest': the library
-    yardstick of kernel 7's hidden pass (its W1 product alone, without
-    the BatchNorms, the cache and the sums), which the port never
-    calls."""
+    yardstick of kernel 1 and of kernel 7's hidden pass (their W1
+    products alone, without the FiLM, the BatchNorms, the cache and the
+    sums), which the port never calls."""
     import torch
 
     if torch.get_float32_matmul_precision() != "highest":
@@ -671,8 +696,12 @@ def phase_kernels():
     pairs = B * N * N
     bounds = {
         "point_decode": bound(**decode_work(K, B, N, C, f, fwd_flop, 24)),
-        "nn_distance": bound(flop=2 * pairs * 9, nbytes=2 * B * N * 16),
-        "pairwise_cd_stats": bound(flop=S * R * 2 * N * N * 9,
+        # the Chamfer kernels need each point pair's distance once, 3
+        # differences, 3 squares and 2 sums (8 FLOP), and its two minima,
+        # the row's and the column's (2), as the TPU's CD grid takes both
+        # from one distance tile (pairwise_kernel.py:90-97)
+        "nn_distance": bound(flop=pairs * CD_FLOP, nbytes=2 * B * N * 16),
+        "pairwise_cd_stats": bound(flop=S * R * N * N * CD_FLOP,
                                    nbytes=(S + R) * N * 12 + S * R * 16),
         "emd_cost": bound(flop=pairs * EMD_FLOP, sfu=pairs * EMD_SFU,
                           nbytes=2 * B * N * 12),
@@ -845,7 +874,7 @@ def phase_slice(card):
     from go_with_the_flows_tpu_torch.ops.kernels.pairwise import (
         pairwise_cd_stats, pairwise_emd)
     from go_with_the_flows_tpu_torch.ops.kernels.point_decode import (
-        point_decode)
+        film_alpha_beta, point_decode)
     from go_with_the_flows_tpu_torch.train.step import make_sample_step
     from go_with_the_flows_tpu_torch.utils.config import FLAGSHIP_AIRPLANE
 
@@ -928,9 +957,15 @@ def phase_slice(card):
         plain = cuda_ms(
             lambda: plain_sample_cd(model, packed, g_in, ref, gen), reps)
         rates[B] = (1000.0 * B / kernel, 1000.0 * B / plain)
+        # the decode alone at the batch's shape (K, B, 3, N)
+        ab = film_alpha_beta(packed, torch.randn(
+            B, model.g_latent_space_size, device="cuda", generator=gen))
+        base = torch.randn(K, B, 3, N_POINTS, device="cuda", generator=gen)
+        decode = cuda_ms(lambda: point_decode(packed, ab, base), reps)
         say(f"    sample+CD B={B}: kernel path {rates[B][0]:.1f} clouds/s "
-            f"({kernel:.2f} ms), plain path {rates[B][1]:.1f} clouds/s "
-            f"({plain:.2f} ms) [{card}]")
+            f"({kernel:.2f} ms; the decode alone {decode:.2f} ms, "
+            f"{100.0 * decode / kernel:.1f} %), plain path "
+            f"{rates[B][1]:.1f} clouds/s ({plain:.2f} ms) [{card}]")
     return launches
 
 

@@ -10,21 +10,34 @@
 //   cdr  = sum(cmin) / M          precision = 100 * #(cmin < thr) / M
 // exactly the masks and denominators of the TPU kernel.
 //
-// What bounds it on an H100: FP32 compute, 2 * N * M distance evaluations
-// of about 9 flops per pair of clouds (75 Mflop at N = M = 2048); a pair
-// reads only 48 KB of points, which L2 serves after the first touch.
+// What bounds it on an H100: FP32 issue. The function needs each of the
+// N * M distances once (8 flops: 3 differences, 3 squares, 2 sums) and
+// two minima of it, 10 instructions a point pair (42 M a pair of clouds
+// at N = M = 2048); a pair reads only 48 KB of points, which L2 serves
+// after the first touch.
 //
 // What the design does about it:
 //   * one block per pair; each writes its own four scalars, so no
 //     reduction crosses blocks;
-//   * two passes, rows then columns. In a pass each thread owns kQPT
-//     query points in registers and the other cloud streams through
-//     shared memory as float4 tiles, so one broadcast 16-byte load feeds
-//     kQPT distance evaluations;
-//   * ragged ends are masked by index, never padded;
+//   * one pass, as the TPU kernel's: each distance feeds both its row
+//     minimum and its column minimum. A thread holds kRows sample points
+//     (rows) and their running minima in registers; the reference points
+//     (columns) stream through shared memory as float4 tiles, so one
+//     broadcast 16-byte load feeds kRows distances;
+//   * for a group of kCols columns each thread also keeps the minimum over
+//     its own rows, in registers. At the end of the group a warp reduces
+//     them by a halving exchange (31 shuffles: lane l ends with column l's
+//     warp minimum), and warp 0 takes the minimum over the warps from a
+//     double-buffered shared array (one barrier a group) into the column
+//     minima, kept in shared memory for all M columns;
+//   * rows beyond kThreads * kRows come in further chunks, each folding
+//     its column minima into the shared ones;
+//   * ragged ends are masked by index: a row or column past the end is a
+//     copy of the last real one, which leaves every minimum as it is, and
+//     only real rows and columns are summed and counted;
 //   * distances are rounded step by step as in nn_distance.cu, so every
-//     minimum equals the plain PyTorch version's; only the order of the
-//     final sums differs;
+//     minimum equals the plain PyTorch version's bit for bit; only the
+//     order of the final sums differs;
 //   * the block reduces its per-thread sums and counts with warp shuffles.
 
 #include <cuda_runtime.h>
@@ -34,8 +47,10 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kQPT = 8;  // query points per thread per chunk
-constexpr int kTile = 1024;
+constexpr int kWarps = kThreads / 32;
+constexpr int kRows = 8;    // sample points (rows) a thread
+constexpr int kCols = 32;   // columns of one group, one a lane
+constexpr int kTile = 1024; // columns staged in shared memory at once
 
 __device__ __forceinline__ float sq_dist(float ax, float ay, float az,
                                          float4 r) {
@@ -45,46 +60,29 @@ __device__ __forceinline__ float sq_dist(float ax, float ay, float az,
                    __fmul_rn(dz, dz));
 }
 
-// One pass: for every point of q (nq points), its min squared distance to
-// the points of r (nr); returns this thread's partial (sum of mins,
-// count of mins < thr).
-__device__ void min_pass(const float* __restrict__ q, int nq,
-                         const float* __restrict__ r, int nr, float thr,
-                         float4* tile, float& sum, float& count) {
-  for (int q0 = 0; q0 < nq; q0 += kThreads * kQPT) {
-    float px[kQPT], py[kQPT], pz[kQPT], best[kQPT];
+// One step of the exchange below: a lane keeps O of its 2 O column minima,
+// the half named by bit O of the lane, and takes the other lane's minima
+// of the same columns.
+template <int O>
+__device__ __forceinline__ void exchange(float (&v)[kCols], bool upper) {
 #pragma unroll
-    for (int u = 0; u < kQPT; ++u) {
-      const int n = q0 + u * kThreads + threadIdx.x;
-      const bool live = n < nq;
-      px[u] = live ? q[3LL * n] : 0.f;
-      py[u] = live ? q[3LL * n + 1] : 0.f;
-      pz[u] = live ? q[3LL * n + 2] : 0.f;
-      best[u] = INFINITY;
-    }
-    for (int t0 = 0; t0 < nr; t0 += kTile) {
-      __syncthreads();
-      for (int j = threadIdx.x; j < kTile && t0 + j < nr; j += kThreads) {
-        const float* pt = r + 3LL * (t0 + j);
-        tile[j] = make_float4(pt[0], pt[1], pt[2], 0.f);
-      }
-      __syncthreads();
-      const int cnt = min(kTile, nr - t0);
-      for (int j = 0; j < cnt; ++j) {
-        const float4 pt = tile[j];
-#pragma unroll
-        for (int u = 0; u < kQPT; ++u)
-          best[u] = fminf(best[u], sq_dist(px[u], py[u], pz[u], pt));
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kQPT; ++u) {
-      if (q0 + u * kThreads + threadIdx.x < nq) {
-        sum += best[u];
-        count += best[u] < thr ? 1.f : 0.f;
-      }
-    }
+  for (int i = 0; i < O; ++i) {
+    const float send = upper ? v[i] : v[i + O];
+    const float keep = upper ? v[i + O] : v[i];
+    v[i] = fminf(keep, __shfl_xor_sync(0xffffffffu, send, O));
   }
+}
+
+// Minima of kCols = 32 values over a warp's lanes: on return v[0] of lane
+// l holds the warp's minimum of column l.
+__device__ __forceinline__ float warp_column_min(float (&v)[kCols]) {
+  const int lane = threadIdx.x % 32;
+  exchange<16>(v, lane & 16);
+  exchange<8>(v, lane & 8);
+  exchange<4>(v, lane & 4);
+  exchange<2>(v, lane & 2);
+  exchange<1>(v, lane & 1);
+  return v[0];
 }
 
 __device__ float block_sum(float v, float* scratch) {
@@ -97,9 +95,16 @@ __device__ float block_sum(float v, float* scratch) {
   __syncthreads();
   float total = 0.f;
   if (threadIdx.x == 0) {
-    for (int w = 0; w < kThreads / 32; ++w) total += scratch[w];
+    for (int w = 0; w < kWarps; ++w) total += scratch[w];
   }
   return total;  // valid in thread 0
+}
+
+// dynamic shared memory: the column tile, the warps' group minima (two
+// buffers), the block sums' scratch, the column minima
+constexpr size_t smem_bytes(int M) {
+  return kTile * sizeof(float4) + (2 * kWarps * kCols + kWarps) * sizeof(float)
+         + M * sizeof(float);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -107,16 +112,84 @@ cd_stats_kernel(const float* __restrict__ samples,
                 const float* __restrict__ refs, float* __restrict__ cdl,
                 float* __restrict__ cdr, float* __restrict__ prec,
                 float* __restrict__ rec, int R, int N, int M, float thr) {
-  __shared__ float4 tile[kTile];
-  __shared__ float scratch[kThreads / 32];
+  extern __shared__ float4 smem[];
+  float4* tile = smem;
+  float* group_min = reinterpret_cast<float*>(smem + kTile);
+  float* scratch = group_min + 2 * kWarps * kCols;
+  float* col_min = scratch + kWarps;
   const long long pair = blockIdx.x;
   const long long i = pair / R, j = pair % R;
   const float* a = samples + i * N * 3;
   const float* b = refs + j * M * 3;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
-  float row_sum = 0.f, row_cnt = 0.f, col_sum = 0.f, col_cnt = 0.f;
-  min_pass(a, N, b, M, thr, tile, row_sum, row_cnt);
-  min_pass(b, M, a, N, thr, tile, col_sum, col_cnt);
+  float row_sum = 0.f, row_cnt = 0.f;
+  int group = 0;
+  for (int r0 = 0; r0 < N; r0 += kThreads * kRows) {
+    float px[kRows], py[kRows], pz[kRows], best[kRows];
+#pragma unroll
+    for (int u = 0; u < kRows; ++u) {
+      const long long n = min(r0 + u * kThreads + (int)threadIdx.x, N - 1);
+      px[u] = a[3 * n];
+      py[u] = a[3 * n + 1];
+      pz[u] = a[3 * n + 2];
+      best[u] = INFINITY;
+    }
+    for (int t0 = 0; t0 < M; t0 += kTile) {
+      const int width = (min(kTile, M - t0) + kCols - 1) / kCols * kCols;
+      __syncthreads();  // the previous tile is no longer read
+      for (int c = threadIdx.x; c < width; c += kThreads) {
+        const long long m = min(t0 + c, M - 1);
+        tile[c] = make_float4(b[3 * m], b[3 * m + 1], b[3 * m + 2], 0.f);
+      }
+      __syncthreads();
+      for (int c0 = 0; c0 < width; c0 += kCols, ++group) {
+        float cmin[kCols];
+#pragma unroll
+        for (int c = 0; c < kCols; ++c) {
+          const float4 q = tile[c0 + c];
+          float d[kRows];
+#pragma unroll
+          for (int u = 0; u < kRows; ++u) {
+            d[u] = sq_dist(px[u], py[u], pz[u], q);
+            best[u] = fminf(best[u], d[u]);
+          }
+#pragma unroll
+          for (int s = 1; s < kRows; s *= 2) {
+#pragma unroll
+            for (int u = 0; u + s < kRows; u += 2 * s)
+              d[u] = fminf(d[u], d[u + s]);
+          }
+          cmin[c] = d[0];
+        }
+        float* slot = group_min + (group & 1) * kWarps * kCols;
+        slot[warp * kCols + lane] = warp_column_min(cmin);
+        // the group's minima are written; a write to this buffer comes two
+        // groups later, after warp 0 has passed the next barrier
+        __syncthreads();
+        const int col = t0 + c0 + lane;
+        if (warp == 0 && col < M) {
+          float v = slot[lane];
+#pragma unroll
+          for (int w = 1; w < kWarps; ++w) v = fminf(v, slot[w * kCols + lane]);
+          col_min[col] = r0 == 0 ? v : fminf(col_min[col], v);
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kRows; ++u) {
+      if (r0 + u * kThreads + (int)threadIdx.x < N) {
+        row_sum += best[u];
+        row_cnt += best[u] < thr ? 1.f : 0.f;
+      }
+    }
+  }
+  __syncthreads();  // every column minimum is final
+  float col_sum = 0.f, col_cnt = 0.f;
+  for (int m = threadIdx.x; m < M; m += kThreads) {
+    col_sum += col_min[m];
+    col_cnt += col_min[m] < thr ? 1.f : 0.f;
+  }
   row_sum = block_sum(row_sum, scratch);
   row_cnt = block_sum(row_cnt, scratch);
   col_sum = block_sum(col_sum, scratch);
@@ -138,7 +211,14 @@ extern "C" int gwtf_pairwise_cd_stats(const float* samples, const float* refs,
                                       float thr, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const unsigned int pairs = static_cast<unsigned int>(S) * R;
-  cd_stats_kernel<<<pairs, kThreads, 0, stream>>>(samples, refs, cdl, cdr,
-                                                  prec, rec, R, N, M, thr);
+  // the column minima live in shared memory beside the tile, within the
+  // 227 KB a block can use: at most 53,496 reference points
+  if (smem_bytes(M) > 232448) return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = static_cast<int>(smem_bytes(M));
+  const cudaError_t err = cudaFuncSetAttribute(
+      cd_stats_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cd_stats_kernel<<<pairs, kThreads, smem, stream>>>(samples, refs, cdl, cdr,
+                                                     prec, rec, R, N, M, thr);
   return static_cast<int>(cudaGetLastError());
 }

@@ -8,192 +8,250 @@
 // What bounds it on an H100: FP32 compute. A point costs about 3.2k
 // multiply-adds per coupling, almost all in the two f x f W1 products
 // (f = 37 at the flagship), while it reads 12 B and writes 24 B for the
-// whole chain of C = 33 couplings.
+// whole chain of C = 33 couplings. What bounds this kernel is issue: the
+// FMAs, and the shared-memory loads that feed them the weights.
 //
 // What the design does about it:
-//   * one thread per point; one block per (component k, cloud b, tile of
-//     kThreads points). x[3] and the logvar sum live in registers across
-//     all C couplings, so device memory sees the points once;
-//   * per coupling the block stages that coupling's folded weights and
-//     the cloud's FiLM alpha/beta rows in shared memory (about 13 KB at
-//     f = 37), so each weight is read from L2 once per block, and every
-//     warp reads them as broadcasts;
+//   * each thread carries P points through all C couplings in registers
+//     (x[3] and the logvar sum each), so device memory sees the points
+//     once; one block per (component k, cloud b, tile of kBlockPoints
+//     points);
+//   * the register tile: every weight loaded from shared memory feeds P
+//     points, so a 16-byte load of a W1 row feeds 4 P FMAs, and the
+//     per-row records (w0 and b0 in one float4, w2 in one, the FiLM alpha
+//     and beta in one float2) cost one load each for all of a thread's
+//     points. P is 4 where h0 of 4 points fits the registers without a
+//     spill (FP <= 40, the flagship's width), else 2;
+//   * the weights come in the kernel layout (`kernel_weights` in the
+//     wrapper, made once with the packing): per component and coupling
+//     one contiguous block, already padded to FP, so staging is plain
+//     16-byte copies with no index arithmetic;
+//   * staging runs ahead: while coupling c runs, coupling c+1's weights
+//     and the cloud's FiLM rows are copied into the other of two shared
+//     buffers with cp.async (the L2 latency hidden), and a coupling costs
+//     one barrier;
 //   * the two heads run separately (no block-diagonal 2f x 2f W1 as on
 //     the TPU, whose zeros would cost FMAs here);
-//   * only h0 (f floats) lives per thread: h1 is made one row at a time
-//     and folded straight into the 3-wide y. f is padded to FP, a
-//     multiple of 8, in shared memory (zeros), so the inner loop unrolls
-//     at compile time and h0 stays in registers; the row loop runs to
-//     the real f.
+//   * only h0 (f floats a point) lives per thread: h1 is made one row at
+//     a time and folded straight into the 3-wide y. f is padded to FP, a
+//     multiple of 8, with zeros, so the inner loop unrolls at compile time
+//     and h0 stays in registers; the row loop runs to the real f.
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kBlockPoints = 512;  // points a block
+constexpr int kNarrowPoints = 4;   // points a thread at FP <= kNarrowFP
+constexpr int kWidePoints = 2;     // points a thread above it
+constexpr int kNarrowFP = 40;
 constexpr float kEps = 1e-6f;
 
+__host__ __device__ constexpr int points_a_thread(int FP) {
+  return FP <= kNarrowFP ? kNarrowPoints : kWidePoints;
+}
+__host__ __device__ constexpr int threads_a_block(int FP) {
+  return kBlockPoints / points_a_thread(FP);
+}
+
+// One coupling's weights in the kernel layout, floats a (component,
+// coupling): W1 [2][FP][FP]; {w0x, w0y, w0z, b0} [2][FP]; {w2x, w2y, w2z,
+// 0} [2][FP]; {b2x, b2y, b2z, 0} [2]. Then one cloud's FiLM rows,
+// {alpha, beta} [2][FP]. Each is a multiple of 4 floats.
 template <int FP>
-struct __align__(16) CouplingSmem {
-  float w1[2][FP][FP];  // first: rows stay 16-byte aligned for float4 reads
-  float w0[2][FP][3];
-  float b0[2][FP];
-  float w2[2][3][FP];
-  float alpha[2][FP];
-  float beta[2][FP];
-  float b2[2][3];
+struct Layout {
+  static constexpr int kW1 = 0;
+  static constexpr int kW0 = kW1 + 2 * FP * FP;
+  static constexpr int kW2 = kW0 + 8 * FP;
+  static constexpr int kB2 = kW2 + 8 * FP;
+  static constexpr int kWeights = kB2 + 8;
+  static constexpr int kFilm = 4 * FP;
+  static constexpr int kBuffer = kWeights + kFilm;
 };
 
+// Issue this thread's 16-byte copies of one coupling's weights and FiLM
+// rows into a shared buffer, as one pipeline stage.
 template <int FP>
-__device__ void stage_coupling(CouplingSmem<FP>& s, const float* __restrict__ w0,
-                               const float* __restrict__ b0,
-                               const float* __restrict__ w1,
-                               const float* __restrict__ w2,
-                               const float* __restrict__ b2,
-                               const float* __restrict__ ab, int f,
-                               long long kc, long long kbc) {
-  const int tid = threadIdx.x;
-  const float* gw0 = w0 + kc * 2 * f * 3;
-  const float* gb0 = b0 + kc * 2 * f;
-  const float* gw1 = w1 + kc * 2 * f * f;
-  const float* gw2 = w2 + kc * 2 * 3 * f;
-  const float* gb2 = b2 + kc * 2 * 3;
-  const float* gab = ab + kbc * 2 * 2 * f;
-  for (int i = tid; i < 2 * FP * FP; i += kThreads) {
-    const int h = i / (FP * FP), o = (i / FP) % FP, j = i % FP;
-    (&s.w1[0][0][0])[i] = (o < f && j < f) ? gw1[(h * f + o) * f + j] : 0.f;
+__device__ __forceinline__ void prefetch(float* buf, const float* w,
+                                         const float* film) {
+  constexpr int kW4 = Layout<FP>::kWeights / 4;
+  constexpr int kAll4 = Layout<FP>::kBuffer / 4;
+  for (int i = threadIdx.x; i < kAll4; i += threads_a_block(FP)) {
+    const float* src = i < kW4 ? w + 4 * i : film + 4 * (i - kW4);
+    __pipeline_memcpy_async(buf + 4 * i, src, 16);
   }
-  for (int i = tid; i < 2 * FP * 3; i += kThreads) {
-    const int h = i / (FP * 3), o = (i / 3) % FP, j = i % 3;
-    (&s.w0[0][0][0])[i] = o < f ? gw0[(h * f + o) * 3 + j] : 0.f;
-  }
-  for (int i = tid; i < 2 * 3 * FP; i += kThreads) {
-    const int h = i / (3 * FP), j = (i / FP) % 3, o = i % FP;
-    (&s.w2[0][0][0])[i] = o < f ? gw2[(h * 3 + j) * f + o] : 0.f;
-  }
-  for (int i = tid; i < 2 * FP; i += kThreads) {
-    const int h = i / FP, o = i % FP;
-    const bool live = o < f;
-    (&s.b0[0][0])[i] = live ? gb0[h * f + o] : 0.f;
-    (&s.alpha[0][0])[i] = live ? gab[h * f + o] : 0.f;
-    (&s.beta[0][0])[i] = live ? gab[2 * f + h * f + o] : 0.f;
-  }
-  if (tid < 6) (&s.b2[0][0])[tid] = gb2[tid];
+  __pipeline_commit();
 }
 
 template <int FP, bool INVERSE>
-__global__ void __launch_bounds__(kThreads)
-point_decode_kernel(const float* __restrict__ p, const float* __restrict__ w0,
-                    const float* __restrict__ b0, const float* __restrict__ w1,
-                    const float* __restrict__ w2, const float* __restrict__ b2,
-                    const float* __restrict__ ab, float* __restrict__ out,
+__global__ void __launch_bounds__(threads_a_block(FP))
+point_decode_kernel(const float* __restrict__ p, const float* __restrict__ w,
+                    const float* __restrict__ film, float* __restrict__ out,
                     float* __restrict__ lv_out, int B, int C, int N, int f) {
-  __shared__ CouplingSmem<FP> s;
+  using L = Layout<FP>;
+  constexpr int kPoints = points_a_thread(FP);
+  constexpr int kThreads = threads_a_block(FP);
+  extern __shared__ float4 smem[];
+  float* buffers = reinterpret_cast<float*>(smem);
   const int k = blockIdx.z, b = blockIdx.y;
-  const int n = blockIdx.x * kThreads + threadIdx.x;
-  const bool live = n < N;
+  const int n0 = blockIdx.x * kBlockPoints + threadIdx.x;
   const long long cloud = ((long long)k * B + b) * 3 * N;
+  const float* wk = w + (long long)k * C * L::kWeights;
+  const float* fkb = film + ((long long)k * B + b) * C * L::kFilm;
 
-  float x[3] = {0.f, 0.f, 0.f};
-  float lv[3] = {0.f, 0.f, 0.f};
-  if (live) {
+  float x[kPoints][3], lv[kPoints][3];
 #pragma unroll
-    for (int j = 0; j < 3; ++j) x[j] = p[cloud + (long long)j * N + n];
+  for (int u = 0; u < kPoints; ++u) {
+    const int n = n0 + u * kThreads;
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      x[u][j] = n < N ? p[cloud + (long long)j * N + n] : 0.f;
+      lv[u][j] = 0.f;
+    }
   }
 
+  const int first = INVERSE ? C - 1 : 0;
+  prefetch<FP>(buffers, wk + (long long)first * L::kWeights,
+               fkb + (long long)first * L::kFilm);
   for (int i = 0; i < C; ++i) {
-    const int c = INVERSE ? C - 1 - i : i;
-    __syncthreads();  // every thread is done with the previous coupling
-    stage_coupling<FP>(s, w0, b0, w1, w2, b2, ab, f, (long long)k * C + c,
-                       ((long long)k * B + b) * C + c);
+    // this coupling's copies have landed, and every thread is done with
+    // the previous coupling, whose buffer the next prefetch reuses
+    __pipeline_wait_prior(0);
     __syncthreads();
-    if (!live) continue;
+    if (i + 1 < C) {
+      const int next = INVERSE ? C - 2 - i : i + 1;
+      prefetch<FP>(buffers + ((i + 1) & 1) * L::kBuffer,
+                   wk + (long long)next * L::kWeights,
+                   fkb + (long long)next * L::kFilm);
+    }
+    const float* s = buffers + (i & 1) * L::kBuffer;
+    const float4* w0s = reinterpret_cast<const float4*>(s + L::kW0);
+    const float4* w2s = reinterpret_cast<const float4*>(s + L::kW2);
+    const float4* b2s = reinterpret_cast<const float4*>(s + L::kB2);
+    const float2* film_s = reinterpret_cast<const float2*>(s + L::kWeights);
 
-    float y[2][3];
+    float y[2][kPoints][3];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      float h0[FP];
+      float h0[kPoints][FP];
 #pragma unroll
       for (int o = 0; o < FP; ++o) {
-        const float t = s.w0[h][o][0] * x[0] + s.w0[h][o][1] * x[1] +
-                        s.w0[h][o][2] * x[2] + s.b0[h][o];
-        h0[o] = fmaxf(t, 0.f);
+        const float4 r = w0s[h * FP + o];
+#pragma unroll
+        for (int u = 0; u < kPoints; ++u)
+          h0[u][o] = fmaxf(
+              r.x * x[u][0] + r.y * x[u][1] + r.z * x[u][2] + r.w, 0.f);
       }
-      float y0 = 0.f, y1 = 0.f, y2 = 0.f;
+      float acc[kPoints][3] = {};
       for (int o = 0; o < f; ++o) {
-        const float4* row = reinterpret_cast<const float4*>(s.w1[h][o]);
-        float acc = 0.f;
+        const float4* row =
+            reinterpret_cast<const float4*>(s + L::kW1 + (h * FP + o) * FP);
+        float dot[kPoints] = {};
 #pragma unroll
         for (int q = 0; q < FP / 4; ++q) {
-          const float4 w = row[q];
-          acc = fmaf(w.x, h0[4 * q + 0], acc);
-          acc = fmaf(w.y, h0[4 * q + 1], acc);
-          acc = fmaf(w.z, h0[4 * q + 2], acc);
-          acc = fmaf(w.w, h0[4 * q + 3], acc);
+          const float4 wq = row[q];
+#pragma unroll
+          for (int u = 0; u < kPoints; ++u) {
+            dot[u] = fmaf(wq.x, h0[u][4 * q + 0], dot[u]);
+            dot[u] = fmaf(wq.y, h0[u][4 * q + 1], dot[u]);
+            dot[u] = fmaf(wq.z, h0[u][4 * q + 2], dot[u]);
+            dot[u] = fmaf(wq.w, h0[u][4 * q + 3], dot[u]);
+          }
         }
-        const float v = fmaxf(s.alpha[h][o] * acc + s.beta[h][o], 0.f);
-        y0 = fmaf(s.w2[h][0][o], v, y0);
-        y1 = fmaf(s.w2[h][1][o], v, y1);
-        y2 = fmaf(s.w2[h][2][o], v, y2);
+        const float2 ab = film_s[h * FP + o];
+        const float4 w2 = w2s[h * FP + o];
+#pragma unroll
+        for (int u = 0; u < kPoints; ++u) {
+          const float v = fmaxf(ab.x * dot[u] + ab.y, 0.f);
+          acc[u][0] = fmaf(w2.x, v, acc[u][0]);
+          acc[u][1] = fmaf(w2.y, v, acc[u][1]);
+          acc[u][2] = fmaf(w2.z, v, acc[u][2]);
+        }
       }
-      y[h][0] = y0 + s.b2[h][0];
-      y[h][1] = y1 + s.b2[h][1];
-      y[h][2] = y2 + s.b2[h][2];
+      const float4 b2 = b2s[h];
+#pragma unroll
+      for (int u = 0; u < kPoints; ++u) {
+        y[h][u][0] = acc[u][0] + b2.x;
+        y[h][u][1] = acc[u][1] + b2.y;
+        y[h][u][2] = acc[u][2] + b2.z;
+      }
     }
     // kept channels have y = 0: logvar 0, scale sqrt(1 + eps), as the
     // reference's full-width coupling
 #pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      const float logvar = y[0][j] / (1.f + fabsf(y[0][j]));  // softsign
-      const float scale = sqrtf(kEps + expf(logvar));
-      x[j] = INVERSE ? (x[j] - y[1][j]) / scale : scale * x[j] + y[1][j];
-      lv[j] += logvar;
+    for (int u = 0; u < kPoints; ++u) {
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        const float logvar = y[0][u][j] / (1.f + fabsf(y[0][u][j]));
+        const float scale = sqrtf(kEps + expf(logvar));
+        x[u][j] = INVERSE ? (x[u][j] - y[1][u][j]) / scale
+                          : scale * x[u][j] + y[1][u][j];
+        lv[u][j] += logvar;
+      }
     }
   }
-  if (live) {
 #pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      out[cloud + (long long)j * N + n] = x[j];
-      lv_out[cloud + (long long)j * N + n] = lv[j];
+  for (int u = 0; u < kPoints; ++u) {
+    const int n = n0 + u * kThreads;
+    if (n < N) {
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        out[cloud + (long long)j * N + n] = x[u][j];
+        lv_out[cloud + (long long)j * N + n] = lv[u][j];
+      }
     }
   }
 }
 
+template <int FP, bool INVERSE>
+cudaError_t launch_dir(dim3 grid, cudaStream_t stream, const float* p,
+                       const float* w, const float* film, float* out,
+                       float* lv, int B, int C, int N, int f) {
+  constexpr int smem = 2 * Layout<FP>::kBuffer * sizeof(float);
+  const cudaError_t err = cudaFuncSetAttribute(
+      point_decode_kernel<FP, INVERSE>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  point_decode_kernel<FP, INVERSE><<<grid, threads_a_block(FP), smem,
+                                     stream>>>(p, w, film, out, lv, B, C, N,
+                                               f);
+  return cudaGetLastError();
+}
+
 template <int FP>
-void launch(bool inverse, dim3 grid, cudaStream_t stream, const float* p,
-            const float* w0, const float* b0, const float* w1, const float* w2,
-            const float* b2, const float* ab, float* out, float* lv, int B,
-            int C, int N, int f) {
-  if (inverse)
-    point_decode_kernel<FP, true><<<grid, kThreads, 0, stream>>>(
-        p, w0, b0, w1, w2, b2, ab, out, lv, B, C, N, f);
-  else
-    point_decode_kernel<FP, false><<<grid, kThreads, 0, stream>>>(
-        p, w0, b0, w1, w2, b2, ab, out, lv, B, C, N, f);
+cudaError_t launch(bool inverse, dim3 grid, cudaStream_t stream,
+                   const float* p, const float* w, const float* film,
+                   float* out, float* lv, int B, int C, int N, int f) {
+  return inverse
+             ? launch_dir<FP, true>(grid, stream, p, w, film, out, lv, B, C,
+                                    N, f)
+             : launch_dir<FP, false>(grid, stream, p, w, film, out, lv, B, C,
+                                     N, f);
 }
 
 }  // namespace
 
-extern "C" int gwtf_point_decode(const float* p, const float* w0,
-                                 const float* b0, const float* w1,
-                                 const float* w2, const float* b2,
-                                 const float* ab, float* out, float* lv, int K,
-                                 int B, int C, int N, int f, int inverse,
-                                 void* stream_ptr) {
+// p (K, B, 3, N); w (K, C, weight floats) and film (K, B, C, 4 FP) in the
+// kernel layout above, FP = f rounded up to a multiple of 8.
+extern "C" int gwtf_point_decode(const float* p, const float* w,
+                                 const float* film, float* out, float* lv,
+                                 int K, int B, int C, int N, int f,
+                                 int inverse, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const dim3 grid((N + kThreads - 1) / kThreads, B, K);
+  const dim3 grid((N + kBlockPoints - 1) / kBlockPoints, B, K);
   const bool inv = inverse != 0;
-  const int fp = (f + 7) / 8 * 8;
-  switch (fp) {
-    case 8: launch<8>(inv, grid, stream, p, w0, b0, w1, w2, b2, ab, out, lv, B, C, N, f); break;
-    case 16: launch<16>(inv, grid, stream, p, w0, b0, w1, w2, b2, ab, out, lv, B, C, N, f); break;
-    case 24: launch<24>(inv, grid, stream, p, w0, b0, w1, w2, b2, ab, out, lv, B, C, N, f); break;
-    case 32: launch<32>(inv, grid, stream, p, w0, b0, w1, w2, b2, ab, out, lv, B, C, N, f); break;
-    case 40: launch<40>(inv, grid, stream, p, w0, b0, w1, w2, b2, ab, out, lv, B, C, N, f); break;
-    case 48: launch<48>(inv, grid, stream, p, w0, b0, w1, w2, b2, ab, out, lv, B, C, N, f); break;
-    case 56: launch<56>(inv, grid, stream, p, w0, b0, w1, w2, b2, ab, out, lv, B, C, N, f); break;
-    case 64: launch<64>(inv, grid, stream, p, w0, b0, w1, w2, b2, ab, out, lv, B, C, N, f); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err;
+  switch ((f + 7) / 8 * 8) {
+    case 8: err = launch<8>(inv, grid, stream, p, w, film, out, lv, B, C, N, f); break;
+    case 16: err = launch<16>(inv, grid, stream, p, w, film, out, lv, B, C, N, f); break;
+    case 24: err = launch<24>(inv, grid, stream, p, w, film, out, lv, B, C, N, f); break;
+    case 32: err = launch<32>(inv, grid, stream, p, w, film, out, lv, B, C, N, f); break;
+    case 40: err = launch<40>(inv, grid, stream, p, w, film, out, lv, B, C, N, f); break;
+    case 48: err = launch<48>(inv, grid, stream, p, w, film, out, lv, B, C, N, f); break;
+    case 56: err = launch<56>(inv, grid, stream, p, w, film, out, lv, B, C, N, f); break;
+    case 64: err = launch<64>(inv, grid, stream, p, w, film, out, lv, B, C, N, f); break;
+    default: err = cudaErrorInvalidValue;
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(err);
 }

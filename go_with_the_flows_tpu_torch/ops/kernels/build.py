@@ -40,8 +40,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # name -> argtypes; every entry returns int (a cudaError_t)
 _SIGNATURES = {
-    # p, w0, b0, w1, w2, b2, ab, out, lv, K, B, C, N, f, inverse, stream
-    "gwtf_point_decode": [_P] * 9 + [_I] * 6 + [_P],
+    # p, weights, film, out, lv, K, B, C, N, f, inverse, stream
+    "gwtf_point_decode": [_P] * 5 + [_I] * 6 + [_P],
     # a, b, dist_a, idx_a, dist_b, idx_b, B, N, M, stream
     "gwtf_nn_distance": [_P] * 6 + [_I] * 3 + [_P],
     # samples, refs, cdl, cdr, prec, rec, S, R, N, M, thr, stream

@@ -57,7 +57,9 @@ def pairwise_cd_stats(samples: torch.Tensor, refs: torch.Tensor,
                       f1_threshold: float):
     """(cdl, cdr, precision, recall), each (S, R), for samples (S, N, 3)
     vs refs (R, M, 3). A CPU tensor goes to the plain version; a CUDA
-    tensor launches the kernel."""
+    tensor launches the kernel, which keeps a pair's M column minima in
+    shared memory: it takes refs of at most 53,496 points and raises
+    beyond."""
     if samples.device.type == "cpu" and refs.device.type == "cpu":
         return pairwise_cd_stats_plain(samples, refs, f1_threshold)
     if samples.ndim != 3 or refs.ndim != 3 or samples.shape[2] != 3 \

@@ -26,6 +26,12 @@ for in FMAs. Packed layout, leading K axis (one per mixture component):
 where ab[..., 0, :] is alpha and ab[..., 1, :] beta, heads stacked as
 [logvar f | mu f].
 
+The kernel reads its own layout of the same numbers, padded to FP (f
+rounded up to a multiple of 8) so that it stages them by plain 16-byte
+copies: `kernel_weights` (made once by `pack_point_decoder`, under the
+key "kernel") and `kernel_film` (made per call from ab); see
+csrc/point_decode.cu.
+
 `pack_point_decoder` and `film_alpha_beta` are small products that stay
 plain PyTorch, as the JAX package leaves them to XLA.
 """
@@ -102,7 +108,37 @@ def pack_point_decoder(decoder) -> Dict[str, torch.Tensor]:
         for i, name in enumerate(("film_k0", "film_a0", "film_b0",
                                   "film_k1", "film_b1")):
             acc[name].append(torch.stack([fm[i] for fm in films], axis))
-    return {k: torch.stack(v, axis).contiguous() for k, v in acc.items()}
+    packed = {k: torch.stack(v, axis).contiguous() for k, v in acc.items()}
+    packed["kernel"] = kernel_weights(packed)
+    return packed
+
+
+def padded_width(f: int) -> int:
+    """FP: the conditioner width f rounded up to a multiple of 8."""
+    return (f + 7) // 8 * 8
+
+
+def kernel_weights(packed: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The kernel's layout of the folded weights, (..., C, 2 FP^2 + 16 FP
+    + 8): per coupling W1 (2, FP, FP), then per head and row {w0, b0} and
+    {w2, 0} as 4 floats each, then b2 as (2, 4); zeros pad f to FP."""
+    f = packed["w1"].shape[-1]
+    pad = padded_width(f) - f
+    w1 = F.pad(packed["w1"], (0, pad, 0, pad))
+    w0b0 = F.pad(torch.cat([packed["w0"], packed["b0"][..., None]], -1),
+                 (0, 0, 0, pad))
+    w2 = F.pad(packed["w2"].transpose(-1, -2), (0, 1, 0, pad))
+    b2 = F.pad(packed["b2"], (0, 1))
+    return torch.cat([t.flatten(-3) for t in (w1, w0b0, w2)]
+                     + [b2.flatten(-2)], -1).contiguous()
+
+
+def kernel_film(ab: torch.Tensor) -> torch.Tensor:
+    """The kernel's layout of the FiLM affines ab (..., 2, 2f): per
+    head and row {alpha, beta}, rows padded to FP, (..., 4 FP)."""
+    f = ab.shape[-1] // 2
+    ab = ab.unflatten(-1, (2, f)).transpose(-3, -2).transpose(-2, -1)
+    return F.pad(ab, (0, 0, 0, padded_width(f) - f)).flatten(-3).contiguous()
 
 
 def film_alpha_beta(packed: Dict[str, torch.Tensor],
@@ -153,29 +189,33 @@ def point_decode_plain(packed, ab, p, inverse: bool = False):
 def point_decode(packed, ab, p, inverse: bool = False):
     """Eval pass of the coupling chain, direct or inverse.
 
-    p: (K, B, 3, N); packed from a K-stacked decoder; ab from
-    film_alpha_beta. Returns (p_out, logvar_sum) with p's shape. A CPU
-    tensor goes to the plain version; a CUDA tensor launches the kernel.
+    p: (K, B, 3, N); packed by pack_point_decoder from a K-stacked
+    decoder; ab from film_alpha_beta. Returns (p_out, logvar_sum) with
+    p's shape. A CPU tensor goes to the plain version; a CUDA tensor
+    launches the kernel.
     """
     if p.device.type == "cpu":
         return point_decode_plain(packed, ab, p, inverse)
 
     K, B, _, N = p.shape
     C, f = packed["w1"].shape[1], packed["w1"].shape[-1]
-    args = [p, packed["w0"], packed["b0"], packed["w1"], packed["w2"],
-            packed["b2"], ab]
-    shapes = [(K, B, 3, N), (K, C, 2, f, 3), (K, C, 2, f), (K, C, 2, f, f),
-              (K, C, 2, 3, f), (K, C, 2, 3), (K, B, C, 2, 2 * f)]
-    for t, shape in zip(args, shapes):
-        if tuple(t.shape) != shape:
-            raise ValueError(f"point_decode: shape {tuple(t.shape)}, "
-                             f"expected {shape}")
-    build.check_tensors(args, p.device)
     if not 1 <= f <= MAX_F:
         raise ValueError(f"point_decode: f={f} outside 1..{MAX_F}")
     if min(K, B, N) < 1 or max(K, B) > 65535:
         raise ValueError(f"point_decode: grid (K={K}, B={B}, N={N}) "
                          "outside the kernel's launch limits")
+    if tuple(ab.shape) != (K, B, C, 2, 2 * f):
+        raise ValueError(f"point_decode: ab shape {tuple(ab.shape)}, "
+                         f"expected {(K, B, C, 2, 2 * f)}")
+    FP = padded_width(f)
+    args = [p, packed["kernel"], kernel_film(ab)]
+    shapes = [(K, B, 3, N), (K, C, 2 * FP * FP + 16 * FP + 8),
+              (K, B, C, 4 * FP)]
+    for t, shape in zip(args, shapes):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"point_decode: shape {tuple(t.shape)}, "
+                             f"expected {shape}")
+    build.check_tensors(args, p.device)
     out = torch.empty_like(p)
     lv = torch.empty_like(p)
     lib = build.library()

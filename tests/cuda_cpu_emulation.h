@@ -1,7 +1,6 @@
-// A CPU stand-in for the few CUDA constructs csrc/train_decode.cu and
-// csrc/emd.cu use, so that g++ can build those sources and their kernels
-// can run on the CPU in the tests
-// (tests/test_torch_port_{train_decode,emd}_emulated.py). Each CUDA thread
+// A CPU stand-in for the few CUDA constructs the sources of csrc/ use, so
+// that g++ can build them and their kernels can run on the CPU in the
+// tests (tests/test_torch_port_*_emulated.py). Each CUDA thread
 // of a block is a std::thread; the blocks of a launch run one after
 // another; a barrier stands for __syncthreads, and shuffles exchange
 // through a per-block array between two barriers. It checks the kernels'
@@ -65,6 +64,13 @@ inline cudaError_t cudaMemsetAsync(void* d, int v, size_t n, cudaStream_t) {
   memset(d, v, n);
   return cudaSuccess;
 }
+// <cuda_pipeline.h>: a cp.async copy lands at once, so a stage is
+// complete when it is committed
+inline void __pipeline_memcpy_async(void* d, const void* s, size_t n) {
+  memcpy(d, s, n);
+}
+inline void __pipeline_commit() {}
+inline void __pipeline_wait_prior(size_t) {}
 inline float rsqrtf(float x) { return 1.f / std::sqrt(x); }
 inline float2 make_float2(float x, float y) { return {x, y}; }
 inline float4 make_float4(float x, float y, float z, float w) {
