@@ -9,9 +9,11 @@ non-zero at the first failure:
   0. device: needs CUDA; prints the card's name and power limit;
   1. build: compiles every kernel of go_with_the_flows_tpu_torch/csrc;
      ptxas registers and spills of kernel 1 (`point_decode_kernel`, all
-     16 instantiations), kernel 3 (`cd_stats_kernel`), kernel 7's hidden
-     and update passes, kernel 8's B1/B2 and the EMD forward; all but
-     kernel 8's must not spill, and kernels 1 and 3 keep no stack frame;
+     16 instantiations), kernel 2 (`nn_distance_kernel` and its chunk
+     fold), kernel 3 (`cd_stats_kernel`), kernel 6 (`emd_backward_kernel`
+     and its chunk sum), kernel 7's hidden and update passes, kernel 8's
+     B1/B2 and the EMD forward; all but kernel 8's must not spill, and
+     kernels 1, 2, 3 and 6 keep no stack frame;
   2. kernels: each kernel against its plain PyTorch version at the main
      path's shapes (jiggled BatchNorm statistics), with times; the EMD
      kernels also at ragged and unequal sizes and at the SVR protocol's
@@ -31,9 +33,11 @@ non-zero at the first failure:
      counters read around them; ms/step, clouds/s and peak memory of both
      paths; a torch.profiler pass over one warm kernel-path step.
 
-Phase 2 also checks that two launches of kernel 1 give equal bits, and
-holds kernel 3's precision and recall equal to the plain version's (its
-minima are the plain version's bit for bit); it holds the train-decode
+Phase 2 also checks that two launches of kernels 1, 2 and 6 give equal
+bits, holds kernel 2's minima equal to the plain version's (its indices
+may differ only at an exact tie) and kernel 3's precision and recall
+equal to the plain version's (its minima are the plain version's bit for
+bit); it holds the train-decode
 kernels (forward, backward) against their plain versions at the flagship
 decoder's shape and at a ragged N and a small batch, and checks that two
 launches give equal bits; beside kernel 1 and the train forward's hidden
@@ -239,13 +243,18 @@ def phase_build():
         short = name[max(0, at - 12):at + 24] if at >= 0 else name[:36]
         say(f"    ptxas {short}: {regs} registers, {spill} B spilled, "
             f"{stack} B stack frame")
-    # kernels 1 and 3, kernel 7's hidden and update passes, kernel 8's
-    # hidden pass (B1 and B2, built to fit 128 registers) and the EMD
-    # forward (kernels 4 and 5); all but kernel 8's must not spill, and
-    # kernels 1 and 3 keep no array in local memory (a stack frame)
+    # kernels 1, 2, 3 and 6 (2 and 6 with their chunk folds), kernel 7's
+    # hidden and update passes, kernel 8's hidden pass (B1 and B2, built
+    # to fit 128 registers) and the EMD forward (kernels 4 and 5); all but
+    # kernel 8's must not spill, and kernels 1, 2, 3 and 6 keep no array in
+    # local memory (a stack frame)
     for kernel, no_spill, no_stack in (
             ("point_decode_kernel", True, True),
+            ("nn_distance_kernel", True, True),
+            ("nn_combine_kernel", True, True),
             ("cd_stats_kernel", True, True),
+            ("emd_backward_kernel", True, True),
+            ("emd_backward_sum_kernel", True, True),
             ("fwd_hidden_kernel", True, False),
             ("fwd_update_kernel", True, False),
             ("bwd_hidden_kernel", False, False),
@@ -324,7 +333,20 @@ def check_point_decode(config, B, N, seed, timed):
     return max(errs), times
 
 
-def check_nn_distance(B, N, M, seed, timed):
+def step_sq_dist(q, r):
+    """Squared distances of paired points (..., 3), rounded step by step,
+    (dx dx + dy dy) + dz dz, as kernel 2 and its plain version form them."""
+    d = q - r
+    return (d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]) \
+        + d[..., 2] * d[..., 2]
+
+
+def check_nn_distance(B, N, M, seed, timed, grid=False):
+    """Kernel 2 against its plain version: every minimum equal (tolerance
+    0), with and without the indices; an index that differs from the
+    plain argmin must be an exact tie (its distance equal to the
+    minimum); two launches give equal bits. `grid` puts the coordinates
+    on a 1/64 grid, where ties are common."""
     import torch
 
     from go_with_the_flows_tpu_torch.ops.kernels.chamfer import (
@@ -333,33 +355,40 @@ def check_nn_distance(B, N, M, seed, timed):
     gen = torch.Generator(device="cuda").manual_seed(seed)
     a = 0.3 * torch.randn(B, N, 3, device="cuda", generator=gen)
     b = 0.3 * torch.randn(B, M, 3, device="cuda", generator=gen)
-    da, ia, db, ib = nn_distance(a, b)
+    if grid:
+        a, b = ((64 * t).round() / 64 for t in (a, b))
+    got = nn_distance(a, b)
+    da, ia, db, ib = got
     pa, pia, pdb, pib = nn_distance_plain(a, b)
-    tag = f"nn_distance B={B} N={N} M={M}"
-    err = max(check_close(f"{tag} dist_a", da, pa, 1e-6),
-              check_close(f"{tag} dist_b", db, pdb, 1e-6))
-    # an index may differ from the plain argmin only at a tie within 1e-6
+    tag = f"nn_distance B={B} N={N} M={M}" + (" (1/64 grid)" if grid else "")
+    err = max(check_close(f"{tag} dist_a (exact)", da, pa, 0.0),
+              check_close(f"{tag} dist_b (exact)", db, pdb, 0.0))
     for name, q, r, idx, want_idx, dist in (("idx_a", a, b, ia, pia, pa),
                                             ("idx_b", b, a, ib, pib, pdb)):
-        chosen = ((q - torch.gather(r, 1, idx[..., None].expand(-1, -1, 3)))
-                  ** 2).sum(-1)
+        chosen = step_sq_dist(
+            q, torch.gather(r, 1, idx[..., None].expand(-1, -1, 3)))
         n_diff = int((idx != want_idx).sum())
         tie_err = (chosen - dist).abs().max().item()
-        say(f"    {tag} {name}: {n_diff} indices differ, their distances "
-            f"within {tie_err:.3g}")
-        if tie_err > 1e-6:
-            fail(f"{tag} {name}: a differing index is not a tie")
-    da2, db2 = nn_distance(a, b, with_idx=False)
-    err = max(err, check_close(f"{tag} no-idx dist_a", da2, pa, 1e-6),
-              check_close(f"{tag} no-idx dist_b", db2, pdb, 1e-6))
+        say(f"    {tag} {name}: {n_diff} indices differ from the plain "
+            f"argmin, their distances within {tie_err:.3g} of the minimum")
+        if tie_err > 0:
+            fail(f"{tag} {name}: a differing index is not an exact tie")
+    plain = nn_distance(a, b, with_idx=False)
+    err = max(err, check_close(f"{tag} no-idx dist_a (exact)", plain[0], pa,
+                               0.0),
+              check_close(f"{tag} no-idx dist_b (exact)", plain[1], pdb, 0.0))
+    if not (all(torch.equal(x, y) for x, y in zip(got, nn_distance(a, b)))
+            and all(torch.equal(x, y) for x, y in
+                    zip(plain, nn_distance(a, b, with_idx=False)))):
+        fail(f"{tag}: two launches differ")
     times = None
     if timed:
         ms = cuda_ms(lambda: nn_distance(a, b, with_idx=False), 10)
         ms_idx = cuda_ms(lambda: nn_distance(a, b), 10)
-        plain = cuda_ms(lambda: nn_distance_plain(a, b, with_idx=False), 3)
-        times = (ms, plain)
+        plain_ms = cuda_ms(lambda: nn_distance_plain(a, b, with_idx=False), 3)
+        times = (ms, plain_ms)
         say(f"    {tag}: kernel {ms:.3f} ms (with idx {ms_idx:.3f} ms), "
-            f"plain {plain:.3f} ms")
+            f"plain {plain_ms:.3f} ms")
     return err, times
 
 
@@ -411,6 +440,10 @@ def check_emd(B, N, M, seed, timed):
     cost_r, rl, rr = emd_cost_kernel(a, b, True)
     check_close(f"{tag} cost with residuals saved (exact)", cost_r, cost,
                 0.0)
+    once = emd_backward(a, b, rl, rr)
+    again = emd_backward(a, b, rl, rr)
+    if not (torch.equal(once[0], again[0]) and torch.equal(once[1], again[1])):
+        fail(f"{tag}: two backward launches differ")
     da, db = emd_backward_plain(a, b, rl, rr)
     w = 0.5 + torch.rand(B, device="cuda", generator=gen)
     ga, gb = a.clone().requires_grad_(), b.clone().requires_grad_()
@@ -436,11 +469,12 @@ def check_emd(B, N, M, seed, timed):
 
 
 def check_match_forms(tag, a, b, rl, rr, pairs=4):
-    """The forward's and the backward's E on the same residuals (kernel
-    5's, of the first `pairs` pairs): the gradient of the match that each
-    form defines, in float64 (emd_backward_f64), held against the other,
-    and kernel 6's gradient against both, at the EMD backward's
-    tolerance (atol 1e-5, rtol 1e-4)."""
+    """The kernels' E (the forward's, which kernel 6 shares) and the plain
+    versions' on the same residuals (kernel 5's, of the first `pairs`
+    pairs): the gradient of the match that each form defines, in float64
+    (emd_backward_f64), held against the other, and kernel 6's gradient
+    against both, at the EMD backward's tolerance (atol 1e-5, rtol
+    1e-4)."""
     from go_with_the_flows_tpu_torch.ops.kernels.emd import (
         emd_backward, emd_backward_f64)
 
@@ -449,12 +483,13 @@ def check_match_forms(tag, a, b, rl, rr, pairs=4):
     bwd = emd_backward_f64(a, b, rl, rr, "backward")
     kernel = emd_backward(a, b, rl, rr)
     for i, side in enumerate(("da", "db")):
-        check_close(f"{tag} {side} of the forward's match vs the "
-                    "backward's (float64)", fwd[i], bwd[i], 1e-5, 1e-4)
-        check_close(f"{tag} {side} kernel 6 vs the forward's match",
-                    kernel[i].double(), fwd[i], 1e-5, 1e-4)
-        check_close(f"{tag} {side} kernel 6 vs its own form (float64)",
-                    kernel[i].double(), bwd[i], 1e-5, 1e-4)
+        check_close(f"{tag} {side} of the kernels' match vs the plain "
+                    "versions' (float64)", fwd[i], bwd[i], 1e-5, 1e-4)
+        check_close(f"{tag} {side} kernel 6 vs its own form, the "
+                    "forward's (float64)", kernel[i].double(), fwd[i], 1e-5,
+                    1e-4)
+        check_close(f"{tag} {side} kernel 6 vs the plain versions' form "
+                    "(float64)", kernel[i].double(), bwd[i], 1e-5, 1e-4)
 
 
 def check_pairwise_emd(S, R, N, M, seed, timed):
@@ -649,6 +684,8 @@ def phase_kernels():
     # kernels as the flagship's
     check_point_decode(small, 3, 50, 7, timed=False)
     check_nn_distance(3, 50, 77, 8, timed=False)
+    # three row chunks, the last partial, with ties in both directions
+    check_nn_distance(2, 1100, 700, 20, timed=False, grid=True)
     check_pairwise(3, 5, 50, 77, 9, timed=False, thr=0.01)
     pd_err, pd_times = check_point_decode(FLAGSHIP_AIRPLANE, BATCH, N_POINTS,
                                           0, timed=True)

@@ -69,12 +69,35 @@
 //     order, then by a block tree: no atomics, so a pair's cost is the same
 //     on every run, and the grid kernel, which runs the same device
 //     function, equals the paired kernel bit for bit.
-//   * The backward holds a's and b's points and ONE side's 9 levels of
-//     residuals in shared memory (16 (N + M) + 36 max(N, M) bytes: 136 KB
-//     at 2048, 166 KB at 2500), the other side's 9 in registers, so each
-//     point pair costs one distance, one rsqrt and 9 expf per pass (a row
-//     pass for da, a column pass for db). It keeps its own distance and
-//     expf (`sq_dist`, `weight`).
+//
+// The backward (kernel 6) needs, per point pair, D, its rsqrt and 9 E,
+// 10 special-function operations, and about 45 FP32 instructions: the
+// special-function units bound it. What its design does about it:
+//   * one pass, as the TPU kernel's (emd_kernel.py:330-350): each point
+//     pair forms its coefficient c_ij once and feeds both row i's da and
+//     column j's db, in the difference form c_ij (a_i - b_j) (the JAX
+//     kernel's a_i sum_j c_ij - sum_j c_ij b_j cancels);
+//   * the forward's forms (sq_norm_fma, weight2 with c_l = kFirstLevel2
+//     0.25^l), so both kernels build the same E, and the root on
+//     rsqrt.approx.ftz, the coefficient selected to 0 where D <= 1e-12;
+//   * a register tile: a thread owns kBwdRows rows, each with its point
+//     and 9 ratioL in registers; the columns stream through shared memory
+//     in tiles of kBwdTile, a column's point and 9 ratioR as 3 float4s, so
+//     one column's 3 broadcast loads feed kBwdRows x 9 products. Two rows
+//     a thread and 128 threads a block (1.5 loads and 1.7 shuffles a
+//     pair) ran 4 % faster than 4 rows and 64 threads: the units, not
+//     issue, bound it, and more warps feed them better. Shared memory is
+//     24 KB whatever N and M;
+//   * column sums without atomics: a thread sums its rows into a column
+//     partial, a warp exchange reduces 8 columns' partials at once, the
+//     block adds its warps in order; the rows of a pair are split over
+//     row chunks of kBwdChunk (grid pairs x chunks: 512 blocks at B = 64
+//     and 2048 points, the whole card), each chunk writes its column sums
+//     to a scratch and a second launch adds them in chunk order. da is
+//     whole in its block, whose rows see every column. Every sum runs in
+//     a fixed order: two launches give the same bits;
+//   * ragged ends are masked by weight: a row or column past the end has
+//     ratios 0, so its coefficients are 0, and only real ones are written.
 
 #include <cuda_runtime.h>
 
@@ -97,38 +120,23 @@ int block_threads(int N, int M, int per_thread) {
   return t < kMaxThreads ? t : kMaxThreads;
 }
 
-// The backward's block: one to three items per thread, as the largest
-// cloud needs.
-int backward_threads(int N, int M) {
-  const int n = N > M ? N : M;
-  int r = (n + kMaxThreads - 1) / kMaxThreads;
-  if (r > 3) r = 3;
-  return block_threads(N, M, r);
-}
-
-__device__ __forceinline__ float sq_dist(float4 p, float4 q) {
-  const float dx = __fsub_rn(p.x, q.x), dy = __fsub_rn(p.y, q.y),
-              dz = __fsub_rn(p.z, q.z);
-  return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
-                   __fmul_rn(dz, dz));
-}
-
-__device__ __forceinline__ float weight(float level, float d) {
-  return expf(__fmul_rn(level, d));
-}
-
-// The forward's distance: 3 subtractions, a product and 2 FMAs.
-__device__ __forceinline__ float sq_dist_fma(float4 p, float4 q) {
-  const float dx = __fsub_rn(p.x, q.x), dy = __fsub_rn(p.y, q.y),
-              dz = __fsub_rn(p.z, q.z);
+// The squared norm of kernels 4-6's differences: a product and 2 FMAs.
+__device__ __forceinline__ float sq_norm_fma(float dx, float dy, float dz) {
   return __fmaf_rn(dx, dx, __fmaf_rn(dy, dy, __fmul_rn(dz, dz)));
+}
+
+// The distance of kernels 4-6: 3 subtractions and sq_norm_fma.
+__device__ __forceinline__ float sq_dist_fma(float4 p, float4 q) {
+  return sq_norm_fma(__fsub_rn(p.x, q.x), __fsub_rn(p.y, q.y),
+                     __fsub_rn(p.z, q.z));
 }
 
 // The forward's E = 2^(c d) for c = level log2(e): MUFU.EX2 alone, a
 // result below 2^-126 flushed to 0. The argument carries two roundings
 // (c's and the product's), exp(level d) with an exact level d none: up
 // to 2^-23 |c d| apart, 1e-5 of E where E nears 2^-126, 2e-6 where
-// level d is -16. Kernel 6 rebuilds the match with `weight`;
+// level d is -16. Kernel 6 rebuilds the match in the same form; the
+// plain versions use exp(level d) of the step-rounded distance, and
 // emd_backward_f64 in ops/kernels/emd.py holds the two forms' gradients
 // against each other.
 __device__ __forceinline__ float weight2(float c, float d) {
@@ -142,16 +150,21 @@ __device__ __forceinline__ float weight2(float c, float d) {
 #endif
 }
 
-// sqrt(max(d, 1e-12)) as x rsqrt(x): MUFU.RSQ and a product.
-__device__ __forceinline__ float clamped_sqrt(float d) {
-  const float x = fmaxf(d, 1e-12f);
+// 1 / sqrt(x) on MUFU.RSQ alone, for a normal x > 0.
+__device__ __forceinline__ float approx_rsqrt(float x) {
 #ifdef __CUDA_ARCH__
   float r;
   asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
-  return __fmul_rn(x, r);
+  return r;
 #else
-  return __fmul_rn(x, rsqrtf(x));
+  return rsqrtf(x);
 #endif
+}
+
+// sqrt(max(d, 1e-12)) as x rsqrt(x): MUFU.RSQ and a product.
+__device__ __forceinline__ float clamped_sqrt(float d) {
+  const float x = fmaxf(d, 1e-12f);
+  return __fmul_rn(x, approx_rsqrt(x));
 }
 
 __device__ void load_cloud(const float* __restrict__ x, int n, float4* s) {
@@ -332,93 +345,177 @@ pairwise_emd_kernel(const float* __restrict__ samples,
   if (threadIdx.x == 0) cost[pair] = c;
 }
 
-// sum_l E^l_ij ratioL_l,i ratioR_l,j, as ((e * ratioL) * ratioR) summed
-// over l in order; `rl` and `rr` are the 9 values with their strides.
-__device__ __forceinline__ float match_entry(float d, const float* rl,
-                                             int rl_stride, const float* rr,
-                                             int rr_stride) {
-  float m = 0.f;
-  float level = kFirstLevel;
+// The backward's layout: a block takes kBwdChunk rows of one pair, a
+// thread kBwdRows of them (its points and ratios in registers); the
+// columns come through shared memory in tiles of kBwdTile, in groups of
+// kBwdCols whose column sums a warp exchange reduces.
+constexpr int kBwdThreads = 128;
+constexpr int kBwdWarps = kBwdThreads / 32;
+constexpr int kBwdRows = 2;
+constexpr int kBwdChunk = kBwdThreads * kBwdRows;
+constexpr int kBwdTile = 256;
+constexpr int kBwdCols = 8;  // the exchange below ends with 4 lanes a column
+static_assert(kBwdTile % kBwdCols == 0, "a tile is whole groups");
+
+// One halving step of the column sums' exchange: a lane keeps O of its
+// 2 O columns (3 sums each), the half named by lane bit `bit`, and adds
+// the other lane's sums of the same columns.
+template <int O>
+__device__ __forceinline__ void halve(float (&v)[3 * kBwdCols], int bit) {
+  const bool upper = (threadIdx.x & bit) != 0;
 #pragma unroll
-  for (int l = 0; l < kLevels; ++l) {
-    m = __fadd_rn(m, __fmul_rn(__fmul_rn(weight(level, d), rl[l * rl_stride]),
-                               rr[l * rr_stride]));
-    level = __fmul_rn(level, 0.25f);
+  for (int i = 0; i < 3 * O; ++i) {
+    const float send = upper ? v[i] : v[i + 3 * O];
+    const float keep = upper ? v[i + 3 * O] : v[i];
+    v[i] = __fadd_rn(keep, __shfl_xor_sync(0xffffffffu, send, bit));
   }
-  return m;
 }
 
-__global__ void __launch_bounds__(kMaxThreads, 1)
+// The sums over a warp's lanes of 8 columns' 3 components: on return
+// v[0..2] of lane l hold column l / 4's (its 4 lanes alike: the last two
+// steps add both ways, and a sum does not depend on its operands' order).
+__device__ __forceinline__ void warp_column_sums(float (&v)[3 * kBwdCols]) {
+  halve<4>(v, 16);
+  halve<2>(v, 8);
+  halve<1>(v, 4);
+#pragma unroll
+  for (int bit = 2; bit > 0; bit >>= 1) {
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+      v[i] = __fadd_rn(v[i], __shfl_xor_sync(0xffffffffu, v[i], bit));
+  }
+}
+
+// Kernel 6's one pass. Each point pair forms D, its 9 levels' E and the
+// coefficient c_ij = (sum_l E_l ratioL_l,i ratioR_l,j) rsqrt(D) once
+// (0 where D <= 1e-12); c_ij (a_i - b_j) adds into row i's da, kept in
+// registers, and into the thread's partial of column j, which the warp,
+// then the block (warps in order), reduce. The block writes its chunk's
+// column sums, negated, to col (B, chunks, M, 3) at (pair, chunk): db
+// itself when one chunk holds all N rows.
+__global__ void __launch_bounds__(kBwdThreads)
 emd_backward_kernel(const float* __restrict__ a, const float* __restrict__ b,
                     const float* __restrict__ rl,
                     const float* __restrict__ rr, float* __restrict__ da,
-                    float* __restrict__ db, int N, int M) {
-  extern __shared__ float4 smem[];
-  float4* pa = smem;
-  float4* pb = pa + N;
-  float* res = reinterpret_cast<float*>(pb + M);  // 9 levels of one side
+                    float* __restrict__ col, int N, int M) {
+  // a column: (x, y, z, ratioR_0), ratioR_1..4, ratioR_5..8
+  __shared__ float4 tile[kBwdTile][3];
+  __shared__ float sums[kBwdWarps][kBwdTile][3];
   const long long pair = blockIdx.x;
+  const int chunk = blockIdx.y;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   a += pair * N * 3;
   b += pair * M * 3;
   rl += pair * kLevels * N;
   rr += pair * kLevels * M;
   da += pair * N * 3;
-  db += pair * M * 3;
-  const int T = blockDim.x;
+  col += (pair * gridDim.y + chunk) * M * 3;
 
-  load_cloud(a, N, pa);
-  load_cloud(b, M, pb);
-  for (int k = threadIdx.x; k < kLevels * M; k += T) res[k] = rr[k];
-  __syncthreads();
-
-  // rows: ratioL of row i in registers, ratioR of every column shared
-  for (int i = threadIdx.x; i < N; i += T) {
-    const float4 p = pa[i];
-    float w[kLevels];
+  float px[kBwdRows], py[kBwdRows], pz[kBwdRows], w[kBwdRows][kLevels];
+  float gx[kBwdRows], gy[kBwdRows], gz[kBwdRows];
 #pragma unroll
-    for (int l = 0; l < kLevels; ++l) w[l] = rl[(long long)l * N + i];
-    float gx = 0.f, gy = 0.f, gz = 0.f;
-    for (int j = 0; j < M; ++j) {
-      const float4 q = pb[j];
-      const float d = sq_dist(p, q);
-      if (d > 1e-12f) {
-        const float c =
-            __fmul_rn(match_entry(d, w, 1, res + j, M), rsqrtf(d));
-        gx = __fmaf_rn(c, __fsub_rn(p.x, q.x), gx);
-        gy = __fmaf_rn(c, __fsub_rn(p.y, q.y), gy);
-        gz = __fmaf_rn(c, __fsub_rn(p.z, q.z), gz);
+  for (int u = 0; u < kBwdRows; ++u) {
+    const int n = chunk * kBwdChunk + u * kBwdThreads + threadIdx.x;
+    const long long i = min(n, N - 1);
+    px[u] = a[3 * i];
+    py[u] = a[3 * i + 1];
+    pz[u] = a[3 * i + 2];
+    // a row past the end weighs nothing
+#pragma unroll
+    for (int l = 0; l < kLevels; ++l)
+      w[u][l] = n < N ? rl[l * (long long)N + i] : 0.f;
+    gx[u] = gy[u] = gz[u] = 0.f;
+  }
+  for (int t0 = 0; t0 < M; t0 += kBwdTile) {
+    const int width =
+        (min(kBwdTile, M - t0) + kBwdCols - 1) / kBwdCols * kBwdCols;
+    __syncthreads();  // the previous tile and its sums are no longer read
+    for (int c = threadIdx.x; c < width; c += kBwdThreads) {
+      const int j = t0 + c;
+      const long long at = min(j, M - 1);
+      float r[kLevels];  // a column past the end weighs nothing
+#pragma unroll
+      for (int l = 0; l < kLevels; ++l)
+        r[l] = j < M ? rr[l * (long long)M + at] : 0.f;
+      tile[c][0] = make_float4(b[3 * at], b[3 * at + 1], b[3 * at + 2], r[0]);
+      tile[c][1] = make_float4(r[1], r[2], r[3], r[4]);
+      tile[c][2] = make_float4(r[5], r[6], r[7], r[8]);
+    }
+    __syncthreads();
+    for (int c0 = 0; c0 < width; c0 += kBwdCols) {
+      float s[3 * kBwdCols];
+#pragma unroll
+      for (int c = 0; c < kBwdCols; ++c) {
+        const float4 q = tile[c0 + c][0], r1 = tile[c0 + c][1],
+                     r5 = tile[c0 + c][2];
+        const float r[kLevels] = {q.w,  r1.x, r1.y, r1.z, r1.w,
+                                  r5.x, r5.y, r5.z, r5.w};
+        float sx = 0.f, sy = 0.f, sz = 0.f;
+#pragma unroll
+        for (int u = 0; u < kBwdRows; ++u) {
+          const float dx = __fsub_rn(px[u], q.x), dy = __fsub_rn(py[u], q.y),
+                      dz = __fsub_rn(pz[u], q.z);
+          const float d = sq_norm_fma(dx, dy, dz);
+          float m = 0.f, cl = kFirstLevel2;
+#pragma unroll
+          for (int l = 0; l < kLevels; ++l) {
+            m = __fmaf_rn(__fmul_rn(weight2(cl, d), w[u][l]), r[l], m);
+            cl *= 0.25f;  // exact: a power of 4
+          }
+          const float coef = d > 1e-12f ? __fmul_rn(m, approx_rsqrt(d)) : 0.f;
+          gx[u] = __fmaf_rn(coef, dx, gx[u]);
+          gy[u] = __fmaf_rn(coef, dy, gy[u]);
+          gz[u] = __fmaf_rn(coef, dz, gz[u]);
+          sx = __fmaf_rn(coef, dx, sx);
+          sy = __fmaf_rn(coef, dy, sy);
+          sz = __fmaf_rn(coef, dz, sz);
+        }
+        s[3 * c] = sx;
+        s[3 * c + 1] = sy;
+        s[3 * c + 2] = sz;
+      }
+      warp_column_sums(s);
+      if (lane % 4 == 0) {
+        float* out = sums[warp][c0 + lane / 4];
+        out[0] = s[0];
+        out[1] = s[1];
+        out[2] = s[2];
       }
     }
-    da[3LL * i] = gx;
-    da[3LL * i + 1] = gy;
-    da[3LL * i + 2] = gz;
-  }
-  __syncthreads();
-  for (int k = threadIdx.x; k < kLevels * N; k += T) res[k] = rl[k];
-  __syncthreads();
-
-  // columns: ratioR of column j in registers, ratioL of every row shared
-  for (int j = threadIdx.x; j < M; j += T) {
-    const float4 q = pb[j];
-    float w[kLevels];
+    __syncthreads();
+    for (int k = threadIdx.x; k < 3 * width; k += kBwdThreads) {
+      const int c = k / 3, comp = k % 3;
+      if (t0 + c < M) {
+        float v = sums[0][c][comp];
 #pragma unroll
-    for (int l = 0; l < kLevels; ++l) w[l] = rr[(long long)l * M + j];
-    float gx = 0.f, gy = 0.f, gz = 0.f;
-    for (int i = 0; i < N; ++i) {
-      const float4 p = pa[i];
-      const float d = sq_dist(p, q);
-      if (d > 1e-12f) {
-        const float c =
-            __fmul_rn(match_entry(d, res + i, N, w, 1), rsqrtf(d));
-        gx = __fmaf_rn(c, __fsub_rn(q.x, p.x), gx);
-        gy = __fmaf_rn(c, __fsub_rn(q.y, p.y), gy);
-        gz = __fmaf_rn(c, __fsub_rn(q.z, p.z), gz);
+        for (int x = 1; x < kBwdWarps; ++x) v = __fadd_rn(v, sums[x][c][comp]);
+        col[3LL * t0 + k] = -v;  // db_j = sum_i c_ij (b_j - a_i)
       }
     }
-    db[3LL * j] = gx;
-    db[3LL * j + 1] = gy;
-    db[3LL * j + 2] = gz;
   }
+#pragma unroll
+  for (int u = 0; u < kBwdRows; ++u) {
+    const long long n = chunk * kBwdChunk + u * kBwdThreads + threadIdx.x;
+    if (n < N) {
+      da[3 * n] = gx[u];
+      da[3 * n + 1] = gy[u];
+      da[3 * n + 2] = gz[u];
+    }
+  }
+}
+
+// db (B, M, 3) as the sum of the chunks' column sums, col (B, chunks, M,
+// 3), in chunk order.
+__global__ void emd_backward_sum_kernel(const float* __restrict__ col,
+                                        float* __restrict__ db, int chunks,
+                                        int M, long long total) {
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= total) return;
+  const long long per = 3LL * M, pair = t / per, k = t % per;
+  const float* p = col + pair * chunks * per + k;
+  float v = p[0];
+  for (int c = 1; c < chunks; ++c) v = __fadd_rn(v, p[c * per]);
+  db[t] = v;
 }
 
 template <typename Kernel, typename... Args>
@@ -460,16 +557,29 @@ extern "C" int gwtf_pairwise_emd(const float* samples, const float* refs,
                 n_refs, N, M, multi_l, multi_r, pair0);
 }
 
+// Row chunks of kernel 6 over N rows: when more than one, the caller
+// gives a scratch col of (B, chunks, M, 3) floats.
+extern "C" int gwtf_emd_backward_chunks(int N) {
+  return (N + kBwdChunk - 1) / kBwdChunk;
+}
+
 // a (B, N, 3), b (B, M, 3), ratio_l (B, 9, N), ratio_r (B, 9, M) ->
-// da (B, N, 3), db (B, M, 3): the gradient of the summed cost.
+// da (B, N, 3), db (B, M, 3): the gradient of the summed cost. col is the
+// scratch, unused with one row chunk.
 extern "C" int gwtf_emd_backward(const float* a, const float* b,
                                  const float* ratio_l, const float* ratio_r,
-                                 float* da, float* db, int B, int N, int M,
-                                 void* stream_ptr) {
+                                 float* da, float* db, float* col, int B,
+                                 int N, int M, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const size_t smem = 16 * static_cast<size_t>(N + M) +
-                      4 * static_cast<size_t>(kLevels) * (N > M ? N : M);
-  return launch(emd_backward_kernel, static_cast<unsigned int>(B),
-                backward_threads(N, M), smem, stream, a, b, ratio_l, ratio_r,
-                da, db, N, M);
+  const int chunks = (N + kBwdChunk - 1) / kBwdChunk;
+  const dim3 grid(B, chunks);
+  emd_backward_kernel<<<grid, kBwdThreads, 0, stream>>>(
+      a, b, ratio_l, ratio_r, da, chunks == 1 ? db : col, N, M);
+  if (chunks > 1) {
+    const long long total = 3LL * B * M;
+    const unsigned int blocks = static_cast<unsigned int>((total + 255) / 256);
+    emd_backward_sum_kernel<<<blocks, 256, 0, stream>>>(col, db, chunks, M,
+                                                         total);
+  }
+  return static_cast<int>(cudaGetLastError());
 }

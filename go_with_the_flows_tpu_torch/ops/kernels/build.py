@@ -42,14 +42,14 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # p, weights, film, out, lv, K, B, C, N, f, inverse, stream
     "gwtf_point_decode": [_P] * 5 + [_I] * 6 + [_P],
-    # a, b, dist_a, idx_a, dist_b, idx_b, B, N, M, stream
-    "gwtf_nn_distance": [_P] * 6 + [_I] * 3 + [_P],
+    # a, b, dist_a, idx_a, dist_b, idx_b, col_d, col_i, B, N, M, stream
+    "gwtf_nn_distance": [_P] * 8 + [_I] * 3 + [_P],
     # samples, refs, cdl, cdr, prec, rec, S, R, N, M, thr, stream
     "gwtf_pairwise_cd_stats": [_P] * 6 + [_I] * 4 + [ctypes.c_float, _P],
     # a, b, cost, ratio_l, ratio_r, B, N, M, multi_l, multi_r, stream
     "gwtf_emd_cost": [_P] * 5 + [_I] * 3 + [ctypes.c_float] * 2 + [_P],
-    # a, b, ratio_l, ratio_r, da, db, B, N, M, stream
-    "gwtf_emd_backward": [_P] * 6 + [_I] * 3 + [_P],
+    # a, b, ratio_l, ratio_r, da, db, col, B, N, M, stream
+    "gwtf_emd_backward": [_P] * 7 + [_I] * 3 + [_P],
     # samples, refs, cost, R, N, M, multi_l, multi_r, pair0, pairs, stream
     "gwtf_pairwise_emd": [_P] * 3 + [_I] * 3 + [ctypes.c_float] * 2
     + [_I] * 2 + [_P],
@@ -64,6 +64,9 @@ _SIGNATURES = {
 _OTHER_SIGNATURES = {
     # which (0 forward, 1 backward), K, B, C, N, f -> floats of scratch
     "gwtf_train_decode_workspace": ([_I] * 6, ctypes.c_longlong),
+    # N -> row chunks of one launch (a scratch is needed above 1)
+    "gwtf_nn_distance_chunks": ([_I], _I),
+    "gwtf_emd_backward_chunks": ([_I], _I),
     "gwtf_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -132,21 +135,26 @@ def build(force: bool = False) -> float:
     return seconds
 
 
+def load(path: str, names=None) -> ctypes.CDLL:
+    """The library at `path` with the argument and return types of its C
+    entry points: `names` (default: all of them; a library built from one
+    source holds a few)."""
+    lib = ctypes.CDLL(path)
+    table = {name: (argtypes, ctypes.c_int)
+             for name, argtypes in _SIGNATURES.items()}
+    table.update(_OTHER_SIGNATURES)
+    for name in table if names is None else names:
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = table[name]
+    return lib
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built first if needed."""
     global _lib
     if _lib is None:
         build()
-        lib = ctypes.CDLL(LIB_PATH)
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        for name, (argtypes, restype) in _OTHER_SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = restype
-        _lib = lib
+        _lib = load(LIB_PATH)
     return _lib
 
 

@@ -25,12 +25,17 @@ def nn_distance_plain(a: torch.Tensor, b: torch.Tensor,
     return dist_a, dist_b
 
 
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
 def nn_distance(a: torch.Tensor, b: torch.Tensor, with_idx: bool = True):
     """a (B, N, 3), b (B, M, 3) -> (dist_a (B,N), idx_a (B,N),
     dist_b (B,M), idx_b (B,M)); `with_idx=False` returns (dist_a, dist_b)
-    and skips the index stores. Indices are int64, the first argmin.
+    and skips the index work. Indices are int64, the first argmin.
     A CPU tensor goes to the plain version; a CUDA tensor launches the
-    kernel."""
+    kernel (one pass for both directions, and a second launch that folds
+    the row chunks' column minima when N spans more than one chunk)."""
     if a.device.type == "cpu" and b.device.type == "cpu":
         return nn_distance_plain(a, b, with_idx)
     if a.ndim != 3 or b.ndim != 3 or a.shape[2] != 3 or b.shape[2] != 3 \
@@ -42,19 +47,23 @@ def nn_distance(a: torch.Tensor, b: torch.Tensor, with_idx: bool = True):
         raise ValueError(f"nn_distance: B={B}, N={N}, M={M} outside the "
                          "kernel's launch limits")
     build.check_tensors((a, b), a.device)
+    lib = build.library()
     dist_a = a.new_empty(B, N)
     dist_b = a.new_empty(B, M)
-    idx_a = idx_b = None
+    idx_a = idx_b = col_i = None
     if with_idx:
         idx_a = torch.empty(B, N, dtype=torch.int32, device=a.device)
         idx_b = torch.empty(B, M, dtype=torch.int32, device=a.device)
-    lib = build.library()
+    # each row chunk's column minima, folded by a second launch
+    chunks = lib.gwtf_nn_distance_chunks(N)
+    col_d = a.new_empty(B, chunks, M) if chunks > 1 else None
+    if with_idx and chunks > 1:
+        col_i = torch.empty(B, chunks, M, dtype=torch.int32, device=a.device)
     with torch.cuda.device(a.device):
         code = lib.gwtf_nn_distance(
             a.data_ptr(), b.data_ptr(), dist_a.data_ptr(),
-            idx_a.data_ptr() if with_idx else None, dist_b.data_ptr(),
-            idx_b.data_ptr() if with_idx else None, B, N, M,
-            build.stream_handle(a.device))
+            _ptr(idx_a), dist_b.data_ptr(), _ptr(idx_b), _ptr(col_d),
+            _ptr(col_i), B, N, M, build.stream_handle(a.device))
     nn_distance.launches += 1
     build.check(lib, code, "nn_distance")
     if with_idx:

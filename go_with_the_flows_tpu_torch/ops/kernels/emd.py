@@ -108,15 +108,16 @@ def emd_backward_f64(a: torch.Tensor, b: torch.Tensor,
                      ratio_l: torch.Tensor, ratio_r: torch.Tensor,
                      rounding: str):
     """(da, db) in float64 of the match that the residuals define, with
-    D and the exponent rounded to float32 as one of the kernels rounds
-    them: "forward" as kernels 4 and 5 (D as fma(dx, dx, fma(dy, dy,
-    dz dz)), E = 2^fl(c_l D) with c_l = fl(level_l log2 e)), "backward"
-    as kernel 6 and the plain versions (D as (dx^2 + dy^2) + dz^2, E =
-    exp(level_l D)). The float32 roundings are reproduced, the rest is
-    exact to float64 (an FMA's sum is rounded twice, through float64,
-    which differs from one rounding about once in 2^29). The two forms
-    hold the forward's match against the backward's on the same
-    residuals. One pair at a time."""
+    D and the exponent rounded to float32 in one of two forms: "forward"
+    as kernels 4 and 5 (D as fma(dx, dx, fma(dy, dy,
+    dz dz)), E = 2^fl(c_l D) with c_l = fl(level_l log2 e)), as kernel 6
+    rebuilds the match too; "backward" as the plain versions (D as (dx^2 +
+    dy^2) + dz^2, E = exp(level_l D)), the plain backward's form. The
+    float32 roundings are reproduced, the rest is exact to float64 (an
+    FMA's sum is rounded twice, through float64, which differs from one
+    rounding about once in 2^29). The two forms hold the kernels' match
+    against the plain versions' on the same residuals. One pair at a
+    time."""
     if rounding not in ("forward", "backward"):
         raise ValueError(f"rounding {rounding!r}: 'forward' or 'backward'")
     log2e = torch.tensor(1.44269504088896341, dtype=torch.float32)
@@ -161,12 +162,6 @@ def forward_smem_bytes(N: int, M: int) -> int:
     """Dynamic shared memory of kernels 4 and 5: both clouds as float4
     and the four auction vectors."""
     return 24 * (N + M)
-
-
-def backward_smem_bytes(N: int, M: int) -> int:
-    """Dynamic shared memory of kernel 6: both clouds as float4 and one
-    side's 9 levels of residuals."""
-    return 16 * (N + M) + 4 * N_LEVELS * max(N, M)
 
 
 def check_smem(what: str, need: int) -> None:
@@ -214,15 +209,18 @@ def emd_backward(a: torch.Tensor, b: torch.Tensor, ratio_l: torch.Tensor,
         raise ValueError(f"emd_backward: residuals {tuple(ratio_l.shape)} "
                          f"and {tuple(ratio_r.shape)}, expected "
                          f"{(B, N_LEVELS, N)} and {(B, N_LEVELS, M)}")
-    check_smem("emd_backward", backward_smem_bytes(N, M))
     build.check_tensors((a, b, ratio_l, ratio_r), a.device)
     da = torch.empty_like(a)
     db = torch.empty_like(b)
     lib = build.library()
+    # each row chunk's column sums, added by a second launch
+    chunks = lib.gwtf_emd_backward_chunks(N)
+    col = a.new_empty(B, chunks, M, 3) if chunks > 1 else None
     with torch.cuda.device(a.device):
         code = lib.gwtf_emd_backward(
             a.data_ptr(), b.data_ptr(), ratio_l.data_ptr(),
-            ratio_r.data_ptr(), da.data_ptr(), db.data_ptr(), B, N, M,
+            ratio_r.data_ptr(), da.data_ptr(), db.data_ptr(),
+            None if col is None else col.data_ptr(), B, N, M,
             build.stream_handle(a.device))
     emd_backward.launches += 1
     build.check(lib, code, "emd_backward")

@@ -38,6 +38,10 @@ def pairwise_cd_stats_plain(samples: torch.Tensor, refs: torch.Tensor,
     R, M, _ = refs.shape
     step = max(1, _PLAIN_BLOCK_ELEMS // (N * M))
     outs = [samples.new_empty(S, R) for _ in range(4)]
+    # the counts' shares divide by a tensor: a CUDA tensor divided by a
+    # Python number is multiplied by its reciprocal, a rounding more than
+    # the CPU's and the kernel's division
+    n_, m_ = (samples.new_tensor(float(v)) for v in (N, M))
     for i in range(S):
         for j0 in range(0, R, step):
             r = refs[j0:j0 + step]
@@ -48,8 +52,8 @@ def pairwise_cd_stats_plain(samples: torch.Tensor, refs: torch.Tensor,
             cdl, cdr, prec, rec = outs
             cdl[i, j0:j0 + step] = row.sum(1) / N
             cdr[i, j0:j0 + step] = col.sum(1) / M
-            prec[i, j0:j0 + step] = 100.0 * (col < f1_threshold).sum(1) / M
-            rec[i, j0:j0 + step] = 100.0 * (row < f1_threshold).sum(1) / N
+            prec[i, j0:j0 + step] = 100.0 * (col < f1_threshold).sum(1) / m_
+            rec[i, j0:j0 + step] = 100.0 * (row < f1_threshold).sum(1) / n_
     return tuple(outs)
 
 

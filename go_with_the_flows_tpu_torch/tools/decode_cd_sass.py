@@ -1,10 +1,11 @@
-"""Instructions of the eval decode (kernel 1, `csrc/point_decode.cu`) and
-of the pairwise Chamfer grid (kernel 3, `csrc/pairwise_cd.cu`) as the
-card's compiler builds them: a measurement, run by hand on a machine with
+"""Instructions of the eval decode (kernel 1, `csrc/point_decode.cu`), of
+the nearest-neighbour distances (kernel 2, `csrc/nn_distance.cu`) and of
+the pairwise Chamfer grid (kernel 3, `csrc/pairwise_cd.cu`) as the card's
+compiler builds them: a measurement, run by hand on a machine with
 `nvcc`, not part of any path.
 
     python -m go_with_the_flows_tpu_torch.tools.decode_cd_sass [--lib SO]
-        [--points P] [--f F] [--out DIR]
+        [--points P] [--f F] [--distance-kernels NAME ...] [--out DIR]
 
 It disassembles the kernel library (`cuobjdump -sass`; by default this
 checkout's, built first) and prints:
@@ -15,14 +16,16 @@ checkout's, built first) and prints:
     by the points a thread carries (P, as the source sets it unless
     given); loops nested in the coupling loop that are not W1 row loops
     (staging loops) are printed apart, by the iteration;
-  * kernel 3: issue slots, FMNMX, SHFL and LDS a point pair, from the
-    innermost loops that form distances (3 FMUL a distance), the ones
-    with the most distances an iteration (one a pass over all pairs);
-    a loop nested in one of them is counted once an iteration.
+  * kernels 2 (`nn_distance_kernel`, with and without the indices) and 3
+    (`cd_stats_kernel`), or the kernels `--distance-kernels` names: issue
+    slots, FMNMX, SHFL and LDS a point pair, from the innermost loops
+    that form distances (3 FMUL a distance), the ones with the most
+    distances an iteration (one a pass over all pairs); a loop nested in
+    one of them is counted once an iteration.
 
-`--lib` takes another build of the library (for example a parent
-checkout's, with `--points 1`). The SASS goes to DIR (default: the build
-directory) as decode_cd.sass.
+`--lib` takes another build of the library (for example an older
+checkout's, with `--points 1` and its kernels' names). The SASS goes to
+DIR (default: the build directory) as decode_cd.sass.
 """
 
 from __future__ import annotations
@@ -178,6 +181,8 @@ def main() -> None:
     parser.add_argument("--lib", default=None)
     parser.add_argument("--points", type=int, default=None)
     parser.add_argument("--f", type=int, default=37)
+    parser.add_argument("--distance-kernels", nargs="+",
+                        default=["nn_distance_kernel", "cd_stats_kernel"])
     parser.add_argument("--out", default=build.BUILD_DIR)
     args = parser.parse_args()
     lib = args.lib
@@ -190,7 +195,8 @@ def main() -> None:
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, "decode_cd.sass"), "w") as f:
         for name, instr in funcs.items():
-            if "point_decode_kernel" in name or "cd_stats_kernel" in name:
+            if any(k in name for k in ("point_decode_kernel",
+                                       *args.distance_kernels)):
                 f.write(f"Function : {name}\n" + "".join(
                     f"/*{a:04x}*/ {t};\n" for a, t in instr))
     for name, instr in sorted(funcs.items()):
@@ -199,8 +205,14 @@ def main() -> None:
             tag = (f"point_decode FP={FP} "
                    f"{'inverse' if m.group(2) == '1' else 'direct'}")
             point_decode_report(instr, P, args.f, FP, tag)
-        elif "cd_stats_kernel" in name:
-            cd_stats_report(instr, "cd_stats_kernel")
+            continue
+        for kernel in args.distance_kernels:
+            if kernel in name:
+                idx = re.search(r"ILb([01])E", name)
+                cd_stats_report(instr, kernel if idx is None else
+                                f"{kernel} with"
+                                + ("" if idx.group(1) == "1" else "out")
+                                + " idx")
 
 
 if __name__ == "__main__":

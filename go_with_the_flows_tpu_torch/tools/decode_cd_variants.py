@@ -1,25 +1,31 @@
-"""Layouts of the eval decode (kernel 1, `csrc/point_decode.cu`) and of
-the pairwise Chamfer grid (kernel 3, `csrc/pairwise_cd.cu`) timed against
-each other on the card: a measurement, run by hand on a machine with
-`nvcc` and a card, not part of any path.
+"""Layouts of the eval decode (kernel 1, `csrc/point_decode.cu`), the
+nearest-neighbour distances (kernel 2, `csrc/nn_distance.cu`), the
+pairwise Chamfer grid (kernel 3, `csrc/pairwise_cd.cu`) and the EMD
+backward (kernel 6, `csrc/emd.cu`) timed against each other on the card:
+a measurement, run by hand on a machine with `nvcc` and a card, not part
+of any path.
 
-    python -m go_with_the_flows_tpu_torch.tools.decode_cd_variants [--out DIR]
+    python -m go_with_the_flows_tpu_torch.tools.decode_cd_variants
+        [--out DIR] [--sources SRC ...]
 
 Each variant is a copy of a source with other values of its layout
 constants (threads a block, points or rows a thread), built alone by
 `nvcc` into its own library under DIR (default: the build directory's
 `variants/`) and called through its C entry point at the main path's
 shapes: the flagship decoder (K=4, C=33, f=37; random weights from seed
-0) at B=64, N=2048, direct and inverse, and a 64 x 64 grid of 2,048-point
-clouds. It prints each variant's ptxas registers and spills, its mean
-time over 10 launches (CUDA events) and whether its outputs equal the
-checkout's kernel's bit for bit (the layouts change no arithmetic).
+0) at B=64, N=2048, direct and inverse; a 64 x 64 grid of 2,048-point
+clouds; kernel 2 without and with the indices and kernel 6 on kernel 5's
+residuals, each on 64 pairs of 2,048-point clouds. `--sources` takes
+some of the sources (default: all). It prints each variant's ptxas
+registers, spills and stack frame, its mean time over 10 launches (5 for
+the grid; CUDA events) and whether its outputs equal the checkout's
+kernel's bit for bit (the layouts change no arithmetic, but kernel 6's
+change the order of its column sums: it is held at rtol 1e-5 instead).
 """
 
 from __future__ import annotations
 
 import argparse
-import ctypes
 import os
 import re
 import subprocess
@@ -27,6 +33,8 @@ import subprocess
 import torch
 
 from ..ops.kernels import build
+from ..ops.kernels.chamfer import nn_distance
+from ..ops.kernels.emd import emd_backward, emd_cost_kernel
 from ..ops.kernels.pairwise import pairwise_cd_stats
 from ..ops.kernels.point_decode import (
     film_alpha_beta,
@@ -40,13 +48,31 @@ VARIANTS = {
                         dict(kBlockPoints=256, kNarrowPoints=2),
                         dict(kBlockPoints=512, kNarrowPoints=4),
                         dict(kBlockPoints=1024, kNarrowPoints=4)],
+    "nn_distance.cu": [dict(kThreads=128, kRows=4),
+                       dict(kThreads=64, kRows=8),
+                       dict(kThreads=128, kRows=8),
+                       dict(kThreads=256, kRows=2),
+                       dict(kThreads=256, kRows=4)],
     "pairwise_cd.cu": [dict(kThreads=256, kRows=8),
                        dict(kThreads=128, kRows=8),
                        dict(kThreads=128, kRows=16),
                        dict(kThreads=256, kRows=4)],
+    "emd.cu": [dict(kBwdThreads=64, kBwdRows=4),
+               dict(kBwdThreads=128, kBwdRows=4),
+               dict(kBwdThreads=32, kBwdRows=4),
+               dict(kBwdThreads=64, kBwdRows=2),
+               dict(kBwdThreads=128, kBwdRows=2),
+               dict(kBwdThreads=64, kBwdRows=8)],
 }
-KERNELS = {"point_decode.cu": "point_decode_kernel",
-           "pairwise_cd.cu": "cd_stats_kernel"}
+# source -> (kernel whose ptxas lines are read, C entry points it holds)
+KERNELS = {
+    "point_decode.cu": ("point_decode_kernel", ("gwtf_point_decode",)),
+    "nn_distance.cu": ("nn_distance_kernel",
+                       ("gwtf_nn_distance", "gwtf_nn_distance_chunks")),
+    "pairwise_cd.cu": ("cd_stats_kernel", ("gwtf_pairwise_cd_stats",)),
+    "emd.cu": ("emd_backward_kernel",
+               ("gwtf_emd_backward", "gwtf_emd_backward_chunks")),
+}
 
 
 def variant_source(text: str, consts) -> str:
@@ -58,14 +84,16 @@ def variant_source(text: str, consts) -> str:
     return text
 
 
-def build_variants(out_dir: str):
-    """{(source, label): (library path, ptxas log)}, all nvcc at once."""
+def build_variants(out_dir: str, sources):
+    """{(source, label): (library, ptxas log)} of the VARIANTS of
+    `sources`, all nvcc at once; each library with its entry points'
+    argument types (`build.load`)."""
     os.makedirs(out_dir, exist_ok=True)
     jobs = {}
-    for src, variants in VARIANTS.items():
+    for src in sources:
         with open(os.path.join(build.CSRC, src)) as f:
             text = f.read()
-        for consts in variants:
+        for consts in VARIANTS[src]:
             label = " ".join(f"{k}={v}" for k, v in consts.items())
             stem = src[:-3] + "_" + "_".join(str(v) for v in consts.values())
             cu = os.path.join(out_dir, stem + ".cu")
@@ -80,7 +108,7 @@ def build_variants(out_dir: str):
         log = proc.communicate()[0]
         if proc.returncode != 0:
             raise SystemExit(f"nvcc failed on {key}:\n{log}")
-        out[key] = (so, log)
+        out[key] = (build.load(so, KERNELS[key[0]][1]), log)
     return out
 
 
@@ -129,19 +157,18 @@ def decode_inputs():
     return packed, ab, p
 
 
-def main() -> None:
-    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--out", default=os.path.join(build.BUILD_DIR,
-                                                      "variants"))
-    args = parser.parse_args()
-    built = build_variants(args.out)
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True).stdout.strip()
-    print(f"card: {card}")
-    stream = torch.cuda.current_stream().cuda_stream
-    P, I = ctypes.c_void_p, ctypes.c_int
+def variants_of(built, source):
+    """(label, library, ptxas log) of each built variant of `source`."""
+    return [(label, lib, log) for (src, label), (lib, log) in built.items()
+            if src == source]
 
+
+def check_code(label: str, code: int) -> None:
+    if code:
+        raise SystemExit(f"{label}: CUDA error {code}")
+
+
+def time_point_decode(built, stream) -> None:
     packed, ab, p = decode_inputs()
     K, B, _, N = p.shape
     C, f = packed["w1"].shape[1], packed["w1"].shape[-1]
@@ -151,56 +178,133 @@ def main() -> None:
         ms = cuda_ms(lambda: point_decode(packed, ab, p, inverse))
         print(f"point_decode {'inverse' if inverse else 'direct'} "
               f"(checkout): {ms:.3f} ms")
-        for (src, label), (so, log) in built.items():
-            if src != "point_decode.cu":
-                continue
-            fn = ctypes.CDLL(so).gwtf_point_decode
-            fn.argtypes = [P] * 5 + [I] * 6 + [P]
+        for label, lib, log in variants_of(built, "point_decode.cu"):
             out, lv = torch.empty_like(p), torch.empty_like(p)
 
             def run():
-                code = fn(p.data_ptr(), packed["kernel"].data_ptr(),
-                          film.data_ptr(), out.data_ptr(), lv.data_ptr(), K,
-                          B, C, N, f, int(inverse), stream)
-                if code:
-                    raise SystemExit(f"{label}: CUDA error {code}")
+                check_code(label, lib.gwtf_point_decode(
+                    p.data_ptr(), packed["kernel"].data_ptr(),
+                    film.data_ptr(), out.data_ptr(), lv.data_ptr(), K, B, C,
+                    N, f, int(inverse), stream))
 
             ms = cuda_ms(run)
             same = torch.equal(out, want[0]) and torch.equal(lv, want[1])
             fp = (f + 7) // 8 * 8
-            at = ptxas(log, KERNELS[src], f"ILi{fp}ELb{int(inverse)}E")
-            most = ptxas(log, KERNELS[src])
+            at = ptxas(log, "point_decode_kernel",
+                       f"ILi{fp}ELb{int(inverse)}E")
+            most = ptxas(log, "point_decode_kernel")
             print(f"  point_decode {label}: {ms:.3f} ms; at FP={fp} {at[0]} "
                   f"registers, {at[1]} B spilled, {at[2]} B stack; at most "
                   f"{most[0]} registers, {most[1]} B spilled, {most[2]} B "
                   f"stack over FP 8-64; equal bits {same}")
 
+
+def time_nn_distance(built, stream, B=64, N=2048) -> None:
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    a = 0.3 * torch.randn(B, N, 3, device="cuda", generator=gen)
+    b = 0.3 * torch.randn(B, N, 3, device="cuda", generator=gen)
+    for with_idx in (False, True):
+        want = nn_distance(a, b, with_idx)
+        ms = cuda_ms(lambda: nn_distance(a, b, with_idx))
+        tag = "with idx" if with_idx else "without idx"
+        print(f"nn_distance {tag} (checkout): {ms:.3f} ms")
+        for label, lib, log in variants_of(built, "nn_distance.cu"):
+            chunks = lib.gwtf_nn_distance_chunks(N)
+            dist = [torch.empty(B, N, device="cuda") for _ in range(2)]
+            col_d = torch.empty(B, chunks, N, device="cuda")
+            idx = [torch.empty(n, dtype=torch.int32, device="cuda")
+                   for n in ((B, N), (B, N), (B, chunks, N))]
+            ip = [t.data_ptr() if with_idx else None for t in idx]
+
+            def run():
+                check_code(label, lib.gwtf_nn_distance(
+                    a.data_ptr(), b.data_ptr(), dist[0].data_ptr(), ip[0],
+                    dist[1].data_ptr(), ip[1], col_d.data_ptr(), ip[2], B, N,
+                    N, stream))
+
+            ms = cuda_ms(run)
+            got = ([dist[0], idx[0].long(), dist[1], idx[1].long()]
+                   if with_idx else dist)
+            same = all(torch.equal(x, y) for x, y in zip(got, want))
+            regs, spill, stack = ptxas(log, "nn_distance_kernel",
+                                       f"ILb{int(with_idx)}E")
+            print(f"  nn_distance {tag} {label}: {ms:.3f} ms, {chunks} row "
+                  f"chunks, {regs} registers, {spill} B spilled, {stack} B "
+                  f"stack; equal bits {same}")
+
+
+def time_cd_stats(built, stream) -> None:
     gen = torch.Generator(device="cuda").manual_seed(2)
     s = 0.3 * torch.randn(64, 2048, 3, device="cuda", generator=gen)
     r = 0.3 * torch.randn(64, 2048, 3, device="cuda", generator=gen)
     want = pairwise_cd_stats(s, r, 1e-3)
     ms = cuda_ms(lambda: pairwise_cd_stats(s, r, 1e-3), 5)
     print(f"pairwise_cd_stats 64 x 64 (checkout): {ms:.3f} ms")
-    for (src, label), (so, log) in built.items():
-        if src != "pairwise_cd.cu":
-            continue
-        fn = ctypes.CDLL(so).gwtf_pairwise_cd_stats
-        fn.argtypes = [P] * 6 + [I] * 4 + [ctypes.c_float, P]
+    for label, lib, log in variants_of(built, "pairwise_cd.cu"):
         outs = [torch.empty_like(w) for w in want]
 
         def run():
-            code = fn(s.data_ptr(), r.data_ptr(),
-                      *(o.data_ptr() for o in outs), 64, 64, 2048, 2048,
-                      1e-3, stream)
-            if code:
-                raise SystemExit(f"{label}: CUDA error {code}")
+            check_code(label, lib.gwtf_pairwise_cd_stats(
+                s.data_ptr(), r.data_ptr(), *(o.data_ptr() for o in outs),
+                64, 64, 2048, 2048, 1e-3, stream))
 
         ms = cuda_ms(run, 5)
         same = all(torch.equal(a, b) for a, b in zip(outs[2:], want[2:]))
-        regs, spill, stack = ptxas(log, KERNELS[src])
+        regs, spill, stack = ptxas(log, "cd_stats_kernel")
         print(f"  pairwise_cd_stats {label}: {ms:.3f} ms, {regs} registers, "
               f"{spill} B spilled, {stack} B stack, precision and recall "
               f"equal {same}")
+
+
+def time_emd_backward(built, stream, B=64, N=2048) -> None:
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    a = 0.3 * torch.randn(B, N, 3, device="cuda", generator=gen)
+    b = 0.3 * torch.randn(B, N, 3, device="cuda", generator=gen)
+    _, rl, rr = emd_cost_kernel(a, b, True)
+    want = emd_backward(a, b, rl, rr)
+    ms = cuda_ms(lambda: emd_backward(a, b, rl, rr))
+    print(f"emd_backward (checkout): {ms:.3f} ms")
+    for label, lib, log in variants_of(built, "emd.cu"):
+        chunks = lib.gwtf_emd_backward_chunks(N)
+        da, db = torch.empty_like(a), torch.empty_like(b)
+        col = torch.empty(B, chunks, N, 3, device="cuda")
+
+        def run():
+            check_code(label, lib.gwtf_emd_backward(
+                a.data_ptr(), b.data_ptr(), rl.data_ptr(), rr.data_ptr(),
+                da.data_ptr(), db.data_ptr(), col.data_ptr(), B, N, N,
+                stream))
+
+        ms = cuda_ms(run)
+        close = all(torch.allclose(x, y, rtol=1e-5, atol=1e-7)
+                    for x, y in zip((da, db), want))
+        regs, spill, stack = ptxas(log, "emd_backward_kernel")
+        print(f"  emd_backward {label}: {ms:.3f} ms, {chunks} row chunks, "
+              f"{regs} registers, {spill} B spilled, {stack} B stack; "
+              f"within rtol 1e-5 of the checkout's {close}")
+
+
+RUNNERS = {"point_decode.cu": time_point_decode,
+           "nn_distance.cu": time_nn_distance,
+           "pairwise_cd.cu": time_cd_stats,
+           "emd.cu": time_emd_backward}
+
+
+def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--out", default=os.path.join(build.BUILD_DIR,
+                                                      "variants"))
+    parser.add_argument("--sources", nargs="+", choices=list(VARIANTS),
+                        default=list(VARIANTS))
+    args = parser.parse_args()
+    built = build_variants(args.out, args.sources)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip()
+    print(f"card: {card}")
+    stream = torch.cuda.current_stream().cuda_stream
+    for src in args.sources:
+        RUNNERS[src](built, stream)
 
 
 if __name__ == "__main__":

@@ -93,21 +93,31 @@ inline thread_local EmuBlock* emu_block;
 inline thread_local float* emu_dyn;
 
 inline void __syncthreads() { emu_block->bar->arrive_and_wait(); }
-inline float __shfl_xor_sync(unsigned, float v, int m) {
+// Thread t's v as thread `from` (of the same block) gave it: every
+// thread of the block must reach the call. The value travels as its bits,
+// so a float or an int comes back unchanged.
+template <class T>
+inline T emu_shuffle(T v, int from) {
+  static_assert(sizeof(T) == sizeof(float), "a shuffle moves 32 bits");
   const int t = threadIdx.x;
-  emu_block->lanes[t] = v;
+  std::memcpy(&emu_block->lanes[t], &v, sizeof v);
   emu_block->bar->arrive_and_wait();
-  const float r = emu_block->lanes[(t & ~31) | ((t & 31) ^ m)];
+  T r;
+  std::memcpy(&r, &emu_block->lanes[from], sizeof r);
   emu_block->bar->arrive_and_wait();
   return r;
 }
 
-inline float __shfl_down_sync(unsigned, float v, int d) {
+template <class T>
+inline T __shfl_xor_sync(unsigned, T v, int m) {
   const int t = threadIdx.x;
-  emu_block->lanes[t] = v;
-  emu_block->bar->arrive_and_wait();
-  const float r = (t & 31) + d < 32 ? emu_block->lanes[t + d] : v;
-  emu_block->bar->arrive_and_wait();
+  return emu_shuffle(v, (t & ~31) | ((t & 31) ^ m));
+}
+
+template <class T>
+inline T __shfl_down_sync(unsigned, T v, int d) {
+  const int t = threadIdx.x;
+  const T r = emu_shuffle(v, (t & 31) + d < 32 ? t + d : t);
   return r;
 }
 

@@ -81,23 +81,54 @@ def test_point_decode_kernel(device, features, inverse):
 
 
 def test_nn_distance_kernel(device):
+    """Minima equal to the plain version's bit for bit (both round each
+    distance step by step), with and without the indices, the indices
+    equal too; two launches give equal bits."""
     gen = torch.Generator(device=device).manual_seed(1)
     a = torch.randn(3, 300, 3, device=device, generator=gen)
     b = torch.randn(3, 517, 3, device=device, generator=gen)
     got = nn_distance(a, b)
     want = nn_distance_plain(a, b)
     for x, y in zip(got, want):
-        torch.testing.assert_close(x, y, rtol=0, atol=1e-6)
+        assert torch.equal(x, y)
+    plain = nn_distance(a, b, with_idx=False)
+    assert torch.equal(plain[0], want[0]) and torch.equal(plain[1], want[2])
+    for x, y in zip(got, nn_distance(a, b)):
+        assert torch.equal(x, y)
     a.requires_grad_()
     dl, dr = chamfer(a, b)
     (dl.sum() + dr.sum()).backward()
     assert torch.isfinite(a.grad).all()
 
 
+def test_nn_distance_kernel_chunks_and_ties(device):
+    """1,100 rows (three row chunks, the last partial) against 700 columns
+    on a 1/64 grid, where a row's minimum and a column's are often reached
+    more than once: minima equal to the plain version's, an index differing
+    from the plain argmin only at an exact tie; two launches give equal
+    bits."""
+    gen = torch.Generator(device=device).manual_seed(4)
+    a, b = ((64 * 0.3 * torch.randn(2, n, 3, device=device,
+                                    generator=gen)).round() / 64
+            for n in (1100, 700))
+    got = nn_distance(a, b)
+    want = nn_distance_plain(a, b)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[2], want[2])
+    for q, r, idx, dist in ((a, b, got[1], want[0]), (b, a, got[3], want[2])):
+        d = q - torch.gather(r, 1, idx[..., None].expand(-1, -1, 3))
+        chosen = (d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]) \
+            + d[..., 2] * d[..., 2]
+        assert torch.equal(chosen, dist)
+    for x, y in zip(got, nn_distance(a, b)):
+        assert torch.equal(x, y)
+
+
 def test_pairwise_kernel(device):
     """cdl, cdr rtol 1e-5 (the sums run in another order); precision and
     recall equal, since every minimum is the plain version's bit for
-    bit."""
+    bit. The plain version's precision and recall on the card also equal
+    its own on the CPU (the shares 100 count / M of M = 1,100 and N = 300,
+    whose reciprocals are inexact, divided on both)."""
     gen = torch.Generator(device=device).manual_seed(2)
     s = torch.randn(4, 300, 3, device=device, generator=gen)
     r = torch.randn(5, 1100, 3, device=device, generator=gen)
@@ -107,6 +138,9 @@ def test_pairwise_kernel(device):
         torch.testing.assert_close(x, y, rtol=1e-5, atol=0)
     assert torch.equal(got[2], want[2])
     assert torch.equal(got[3], want[3])
+    on_cpu = pairwise_cd_stats_plain(s.cpu(), r.cpu(), 0.05)
+    assert torch.equal(want[2].cpu(), on_cpu[2])
+    assert torch.equal(want[3].cpu(), on_cpu[3])
 
 
 @pytest.mark.parametrize("mode", ["generating", "autoencoding"])
@@ -135,7 +169,7 @@ def test_emd_kernels(device, B, N, M):
     """Kernel 5 against its plain version (cost rtol 1e-4, the sums run in
     another order); kernel 6 against the plain backward on the kernel's
     own residuals (rtol 1e-4, atol 1e-5), reached through autograd with a
-    non-uniform upstream weight."""
+    non-uniform upstream weight, and two launches of it bit-equal."""
     gen = torch.Generator(device=device).manual_seed(B + N + M)
     a = 0.3 * torch.randn(B, N, 3, device=device, generator=gen)
     b = 0.3 * torch.randn(B, M, 3, device=device, generator=gen)
@@ -155,6 +189,8 @@ def test_emd_kernels(device, B, N, M):
     kda, kdb = emd_backward(a, b, rl, rr)
     torch.testing.assert_close(kda, da, rtol=1e-4, atol=1e-5)
     torch.testing.assert_close(kdb, db, rtol=1e-4, atol=1e-5)
+    again = emd_backward(a, b, rl, rr)
+    assert torch.equal(again[0], kda) and torch.equal(again[1], kdb)
 
 
 @pytest.mark.parametrize("S,R,N,M", [(5, 7, 50, 77), (3, 4, 300, 200)])

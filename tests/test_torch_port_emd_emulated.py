@@ -9,7 +9,6 @@ are small. Tolerances are the card tests' (tests/test_torch_port_cuda.py):
 the CPU's exp2f and rsqrt differ from the card's special-function units,
 not the algorithm."""
 
-import ctypes
 import os
 import re
 import shutil
@@ -20,6 +19,7 @@ import torch
 
 from go_with_the_flows_tpu_torch.ops.chamfer import pairwise_sqdists
 from go_with_the_flows_tpu_torch.ops.emd import N_LEVELS, _capacities, levels
+from go_with_the_flows_tpu_torch.ops.kernels import build
 from go_with_the_flows_tpu_torch.ops.kernels.emd import (
     emd_backward_f64,
     emd_backward_plain,
@@ -69,16 +69,9 @@ def lib(tmp_path_factory):
     if built.returncode != 0:
         raise RuntimeError(f"g++ failed on the emulated source:\n"
                            f"{built.stderr[-4000:]}")
-    lib = ctypes.CDLL(str(so))
-    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.gwtf_emd_cost.argtypes = [P] * 5 + [I] * 3 + [F] * 2 + [P]
-    lib.gwtf_pairwise_emd.argtypes = [P] * 3 + [I] * 3 + [F] * 2 + [I] * 2 \
-        + [P]
-    lib.gwtf_emd_backward.argtypes = [P] * 6 + [I] * 3 + [P]
-    for fn in (lib.gwtf_emd_cost, lib.gwtf_pairwise_emd,
-               lib.gwtf_emd_backward):
-        fn.restype = ctypes.c_int
-    return lib
+    return build.load(str(so), ("gwtf_emd_cost", "gwtf_pairwise_emd",
+                                "gwtf_emd_backward",
+                                "gwtf_emd_backward_chunks"))
 
 
 def _cost(lib, a, b, save_ratios=False):
@@ -105,6 +98,20 @@ def _grid(lib, s, r):
             s.data_ptr(), r.data_ptr(), cost.data_ptr(), R, N, M,
             *_capacities(N, M), p0, pairs, None) == 0
     return cost
+
+
+def _backward(lib, a, b, rl, rr):
+    """Kernel 6's (da, db), the outputs and the chunks' scratch filled
+    with NaN first."""
+    B, N, M = a.shape[0], a.shape[1], b.shape[1]
+    chunks = lib.gwtf_emd_backward_chunks(N)
+    da = torch.full_like(a, float("nan"))
+    db = torch.full_like(b, float("nan"))
+    col = torch.full((B, chunks, M, 3), float("nan"))
+    assert lib.gwtf_emd_backward(a.data_ptr(), b.data_ptr(), rl.data_ptr(),
+                                 rr.data_ptr(), da.data_ptr(), db.data_ptr(),
+                                 col.data_ptr(), B, N, M, None) == 0
+    return da, db
 
 
 def _match(d, rl, rr):
@@ -154,38 +161,44 @@ def test_emulated_emd_forward(lib, S, R, N, M):
     assert (match - want_match).abs().max() <= 1e-3 * want_match.abs().max()
 
 
-@pytest.mark.parametrize("S,R,N,M", CASES[:2])
+def test_emulated_emd_backward_chunks(lib):
+    """Kernel 6's block takes 256 rows: one chunk up to 256, then one
+    more each 256 (the last backward case spans two)."""
+    assert [lib.gwtf_emd_backward_chunks(n) for n in (1, 256, 257, 300)] \
+        == [1, 1, 2, 2]
+
+
+# and 300 rows (two row chunks of 256, the second partial) against 290
+# columns (two tiles of 256, the second ending in a partial group of 8)
+@pytest.mark.parametrize("S,R,N,M", CASES[:2] + [(2, 1, 300, 290)])
 def test_emulated_emd_backward(lib, S, R, N, M):
     """Kernel 6 on the emulated forward's residuals: rtol 1e-4, atol
-    1e-5 against the plain backward."""
+    1e-5 against the plain backward; two launches give the same bits."""
     gen = torch.Generator().manual_seed(N * M)
     a = 0.3 * torch.randn(S, N, 3, generator=gen)
     b = 0.3 * torch.randn(S, M, 3, generator=gen)
     _, rl, rr = _cost(lib, a, b, True)
-    da, db = torch.empty_like(a), torch.empty_like(b)
-    assert lib.gwtf_emd_backward(a.data_ptr(), b.data_ptr(), rl.data_ptr(),
-                                 rr.data_ptr(), da.data_ptr(), db.data_ptr(),
-                                 S, N, M, None) == 0
+    da, db = _backward(lib, a, b, rl, rr)
     want_da, want_db = emd_backward_plain(a, b, rl, rr)
     torch.testing.assert_close(da, want_da, rtol=1e-4, atol=1e-5)
     torch.testing.assert_close(db, want_db, rtol=1e-4, atol=1e-5)
+    again = _backward(lib, a, b, rl, rr)
+    assert torch.equal(again[0], da) and torch.equal(again[1], db)
 
 
 @pytest.mark.parametrize("S,R,N,M", CASES[:2])
 def test_emulated_emd_forward_and_backward_match(lib, S, R, N, M):
-    """The forward forms E as 2^fl(c_l D) of the FMA distance, kernel 6
-    as exp(level_l D) of the step-rounded one. On the emulated forward's
-    residuals, the gradients of the two forms' matches (float64) agree at
-    the backward's tolerance, and kernel 6 agrees with both; the
-    backward's form in float64 agrees with the plain backward."""
+    """The forward and kernel 6 form E as 2^fl(c_l D) of the FMA
+    distance, the plain versions as exp(level_l D) of the step-rounded
+    one. On the emulated forward's residuals, the gradients of the two
+    forms' matches (float64) agree at the backward's tolerance, and kernel
+    6 agrees with both; the plain versions' form in float64 agrees with
+    the plain backward."""
     gen = torch.Generator().manual_seed(N * M + 1)
     a = 0.3 * torch.randn(S, N, 3, generator=gen)
     b = 0.3 * torch.randn(S, M, 3, generator=gen)
     _, rl, rr = _cost(lib, a, b, True)
-    da, db = torch.empty_like(a), torch.empty_like(b)
-    assert lib.gwtf_emd_backward(a.data_ptr(), b.data_ptr(), rl.data_ptr(),
-                                 rr.data_ptr(), da.data_ptr(), db.data_ptr(),
-                                 S, N, M, None) == 0
+    da, db = _backward(lib, a, b, rl, rr)
     fwd = emd_backward_f64(a, b, rl, rr, "forward")
     bwd = emd_backward_f64(a, b, rl, rr, "backward")
     plain = emd_backward_plain(a, b, rl, rr)

@@ -37,7 +37,8 @@ def threshold_away_from(samples, refs):
     return float((mid[gap] + mid[gap + 1]) / 2)
 
 
-@pytest.mark.parametrize("S,R,N,M", [(3, 4, 40, 53), (2, 2, 64, 17)])
+@pytest.mark.parametrize("S,R,N,M", [(3, 4, 40, 53), (2, 2, 64, 17),
+                                     (1, 2, 300, 1100)])
 def test_pairwise_cd_stats_matches_pallas(S, R, N, M):
     rng = np.random.RandomState(S + N)
     samples = rng.randn(S, N, 3).astype(np.float32) * 0.3
