@@ -31,7 +31,22 @@ non-zero at the first failure:
      through the decoder's modules (the plain path), compared; twenty
      kernel-path steps on seeded clouds with the two train-decode launch
      counters read around them; ms/step, clouds/s and peak memory of both
-     paths; a torch.profiler pass over one warm kernel-path step.
+     paths; a torch.profiler pass over one warm kernel-path step;
+  5. loop: the flagship model through the train-and-validate path at
+     B=64 on seeded in-memory clouds served by the port's DataLoader:
+     `train` for one epoch of 4 steps (kernels 7 and 8) with its
+     checkpoint, `evaluate_val` over 2 batches (kernel 1's inverse, the
+     best-model checkpoint) and `reconstruct` over 2 batches (kernel 1
+     direct), with the three kernels' launch counters read around them;
+     then the eval loss of one batch through kernel 1 against the loss
+     through the decoder's modules (a tolerance from the decode's own
+     error), the checkpoint restored into a fresh model, optimizer and
+     generator (bit-equal, and one more step from each bit-equal), the
+     reconstructions equal to a freshly built sample step's with no
+     buffer moved and the model's modes restored; the loop's ms/step
+     beside phase 4's bare step, the eval step's ms/batch through the
+     kernel and through the modules, the checkpoint's size and its save
+     and load seconds, and the pack_decoder cache's costs.
 
 Phase 2 also checks that two launches of kernels 1, 2 and 6 give equal
 bits, holds kernel 2's minima equal to the plain version's (its indices
@@ -1268,6 +1283,397 @@ def phase_train(card):
         break
     else:
         fail("the plain training path does not fit at any batch tried")
+    return launches, ms_k
+
+
+def snapshot(model):
+    return {k: v.clone() for k, v in model.state_dict().items()}
+
+
+def differing(a, b):
+    """Names of the entries of two state dicts (same keys and shapes)
+    that are not bit-equal, with each one's largest |diff| over its
+    largest |entry|."""
+    import torch
+
+    out = []
+    for k in a:
+        if not torch.equal(a[k], b[k]):
+            d = (a[k].double() - b[k].double()).abs().max().item()
+            out.append((k, d / (b[k].double().abs().max().item() or 1.0)))
+    return out
+
+
+def optimizer_flat(opt):
+    """AmsgradWD's moments and counts as a state-dict-like mapping."""
+    return {k: getattr(opt, k) for k in opt._FLAT}
+
+
+def check_eval_loss(model, batch, eps, pd_err):
+    """The eval loss of one batch and one noise draw through kernel 1's
+    inverse against the loss through the decoder's modules. Tolerance
+    from the decode's own error: e, the largest |diff| of the two
+    inverses' outputs (p0 and the logvar sum) on this batch, is held to
+    1e-3 (phase 2 holds kernel 1 to 1e-4 of its plain version; the
+    modules also fold BatchNorm another way), and the loss to twice its
+    first-order change e * (sum |dL/dp0| + sum |dL/dlv|)."""
+    import torch
+
+    from go_with_the_flows_tpu_torch.losses import flow_mixture_nll
+    from go_with_the_flows_tpu_torch.train.step import (
+        eval_mode, make_eval_step)
+
+    g, p = batch
+    got = make_eval_step(model)(g, p, posterior_eps=eps)
+    want = make_eval_step(model, fused_decoder=False)(g, p, posterior_eps=eps)
+    with eval_mode(model), torch.inference_mode():
+        gs = model.encode(g, "training", posterior_eps=eps)["g_sample"]
+        kern = model.decode_eval(p, gs)
+        mods = model.decode_training(p, gs)
+    e = max((kern[k] - mods[k]).abs().max().item()
+            for k in ("p0_samples", "p_logvar_sums"))
+    with eval_mode(model):
+        p0 = mods["p0_samples"].clone().requires_grad_()
+        lv = mods["p_logvar_sums"].clone().requires_grad_()
+        nll = flow_mixture_nll(p0, lv, mods["p_base_mus"].clone(),
+                               mods["p_base_logvars"].clone(),
+                               mods["mixture_weights_logits"].clone())
+        dp0, dlv = torch.autograd.grad(nll, (p0, lv))
+    sens = (dp0.abs().sum() + dlv.abs().sum()).item()
+    tol = 2.0 * max(e, pd_err) * sens
+    diffs = {k: abs(float(got[k]) - float(want[k])) for k in got}
+    say(f"    eval loss, kernel 1's inverse vs the decoder's modules: "
+        + ", ".join(f"{k} {float(got[k]):.6f} vs {float(want[k]):.6f}"
+                    for k in got)
+        + f"; decode |diff| {e:.3g} (phase 2: {pd_err:.3g}), loss |diff| "
+        f"{diffs['loss']:.3g}, tolerance {tol:.3g} = 2 x {max(e, pd_err):.3g}"
+        f" x {sens:.4g}")
+    if e > 1e-3:
+        fail(f"eval decode: kernel 1's inverse and the modules differ by "
+             f"{e:.3g} (bound 1e-3)")
+    for k in ("loss", "pnll"):
+        if not diffs[k] <= tol:
+            fail(f"eval {k}: kernel path {float(got[k])!r}, modules "
+                 f"{float(want[k])!r} (tolerance {tol:.3g})")
+    for k in ("gnll", "gent"):  # the decoder does not enter these
+        if not diffs[k] <= 1e-6 * abs(float(want[k])):
+            fail(f"eval {k}: kernel path {float(got[k])!r}, modules "
+                 f"{float(want[k])!r}")
+
+
+def check_resume(state, ckpt_dir, batch):
+    """Restore the checkpoint into a fresh model, optimizer and generator:
+    parameters, buffers and AMSGrad moments bit-equal to the live state's;
+    then one train step from each, bit-equal again (loss, every model
+    tensor, the moments and counts). Returns the load seconds."""
+    import torch
+
+    from go_with_the_flows_tpu_torch.models.mixture import FlowMixtureModel
+    from go_with_the_flows_tpu_torch.optim import make_optimizer
+    from go_with_the_flows_tpu_torch.train import checkpoints
+    from go_with_the_flows_tpu_torch.train.state import create_train_state
+    from go_with_the_flows_tpu_torch.train.step import make_train_step
+    from go_with_the_flows_tpu_torch.utils.config import FLAGSHIP_AIRPLANE
+
+    fresh = FlowMixtureModel(**FLAGSHIP_AIRPLANE,
+                             generator=torch.Generator().manual_seed(99)
+                             ).to(batch[0].device)
+    other = create_train_state(
+        fresh, make_optimizer(list(fresh.parameters()), **TRAIN_HP), seed=98)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    other, epoch, it = checkpoints.restore_checkpoint(
+        ckpt_dir, "flagship.ckpt", other)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t
+    if (epoch, it, other.step) != (1, 0, state.step):
+        fail(f"restored epoch, iter, step {(epoch, it, other.step)}, "
+             f"expected {(1, 0, state.step)}")
+    for what, a, b in (
+            ("model", snapshot(other.model), snapshot(state.model)),
+            ("optimizer", optimizer_flat(other.optimizer),
+             optimizer_flat(state.optimizer))):
+        bad = differing(a, b)
+        if bad:
+            fail(f"restored {what} differs from the saved one: {bad[:5]}")
+    if not torch.equal(other.generator.get_state(),
+                       state.generator.get_state()):
+        fail("restored generator state differs")
+    g, p = batch
+    after = []
+    for st in (state, other):
+        step = make_train_step(st.model, st.optimizer)
+        loss = step(g, p, st.generator)["loss"]
+        after.append((float(loss), snapshot(st.model),
+                      optimizer_flat(st.optimizer)))
+    (la, ma, oa), (lb, mb, ob) = after
+    bad = differing(ma, mb) + differing(oa, ob)
+    if la != lb or bad:
+        fail(f"one step after the restore is not bit-equal to one from the "
+             f"live state: loss {lb!r} vs {la!r}; {len(bad)} tensors differ:"
+             f" {bad[:8]}")
+    say(f"    one step from the restored state and from the live state: "
+        f"bit-equal (loss {la!r}; {len(ma)} model tensors, AMSGrad "
+        f"moments and counts)")
+    return load_s
+
+
+# the CUDA runtime calls that make the host wait for the card
+HOST_WAITS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+              "cudaEventSynchronize", "cudaMemcpy")
+
+
+def host_waits(prof, window):
+    """{name: calls} of the HOST_WAITS calls, and of the kernel launches,
+    made while the host was inside the profile's record_function range
+    `window` (its host-side span: the card's span of the same range runs
+    on to the last kernel launched in it); and for each wait other than
+    on an event, the host operations that enclose it, outermost first,
+    and the one that ended last before it."""
+    from torch.autograd import DeviceType
+
+    events = list(prof.events())
+    spans = [e.time_range for e in events
+             if e.name == window and e.device_type == DeviceType.CPU]
+
+    def inside(e, r):
+        return r.start <= e.time_range.start and e.time_range.end <= r.end
+
+    out = {name: 0 for name in HOST_WAITS + ("cudaLaunchKernel",)}
+    where = []
+    for e in events:
+        if e.name not in out or not any(inside(e, r) for r in spans):
+            continue
+        out[e.name] += 1
+        if e.name in HOST_WAITS and e.name != "cudaEventSynchronize":
+            host = [o for o in events if o is not e and o.name != window
+                    and o.device_type == DeviceType.CPU]
+            before = [o for o in host
+                      if o.time_range.end <= e.time_range.start]
+            where.append({
+                "in": [o.name for o in sorted(
+                    (o for o in host if inside(e, o.time_range)),
+                    key=lambda o: o.time_range.start)],
+                "after": max(before, key=lambda o: o.time_range.end).name
+                if before else None})
+    return out, where
+
+
+def phase_loop(card, bare_step_ms, pd_err):
+    import copy
+    import math
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from go_with_the_flows_tpu_torch.data import DataLoader
+    from go_with_the_flows_tpu_torch.models.mixture import FlowMixtureModel
+    from go_with_the_flows_tpu_torch.ops.kernels.point_decode import (
+        point_decode)
+    from go_with_the_flows_tpu_torch.ops.kernels.train_decode import (
+        train_decode_bwd, train_decode_fwd)
+    from go_with_the_flows_tpu_torch.optim import make_optimizer
+    from go_with_the_flows_tpu_torch.train import checkpoints, loops
+    from go_with_the_flows_tpu_torch.train.state import create_train_state
+    from go_with_the_flows_tpu_torch.train.step import (
+        make_eval_step, make_sample_step, make_train_step)
+    from go_with_the_flows_tpu_torch.utils.config import FLAGSHIP_AIRPLANE
+
+    say(f"[5] loop: flagship airplane model, B={BATCH}, N={N_POINTS}: "
+        f"train, evaluate_val, checkpoint and resume, reconstruct")
+    torch.cuda.empty_cache()  # the blocks phases 3 and 4 left cached
+    model = FlowMixtureModel(**FLAGSHIP_AIRPLANE,
+                             generator=torch.Generator().manual_seed(0))
+    jiggle_batch_norms(model, 1000)
+    model.cuda()
+    state = create_train_state(
+        model, make_optimizer(list(model.parameters()), **TRAIN_HP), seed=5)
+    rng = np.random.default_rng(6)
+    train_set = [{"cloud": c, "eval_cloud": c}
+                 for c in reference_clouds(rng, 4 * BATCH)]
+    val_set = [{"cloud": c, "eval_cloud": c}
+               for c in reference_clouds(rng, 2 * BATCH)]
+    train_loader = DataLoader(train_set, BATCH, shuffle=True, seed=7)
+    val_loader = DataLoader(val_set, BATCH, drop_last=False)
+    train_step = make_train_step(model, state.optimizer)
+    eval_step = make_eval_step(model)
+    sample_step = make_sample_step(model, N_POINTS, "autoencoding")
+    wrappers = (point_decode, train_decode_fwd, train_decode_bwd)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        config = dict(logging=True, checkpointing=True, logging_path=tmp,
+                      model_name="flagship.ckpt", num_workers=1)
+        # the main path, its launches counted: one epoch of 4 train steps
+        # with its end-of-epoch checkpoint, evaluate_val over 2 batches
+        # (the best-model checkpoint), reconstruct over 2 batches
+        for w in wrappers:
+            w.launches = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state = loops.train(train_loader, train_step, state, 0, 0, False,
+                            "cuda", **config)
+        torch.cuda.synchronize()
+        epoch_s = time.perf_counter() - t
+        before_val = snapshot(model)
+        t = time.perf_counter()
+        min_loss = loops.evaluate_val(val_loader, eval_step, state, 0, False,
+                                      math.inf,
+                                      torch.Generator(device="cuda")
+                                      .manual_seed(8), "cuda", **config)
+        val_s = time.perf_counter() - t
+        modes = [m.training for m in model.modules()]
+        before_rec = snapshot(model)
+        samples, gts, labels = loops.reconstruct(
+            val_loader, sample_step,
+            torch.Generator(device="cuda").manual_seed(9), "cuda")
+        launches = {w.__name__: w.launches for w in wrappers}
+        say(f"    train epoch of 4 steps {epoch_s:.2f} s (end-of-epoch "
+            f"checkpoint included), train means "
+            + ", ".join(f"{k} {v:.3f}" for k, v in state.train_metrics.items())
+            + f"; evaluate_val {val_s:.2f} s, "
+            + ", ".join(f"{k} {v:.3f}" for k, v in state.val_metrics.items())
+            + f"; launches {launches}")
+        # kernel 1 once an eval and once a reconstruct batch, kernels 7
+        # and 8 once a train step
+        want = {"point_decode": 2 * len(val_loader),
+                "train_decode_fwd": len(train_loader),
+                "train_decode_bwd": len(train_loader)}
+        for name, n in launches.items():
+            if n != want[name]:
+                fail(f"{name} launched {n} times on the loop's path, "
+                     f"{want[name]} expected: a step left the kernels")
+        vals = list(state.train_metrics.values()) + [min_loss]
+        if state.step != 4 or not all(math.isfinite(v) for v in vals):
+            fail(f"loop: step {state.step}, metrics {vals}")
+        for name in ("flagship.ckpt", "best_model_flagship.ckpt"):
+            if not checkpoints.checkpoint_exists(tmp, name):
+                fail(f"no checkpoint {name}")
+
+        # evaluate_val and reconstruct wrote nothing into the model and
+        # gave it back in train mode, as the train step left it
+        after = snapshot(model)
+        for what, before in (("evaluate_val", before_val),
+                             ("reconstruct", before_rec)):
+            bad = differing(after, before)
+            if bad:
+                fail(f"{what} moved {len(bad)} tensors: {bad[:5]}")
+        if [m.training for m in model.modules()] != modes or not all(modes):
+            fail("reconstruct did not give the model its modes back")
+        if samples.shape != (2 * BATCH, 3, N_POINTS) \
+                or not np.isfinite(samples).all() \
+                or labels.min() < 1 or labels.max() > model.n_components:
+            fail(f"reconstruct: samples {samples.shape}, labels "
+                 f"{labels.min()}..{labels.max()}")
+        fresh, _, fresh_labels = loops.reconstruct(
+            val_loader, make_sample_step(copy.deepcopy(model), N_POINTS,
+                                         "autoencoding"),
+            torch.Generator(device="cuda").manual_seed(9), "cuda")
+        if not (np.array_equal(fresh, samples)
+                and np.array_equal(fresh_labels, labels)):
+            fail("reconstruct after training differs from a freshly built "
+                 "sample step's: max |diff| "
+                 f"{np.abs(fresh - samples).max():.3g}")
+        say(f"    reconstruct after training: {samples.shape[0]} clouds, "
+            "equal to a freshly built sample step's, no buffer moved, "
+            "the model back in train mode")
+
+        # the eval loss through kernel 1 against the decoder's modules
+        clouds = torch.from_numpy(np.stack(
+            [d["cloud"] for d in val_set[:BATCH]])).cuda()
+        eps = torch.randn(BATCH, model.g_latent_space_size, device="cuda",
+                          generator=torch.Generator(device="cuda")
+                          .manual_seed(10))
+        check_eval_loss(model, (clouds, clouds), eps, pd_err)
+
+        # the checkpoint: size, save and load seconds, and a resume
+        path = os.path.join(checkpoints._ckpt_dir(tmp, "flagship.ckpt"),
+                            "checkpoint.pt")
+        mb = os.path.getsize(path) / 1e6
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        checkpoints.save_checkpoint(tmp, "again.ckpt", state, 1, 0)
+        save_s = time.perf_counter() - t
+        load_s = check_resume(state, tmp, (clouds, clouds))
+        say(f"    checkpoint {mb:.1f} MB: save {save_s:.3f} s, load "
+            f"{load_s:.3f} s [{card}]")
+
+    # times: the loop's steps against bare steps in turns, in this phase
+    # (an epoch of 16 steps, so that the first batch's assembly and the
+    # last step's drain weigh little; the bare steps over the same
+    # batches, already on the card), the eval step through kernel 1 and
+    # through the modules, the pack's check and a full pack
+    long_loader = DataLoader(
+        [{"cloud": c, "eval_cloud": c}
+         for c in reference_clouds(rng, 16 * BATCH)], BATCH, shuffle=True,
+        seed=11)
+    bare_batches = [torch.from_numpy(b["cloud"]).cuda() for b in long_loader]
+    loop_ms, bare_ms = [], []
+    for turn in range(2):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state = loops.train(long_loader, train_step, state, 2 + turn, 0,
+                            False, "cuda")
+        torch.cuda.synchronize()
+        loop_ms.append(1000.0 * (time.perf_counter() - t) / len(long_loader))
+        t = time.perf_counter()
+        for g in bare_batches:
+            train_step(g, g, state.generator)
+        torch.cuda.synchronize()
+        bare_ms.append(1000.0 * (time.perf_counter() - t) / len(bare_batches))
+
+    # the loop queues step i before it waits, for step i - 1's metrics
+    # alone: inside train() the host waits on events only
+    from torch.profiler import ProfilerActivity, profile
+
+    retries = torch.cuda.memory_stats()["num_alloc_retries"]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with torch.profiler.record_function("loop"):
+            state = loops.train(train_loader, train_step, state, 1, 0, False,
+                                "cuda")
+    retries = (torch.cuda.memory_stats()["num_alloc_retries"]
+               - retries)
+    waits, where = host_waits(prof, "loop")
+    say(f"    profiled loop of {len(train_loader)} steps, the host's waits "
+        f"for the card: {waits}; allocator retries {retries}")
+    if waits["cudaLaunchKernel"] == 0:
+        say("    profiler: no runtime calls recorded (the loop's waits not "
+            "measured)")
+    elif where:
+        fail("the loop waits for the whole stream, so for the step it just "
+             f"queued: {waits}, inside {where}")
+
+    timings = {}
+    for name, fused in (("kernel 1", True), ("modules", False)):
+        step = make_eval_step(model, fused_decoder=fused)
+        step(clouds, clouds, posterior_eps=eps)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(5):
+            step(clouds, clouds, posterior_eps=eps)
+        torch.cuda.synchronize()
+        timings[name] = 1000.0 * (time.perf_counter() - t) / 5
+    model.pack_decoder()
+    t = time.perf_counter()
+    for _ in range(20):
+        model.pack_decoder()  # packed already: the check alone
+    key_ms = 1000.0 * (time.perf_counter() - t) / 20
+    with torch.no_grad():
+        model.pc_decoder.couplings()[0].T_mu_0.mu_sd1_bn.running_var.mul_(1)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    model.pack_decoder()
+    torch.cuda.synchronize()
+    pack_ms = 1000.0 * (time.perf_counter() - t)
+    say(f"    loop over an epoch of {len(long_loader)} steps and bare "
+        f"steps over its batches, in turns: loop "
+        + ", ".join(f"{v:.2f}" for v in loop_ms) + " ms/step, bare "
+        + ", ".join(f"{v:.2f}" for v in bare_ms) + f" ms/step (phase 4's "
+        f"bare step {bare_step_ms:.2f} ms/step); eval step B={BATCH}: "
+        f"kernel 1 {timings['kernel 1']:.2f} ms/batch, modules "
+        f"{timings['modules']:.2f} ms/batch; "
+        f"pack_decoder's check of the decoder's tensors {key_ms:.3f} ms, a "
+        f"full pack {pack_ms:.2f} ms [{card}]")
     return launches
 
 
@@ -1292,11 +1698,17 @@ def main() -> None:
     marks.append(time.perf_counter())
     launches = phase_slice(card)
     marks.append(time.perf_counter())
-    launches.update(phase_train(card))
+    train_launches, bare_step_ms = phase_train(card)
+    launches.update(train_launches)
+    marks.append(time.perf_counter())
+    loop_launches = phase_loop(card, bare_step_ms, measured["point_decode"][0])
+    for name, n in loop_launches.items():
+        launches[name] += n
     marks.append(time.perf_counter())
     say("phase seconds: " + ", ".join(
         f"{name} {b - a:.1f}" for name, a, b in
-        zip(("build", "kernels", "slice", "train"), marks, marks[1:])))
+        zip(("build", "kernels", "slice", "train", "loop"), marks,
+            marks[1:])))
     if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
         fail("jax was imported")
 

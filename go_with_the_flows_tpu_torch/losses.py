@@ -1,9 +1,7 @@
 """Losses of the flow-mixture VAE (counterpart of
 go_with_the_flows_tpu/losses.py): the same constants, sums and
-reductions, the mixture NLL as one (K, B, N) logsumexp.
-
-The legacy single-flow terms (`point_flow_nll`, `single_flow_vae_loss`)
-are not ported yet.
+reductions, the mixture NLL as one (K, B, N) logsumexp, and the legacy
+single-flow loss that the mixture generalises.
 """
 
 from __future__ import annotations
@@ -66,6 +64,35 @@ def flow_mixture_loss(outputs: Dict[str, torch.Tensor],
         outputs["p0_samples"], outputs["p_logvar_sums"],
         outputs["p_base_mus"], outputs["p_base_logvars"],
         outputs["mixture_weights_logits"])
+    gnll = gaussian_flow_nll(
+        outputs["g0_sample"], outputs["g_prior_mus0"],
+        outputs["g_prior_logvars0"], outputs["g_prior_logvar_sum"])
+    gent = gaussian_entropy(outputs["g_posterior_logvars"])
+    loss = pnll_weight * pnll + gnll_weight * gnll - gent_weight * gent
+    return loss, {"loss": loss, "pnll": pnll, "gnll": gnll, "gent": gent}
+
+
+def point_flow_nll(p0_sample, p_logvar_sum, p_base_mus,
+                   p_base_logvars) -> torch.Tensor:
+    """Legacy single-flow per-point NLL (the reference's PointFlowNLL):
+    p0_sample, p_logvar_sum (B, C, N) of one flow, the logvar sum
+    including the base; p_base_mus, p_base_logvars (B, C, 1). Returns the
+    per-point NLLs (B, 1, N), the channel axis kept."""
+    quad = (p0_sample - p_base_mus) ** 2 / torch.exp(p_base_logvars)
+    C = p0_sample.shape[1]
+    return 0.5 * (torch.sum(p_logvar_sum + quad, dim=1, keepdim=True)
+                  + C * _LOG_2PI)
+
+
+def single_flow_vae_loss(outputs: Dict[str, torch.Tensor],
+                         pnll_weight: float = 1.0, gnll_weight: float = 1.0,
+                         gent_weight: float = 1.0
+                         ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Legacy DPF loss: the summed single-flow PNLL + GNLL - GENT over
+    the K=1 output dict of FlowMixtureModel."""
+    pnll = torch.sum(point_flow_nll(
+        outputs["p0_samples"][0], outputs["p_logvar_sums"][0],
+        outputs["p_base_mus"], outputs["p_base_logvars"]))
     gnll = gaussian_flow_nll(
         outputs["g0_sample"], outputs["g_prior_mus0"],
         outputs["g_prior_logvars0"], outputs["g_prior_logvar_sum"])

@@ -17,12 +17,16 @@ same losses as the JAX package.
 Training mode is the module's `self.training` (BatchNorm batch
 statistics); `decode_training` runs the point decoder's inverse either
 through the modules (autograd, the plain path) or through the
-`train_decode` kernels (ops/kernels/train_decode.py).
+`train_decode` kernels (ops/kernels/train_decode.py). In eval mode
+`decode_eval` runs that inverse through the `point_decode` kernel on the
+packed decoder (`pack_decoder`, cached until a decoder tensor changes),
+the validation loss's path.
 """
 
 from __future__ import annotations
 
 import math
+import operator
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
@@ -154,6 +158,12 @@ class FlowMixtureModel(nn.Module):
         self.pc_decoder = PointDecoderFlow(depth, feats, G, stack=(K,))
         self.mixture_weights_logits = nn.Parameter(torch.empty(K))
         self.mixture_weights_encoder = WeightsEncoder(G, 3, K)
+        # pack_decoder's cache: the packed decoder, the decoder's tensors
+        # it was packed from and their version counters then
+        self._packed = None
+        self._packed_from = ()
+        self._packed_versions = None
+        self._decoder_dicts = None
         self.reset_parameters(generator or torch.Generator().manual_seed(0))
 
     @torch.no_grad()
@@ -245,6 +255,16 @@ class FlowMixtureModel(nn.Module):
                 B, self.n_components)
         return self.mixture_weights_encoder(g_sample)
 
+    def _decoder_outputs(self, p0, lv_sums, g_sample, warmup):
+        base_mus, base_logvars = self.point_base(g_sample)
+        return {
+            "p0_samples": p0,
+            "p_logvar_sums": lv_sums,
+            "p_base_mus": base_mus,
+            "p_base_logvars": base_logvars,
+            "mixture_weights_logits": self.get_weights(g_sample, warmup),
+        }
+
     def decode_training(self, p_input: torch.Tensor, g_sample: torch.Tensor,
                         warmup: bool = False, fused: bool = False) -> Dict:
         """Inverse-decode p_input (B, 3, N) through all K components with
@@ -269,21 +289,58 @@ class FlowMixtureModel(nn.Module):
                                  n_sd=B * N, n_film=B)
         else:
             p0, lv_sums = self.pc_decoder(p_stack, g_sample, "inverse")
-        base_mus, base_logvars = self.point_base(g_sample)
-        return {
-            "p0_samples": p0,
-            "p_logvar_sums": lv_sums,
-            "p_base_mus": base_mus,
-            "p_base_logvars": base_logvars,
-            "mixture_weights_logits": self.get_weights(g_sample, warmup),
-        }
+        return self._decoder_outputs(p0, lv_sums, g_sample, warmup)
 
-    @torch.no_grad()
+    def decode_eval(self, p_input: torch.Tensor, g_sample: torch.Tensor,
+                    warmup: bool = False) -> Dict:
+        """decode_training's outputs with BatchNorm running statistics,
+        the inverse through `point_decode(..., inverse=True)` on the
+        packed decoder: the kernel on a CUDA tensor, its plain version on
+        a CPU tensor, never the decoder's modules. Needs eval mode."""
+        if self.training:
+            raise RuntimeError("decode_eval needs eval mode (BatchNorm "
+                               "running statistics): call model.eval()")
+        K = self.n_components
+        B, _, N = p_input.shape
+        packed = self.pack_decoder()
+        p_stack = p_input[None].expand(K, B, 3, N).contiguous()
+        p0, lv_sums = point_decode(packed, film_alpha_beta(packed, g_sample),
+                                   p_stack, inverse=True)
+        return self._decoder_outputs(p0, lv_sums, g_sample, warmup)
+
+    def _decoder_tensors(self):
+        # the decoder's ~1,000 modules are walked once, for the parameter
+        # and buffer dicts that hold something (the walk costs more host
+        # time than the check itself); the tensors are read from the dicts
+        # anew each time, as `.to()` puts new buffers there
+        if self._decoder_dicts is None:
+            self._decoder_dicts = [
+                d for m in self.pc_decoder.modules()
+                for d in (m._parameters, m._buffers) if d]
+        return [t for d in self._decoder_dicts for t in d.values()
+                if t is not None]
+
     def pack_decoder(self) -> Dict[str, torch.Tensor]:
         """The K decoders constant-folded for the `point_decode` kernel
-        (see ops/kernels/point_decode.py); recompute after the weights
-        change."""
-        return pack_point_decoder(self.pc_decoder)
+        (see ops/kernels/point_decode.py), with their running statistics.
+
+        Packed again only when the decoder changed since the last pack:
+        a tensor written in place (an optimizer step, a running-statistics
+        update, load_state_dict: its version counter moved) or replaced
+        (`.to(device)` puts new buffers in the BatchNorms). Rebinding a
+        parameter's `.data` by hand is not seen. The packed tensors are
+        ordinary ones (never inference tensors), so a cached pack serves
+        any later caller."""
+        tensors = self._decoder_tensors()
+        versions = [t._version for t in tensors]
+        if not (versions == self._packed_versions
+                and len(tensors) == len(self._packed_from)
+                and all(map(operator.is_, tensors, self._packed_from))):
+            with torch.inference_mode(False), torch.no_grad():
+                self._packed = pack_point_decoder(self.pc_decoder)
+            self._packed_from = tensors
+            self._packed_versions = versions
+        return self._packed
 
     def decode_sampling(self, g_sample: torch.Tensor, ids: torch.Tensor,
                         base_eps: torch.Tensor,

@@ -1,0 +1,255 @@
+"""Training, validation and reconstruction loops (counterpart of
+go_with_the_flows_tpu/train/loops.py, one process, no TensorBoard).
+
+  * train(): one epoch of train steps; stdout meter lines every
+    `num_workers` steps; a NaN or infinite loss raises NaNLossError;
+    checkpoints every `logging_img_steps` steps and at the epoch's end.
+  * evaluate_val(): the validation loss with BatchNorm running
+    statistics and the best-model checkpoint.
+  * reconstruct() / predict(): labeled reconstructions over a loader,
+    and their .npy dump.
+
+Loaders yield dicts of numpy arrays (`data/loader.py`): `cloud` (B, 3, N')
+for the encoder, `eval_cloud` (B, 3, N) for the decoder's likelihood.
+The loops move them to `device`, which defaults to the card.
+
+train() reads each step's metrics one step behind: the host queues step
+i, then waits for step i - 1's metrics alone (a copy to pinned memory and
+an event recorded behind that step), never for the step it just queued;
+the batches go to the card through pinned memory, asynchronously.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import os
+import sys
+import time
+from typing import Callable, Dict, Optional
+
+import numpy as np
+import torch
+
+from ..utils import profiling
+from ..utils.meters import AverageMeter
+from .checkpoints import save_checkpoint
+from .state import TrainState
+
+_KEYS = ("loss", "pnll", "gnll", "gent")
+
+
+class NaNLossError(RuntimeError):
+    """Raised when the loss is NaN or infinite (the reference exits the
+    process instead)."""
+
+
+def _to_device(batch, device) -> Dict[str, torch.Tensor]:
+    """The batch's clouds on `device`. To the card they go through pinned
+    memory with an asynchronous copy: from pageable memory the copy would
+    wait for the stream, that is for the step just queued."""
+    out = {}
+    for k in ("cloud", "eval_cloud"):
+        if k in batch:
+            x = torch.from_numpy(np.ascontiguousarray(batch[k], np.float32))
+            if device.type == "cuda":
+                x = x.pin_memory()
+            out[k] = x.to(device, non_blocking=True)
+    return out
+
+
+def _start_fetch(metrics):
+    """Begin moving a step's metrics to the host without waiting for the
+    card: (values, event), the event None when they are already there."""
+    values = torch.stack([metrics[k] for k in _KEYS])
+    if values.device.type != "cuda":
+        return values, None
+    host = torch.empty(values.shape, dtype=values.dtype, pin_memory=True)
+    host.copy_(values, non_blocking=True)
+    event = torch.cuda.Event()
+    event.record()
+    return host, event
+
+
+def _finish_fetch(fetch) -> Dict[str, float]:
+    values, event = fetch
+    if event is not None:
+        event.synchronize()
+    return dict(zip(_KEYS, values.tolist()))
+
+
+def _fetch(metrics) -> Dict[str, float]:
+    return _finish_fetch(_start_fetch(metrics))
+
+
+def train(loader, train_step: Callable, state: TrainState, epoch: int,
+          start_iter: int, warmup: bool, device="cuda",
+          **config) -> TrainState:
+    """One training epoch; returns the state, whose model, optimizer,
+    generator and step count have moved on, with the epoch's mean
+    metrics in state.train_metrics.
+
+    `train_step(g, p, generator, warmup=...)` is train/step.make_train_step's
+    step over state.model and state.optimizer; its noise comes from
+    state.generator. Config keys, as the JAX loop reads them: logging,
+    checkpointing (defaults to logging), logging_path, model_name,
+    num_workers (the stdout cadence), logging_img_steps (the checkpoint
+    cadence, 100 * num_workers by default), profile_dir and
+    profile_steps (a torch.profiler trace of steps 1..profile_steps into
+    profile_dir; step 0 builds the kernels).
+    """
+    device = torch.device(device)
+    num_workers = max(int(config.get("num_workers", 1)), 1)
+    logging = config.get("logging", False)
+    ckpting = config.get("checkpointing", logging)
+    logging_path = config.get("logging_path", ".")
+    model_name = config.get("model_name", "model.ckpt")
+    ckpt_steps = int(config.get("logging_img_steps", 100 * num_workers))
+    profile_dir = config.get("profile_dir") or None
+    profile_steps = max(int(config.get("profile_steps", 3)), 1)
+
+    batch_time = AverageMeter()
+    data_time = AverageMeter()
+    meters = {k: AverageMeter() for k in _KEYS}
+
+    def consume(fetch, bsz, it):
+        m = _finish_fetch(fetch)
+        if not np.isfinite(m["loss"]):
+            raise NaNLossError(
+                f"Loss is {m['loss']} at epoch {epoch} iter {it}")
+        for k in meters:
+            meters[k].update(m[k], bsz)
+
+    loader.set_epoch(epoch)
+    n_batches = len(loader)
+    pending = None  # (fetch, bsz, it) of the step in flight
+    end = time.time()
+    trace_scope = contextlib.ExitStack()
+    try:
+        for i, batch in enumerate(loader):
+            it = start_iter + i
+            if it >= n_batches:
+                break
+            data_time.update(time.time() - end)
+
+            if profile_dir and i == 1:
+                trace_scope.enter_context(profiling.trace(profile_dir))
+            dev = _to_device(batch, device)
+            g, p = dev["cloud"], dev["eval_cloud"]
+            with (profiling.annotate(f"train_step_{it}") if profile_dir
+                  else contextlib.nullcontext()):
+                metrics = train_step(g, p, state.generator, warmup=warmup)
+            state.step += 1
+            fetch = _start_fetch(metrics)
+            if profile_dir and i == profile_steps:
+                trace_scope.close()
+                profile_dir = None
+
+            if pending is not None:
+                consume(*pending)  # waits for the previous step only
+            pending = (fetch, g.shape[0], it)
+            batch_time.update(time.time() - end)
+            end = time.time()
+
+            if (it + 1) % num_workers == 0 and logging:
+                line = (
+                    f"Epoch: [{epoch + 1}][{it + 1}/{n_batches}]"
+                    f"\tTime {batch_time.val:.3f} ({batch_time.avg:.3f})"
+                    f"\tData {data_time.val:.3f} ({data_time.avg:.3f})"
+                    f"\tLB {meters['loss'].val:.2f}"
+                    f" ({meters['loss'].avg:.2f})"
+                    f"\tPNLL {meters['pnll'].val:.2f}"
+                    f" ({meters['pnll'].avg:.2f})"
+                    f"\tGNLL {meters['gnll'].val:.2f}"
+                    f" ({meters['gnll'].avg:.2f})"
+                    f"\tGENT {meters['gent'].val:.2f}"
+                    f" ({meters['gent'].avg:.2f})\n"
+                )
+                sys.stdout.write(line)
+                sys.stdout.flush()
+
+            if (it + 1) % ckpt_steps == 0 and ckpting:
+                save_checkpoint(logging_path, model_name, state, epoch,
+                                it + 1)
+    finally:
+        trace_scope.close()  # epochs shorter than profile_steps
+
+    if pending is not None:
+        consume(*pending)
+    if ckpting:
+        save_checkpoint(logging_path, model_name, state, epoch + 1, 0)
+    state.train_metrics = {k: m.avg for k, m in meters.items()}
+    return state
+
+
+def evaluate_val(loader, eval_step: Callable, state: TrainState, epoch: int,
+                 warmup: bool, min_loss: float, generator: torch.Generator,
+                 device="cuda", **config) -> float:
+    """Validation epoch: the training-path loss with BatchNorm running
+    statistics, and the best-model checkpoint ("best_model_" +
+    model_name) when the mean loss beats `min_loss`. Returns the updated
+    min_loss; the means go to state.val_metrics.
+
+    `eval_step` is train/step.make_eval_step's step over state.model;
+    its noise comes from `generator`, not from the state's training
+    generator, so validating does not move the training draws. A short
+    last batch is taken as it is and weighs its own size in the means,
+    as in the JAX package's single-process run. Config keys: logging,
+    checkpointing, logging_path, model_name.
+    """
+    device = torch.device(device)
+    logging = config.get("logging", False)
+    ckpting = config.get("checkpointing", logging)
+    logging_path = config.get("logging_path", ".")
+    model_name = config.get("model_name", "model.ckpt")
+    meters = {k: AverageMeter() for k in _KEYS}
+
+    for batch in loader:
+        dev = _to_device(batch, device)
+        g, p = dev["cloud"], dev["eval_cloud"]
+        m = _fetch(eval_step(g, p, generator, warmup=warmup))
+        if not np.isfinite(m["loss"]):
+            raise NaNLossError(f"Eval loss is {m['loss']} at epoch {epoch}")
+        for k in meters:
+            meters[k].update(m[k], g.shape[0])
+
+    if logging:
+        print(f"[epoch {epoch}]: eval loss {meters['loss'].avg:f}")
+    state.val_metrics = {k: m.avg for k, m in meters.items()}
+    if meters["loss"].avg < min_loss:
+        min_loss = meters["loss"].avg
+        if ckpting:
+            save_checkpoint(logging_path, "best_model_" + model_name, state,
+                            epoch + 1, 0)
+    return min_loss
+
+
+def reconstruct(loader, sample_step: Callable, generator: torch.Generator,
+                device="cuda", max_batches: Optional[int] = None):
+    """Labeled reconstructions of a loader's clouds (`sample_step` from
+    make_sample_step, usually in autoencoding mode), batched. Returns
+    numpy (samples (S, 3, N), ground truths (S, 3, N'), labels (S, N))."""
+    device = torch.device(device)
+    all_samples, all_gts, all_labels = [], [], []
+    for b, batch in enumerate(loader):
+        if max_batches is not None and b >= max_batches:
+            break
+        g = _to_device(batch, device)["cloud"]
+        samples, labels, _ = sample_step(g, generator)
+        all_samples.append(samples.cpu().numpy())
+        all_gts.append(np.asarray(batch["cloud"]))
+        all_labels.append(labels.cpu().numpy())
+    return (np.concatenate(all_samples), np.concatenate(all_gts),
+            np.concatenate(all_labels))
+
+
+def predict(loader, sample_step: Callable, generator: torch.Generator,
+            out_dir: str, device="cuda"):
+    """Reconstruct the whole loader and write all_samples.npy,
+    all_gts.npy and all_labels.npy into out_dir."""
+    samples, gts, labels = reconstruct(loader, sample_step, generator,
+                                       device)
+    os.makedirs(out_dir, exist_ok=True)
+    np.save(os.path.join(out_dir, "all_samples.npy"), samples)
+    np.save(os.path.join(out_dir, "all_gts.npy"), gts)
+    np.save(os.path.join(out_dir, "all_labels.npy"), labels)
+    return samples, gts, labels

@@ -1,14 +1,48 @@
-"""Training and sampling steps (counterparts of `make_train_step` and
-`make_sample_step` in go_with_the_flows_tpu/train/step.py). The eval-loss
-step (`make_eval_step`) is not ported yet."""
+"""Training, eval-loss and sampling steps (counterparts of
+`make_train_step`, `make_eval_step` and `make_sample_step` in
+go_with_the_flows_tpu/train/step.py).
+
+The JAX steps are pure functions of a state; the port's close over a
+model (and an optimizer) that change in place. So the eval and sample
+steps read the model as it is at each call, as the JAX steps read the
+state they are handed: each call enters eval mode and gives every module
+its own mode back on exit, and the packed decoder the `point_decode`
+kernel reads is rebuilt whenever the decoder's weights or running
+statistics have changed (`FlowMixtureModel.pack_decoder`).
+"""
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+import contextlib
+from typing import Callable, Dict, Iterator, Optional
 
 import torch
 
 from ..losses import flow_mixture_loss
+
+
+@contextlib.contextmanager
+def eval_mode(model, modules=None) -> Iterator[None]:
+    """Eval mode for the body; on exit, also when the body raises, every
+    module takes back the mode it had. `modules`: list(model.modules()),
+    when the caller keeps it, so that a call does not walk the model."""
+    if modules is None:
+        modules = list(model.modules())
+    modes = [m.training for m in modules]
+    for m in modules:
+        m.training = False
+    try:
+        yield
+    finally:
+        for m, mode in zip(modules, modes):
+            m.training = mode
+
+
+def _posterior_eps(model, g_clouds, generator, posterior_eps):
+    if posterior_eps is not None:
+        return posterior_eps
+    return torch.randn(g_clouds.shape[0], model.g_latent_space_size,
+                       generator=generator, device=g_clouds.device)
 
 
 def make_train_step(model, optimizer, pnll_weight: float = 1.0,
@@ -30,7 +64,6 @@ def make_train_step(model, optimizer, pnll_weight: float = 1.0,
     a CUDA tensor and the modules on a CPU tensor. True on a CPU tensor
     raises: the kernels run only on the card.
     """
-    G = model.g_latent_space_size
 
     def train_step(g_clouds: torch.Tensor, p_clouds: torch.Tensor,
                    generator: Optional[torch.Generator] = None,
@@ -42,10 +75,8 @@ def make_train_step(model, optimizer, pnll_weight: float = 1.0,
         if fused and not on_card:
             raise ValueError("fused_decoder=True needs CUDA tensors: the "
                              "train_decode kernels run only on the card")
-        if posterior_eps is None:
-            posterior_eps = torch.randn(g_clouds.shape[0], G,
-                                        generator=generator,
-                                        device=g_clouds.device)
+        posterior_eps = _posterior_eps(model, g_clouds, generator,
+                                       posterior_eps)
         model.train()
         optimizer.zero_grad(set_to_none=True)
         out = model.encode(g_clouds, "training",
@@ -61,26 +92,71 @@ def make_train_step(model, optimizer, pnll_weight: float = 1.0,
     return train_step
 
 
+def make_eval_step(model, pnll_weight: float = 1.0, gnll_weight: float = 1.0,
+                   gent_weight: float = 1.0,
+                   fused_decoder: bool = True) -> Callable:
+    """Validation loss step: the training forward path with BatchNorm
+    running statistics (mode "training", train=False in the JAX package),
+    the reference's eval() semantics.
+
+    step(g_clouds (B, 3, N'), p_clouds (B, 3, N), generator, warmup=False,
+    posterior_eps=None) -> {"loss", "pnll", "gnll", "gent"} as 0-d
+    tensors. Runs under torch.inference_mode() in eval mode and gives the
+    model its modes back; changes no parameter and no buffer. The
+    posterior noise is drawn as the train step draws it.
+
+    fused_decoder=True sends the point decoder's inverse through
+    `point_decode(..., inverse=True)` on the packed decoder (the kernel
+    on a CUDA tensor, its plain version on a CPU tensor), as the JAX
+    package sends it through its eval decode kernel; False runs the
+    decoder's modules, the plain path the kernel is held against.
+    """
+
+    modules = list(model.modules())
+
+    def eval_step(g_clouds: torch.Tensor, p_clouds: torch.Tensor,
+                  generator: Optional[torch.Generator] = None,
+                  warmup: bool = False,
+                  posterior_eps: Optional[torch.Tensor] = None
+                  ) -> Dict[str, torch.Tensor]:
+        with eval_mode(model, modules), torch.inference_mode():
+            posterior_eps = _posterior_eps(model, g_clouds, generator,
+                                           posterior_eps)
+            out = model.encode(g_clouds, "training",
+                               posterior_eps=posterior_eps)
+            if fused_decoder:
+                out.update(model.decode_eval(p_clouds, out["g_sample"],
+                                             warmup))
+            else:
+                out.update(model.decode_training(p_clouds, out["g_sample"],
+                                                 warmup))
+            _, metrics = flow_mixture_loss(out, pnll_weight, gnll_weight,
+                                           gent_weight)
+        return metrics
+
+    return eval_step
+
+
 def make_sample_step(model, n_sampled_points: int,
                      mode: str = "generating") -> Callable:
-    """Labeled sampling step for evaluation.
+    """Labeled sampling step for evaluation and reconstruction.
 
     step(g_clouds (B, 3, N'), generator) -> (samples (B, 3, N),
     labels (B, N) in 1..K, logits (B, K)), with N = n_sampled_points.
     Every random draw comes from `generator`, which must live on the
-    model's device. The decoder is constant-folded once, here: build the
-    step after the weights are final. Runs under torch.inference_mode()
-    with BatchNorm running statistics.
+    model's device. Each call runs under torch.inference_mode() in eval
+    mode (BatchNorm running statistics, none of them written) on the
+    model's weights of that moment, and gives the model its modes back.
     """
     if mode not in ("generating", "autoencoding"):
         raise NotImplementedError(f"sample mode {mode!r} is not ported yet")
-    model.eval()
-    packed = model.pack_decoder()
     K, G = model.n_components, model.g_latent_space_size
     N = n_sampled_points
+    modules = list(model.modules())
 
     def sample_step(g_clouds: torch.Tensor, generator: torch.Generator):
-        with torch.inference_mode():
+        with eval_mode(model, modules), torch.inference_mode():
+            packed = model.pack_decoder()
             B = g_clouds.shape[0]
             device = g_clouds.device
             g0_eps = None

@@ -1,9 +1,11 @@
-"""Properties of the port that are not about numbers: it loads no jax,
-its flagship dict is the airplane YAML's model keys, its precision is
+"""Properties of the port that are not about numbers: it (and
+chip_smoke.py) loads no jax and no module of the JAX package, its
+flagship dict is the airplane YAML's model keys, its precision is
 fp32 'highest', CPU tensors never launch a kernel (the EMD gradient
 included), and its weight converter is the inverse of the JAX package's
 torch importer."""
 
+import ast
 import os
 import subprocess
 import sys
@@ -51,16 +53,31 @@ from go_with_the_flows_tpu_torch.utils.flax_import import state_dict_from_flax
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
+# top-level names of modules that neither the port nor chip_smoke.py may
+# load: JAX, flax and the JAX package (not even its modules that load no
+# JAX: the port keeps its own copies)
+FORBIDDEN = ("jax", "flax", "go_with_the_flows_tpu")
+
 _IMPORT_ALL = """
 import importlib, pkgutil, sys
 import go_with_the_flows_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
-loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax"))
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in %r)
 assert not loaded, loaded
 print(len(names))
-"""
+""" % (FORBIDDEN,)
+
+_IMPORT_THESE = """
+import importlib, sys
+names = sys.argv[1:]
+for name in names:
+    importlib.import_module(name)
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in %r)
+assert not loaded, loaded
+print(len(names))
+""" % (FORBIDDEN,)
 
 
 def test_port_imports_no_jax():
@@ -68,6 +85,34 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip()) >= 15
+
+
+def test_chip_smoke_imports_no_jax():
+    """Every import statement of chip_smoke.py, those inside its
+    functions included, names no forbidden module, and importing all of
+    them loads none."""
+    with open(os.path.join(ROOT, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.add(node.module)
+            names.update(f"{node.module}.{a.name}" for a in node.names)
+    assert not [n for n in names if n.split(".")[0] in FORBIDDEN], names
+    modules = []
+    for name in sorted(names):
+        try:  # `from m import f` names a function f, not a module m.f
+            __import__(name)
+            modules.append(name)
+        except ImportError:
+            pass
+    assert any(m.startswith("go_with_the_flows_tpu_torch.") for m in modules)
+    out = subprocess.run([sys.executable, "-c", _IMPORT_THESE] + modules,
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
 
 
 def test_flagship_is_the_airplane_yaml():

@@ -51,12 +51,12 @@ WALKERS = {"pc_encoder.features.sd1_bn.bias",
            "g_posterior.features.mlp0_bn.running_mean"}
 
 
-def _setup():
+def _setup(config=CONFIG):
     rng = np.random.RandomState(0)
     g_in = (rng.randn(B, 3, N) * 0.4).astype(np.float32)
     p_in = (rng.randn(B, 3, N) * 0.4).astype(np.float32)
     eps = rng.randn(B, G).astype(np.float32)
-    jm = JFlowMixtureModel(**CONFIG, scan_couplings=False)
+    jm = JFlowMixtureModel(**config, scan_couplings=False)
     key = jax.random.PRNGKey(1)
     v = jm.init({"params": key, "sample": key}, g_in, p_in, mode="training")
     variables = {
@@ -70,7 +70,8 @@ def _setup():
     return jm, variables, g_in, p_in, eps
 
 
-def _jax_steps(jm, variables, g_in, p_in, eps, warmup, n_steps, monkeypatch):
+def _jax_steps(jm, variables, g_in, p_in, eps, warmups, monkeypatch,
+               config=CONFIG):
     def fixed_noise(rng, mu, logvar):
         return mu + jnp.exp(0.5 * logvar) * jnp.asarray(eps)
 
@@ -83,7 +84,7 @@ def _jax_steps(jm, variables, g_in, p_in, eps, warmup, n_steps, monkeypatch):
                        opt_state=opt.init(params))
     step = j_make_step(jm, opt, fused_decoder=False)
     out = []
-    for _ in range(n_steps):
+    for warmup in warmups:
         state, metrics = step(state, jnp.asarray(g_in), jnp.asarray(p_in),
                               jax.random.PRNGKey(0), warmup=warmup)
         out.append(({k: float(v) for k, v in metrics.items()},
@@ -91,29 +92,32 @@ def _jax_steps(jm, variables, g_in, p_in, eps, warmup, n_steps, monkeypatch):
                         {"params": jax.tree.map(np.asarray, state.params),
                          "batch_stats": jax.tree.map(np.asarray,
                                                      state.batch_stats)},
-                        CONFIG)))
+                        config)))
     return out
 
 
-@pytest.mark.parametrize("warmup", [True, False])
-def test_train_steps_match_jax(warmup, monkeypatch):
-    jm, variables, g_in, p_in, eps = _setup()
-    want = _jax_steps(jm, variables, g_in, p_in, eps, warmup, 3, monkeypatch)
+def _check_steps(warmups, checked, monkeypatch, config=CONFIG):
+    """The port's steps with the given warmup flags against the JAX
+    package's: metrics after every step, every parameter and buffer
+    after the steps in `checked`."""
+    jm, variables, g_in, p_in, eps = _setup(config)
+    want = _jax_steps(jm, variables, g_in, p_in, eps, warmups, monkeypatch,
+                      config)
 
-    port = FlowMixtureModel(**CONFIG)
-    port.load_state_dict(state_dict_from_flax(variables, CONFIG),
+    port = FlowMixtureModel(**config)
+    port.load_state_dict(state_dict_from_flax(variables, config),
                          strict=True)
     opt = make_optimizer(list(port.parameters()), **HP)
     step = make_train_step(port, opt)
     buffers = {name for name, _ in port.named_buffers()}
-    for t in range(3):
+    for t, warmup in enumerate(warmups):
         metrics = step(torch.from_numpy(g_in), torch.from_numpy(p_in),
                        warmup=warmup, posterior_eps=torch.from_numpy(eps))
         want_metrics, want_sd = want[t]
         for k, v in want_metrics.items():
             np.testing.assert_allclose(float(metrics[k]), v, rtol=1e-4,
                                        err_msg=f"step {t} {k}")
-        if t not in (0, 2):
+        if t not in checked:
             continue
         walk = 2 * 1.5 * (t + 1) * HP["max_lr"]
         for name, got in port.state_dict().items():
@@ -121,6 +125,31 @@ def test_train_steps_match_jax(warmup, monkeypatch):
             bound = (walk if name in WALKERS
                      else 1e-4 if name in buffers else 5e-4)
             assert diff <= bound, (t, name, diff, bound)
+
+
+@pytest.mark.parametrize("warmup", [True, False])
+def test_train_steps_match_jax(warmup, monkeypatch):
+    _check_steps([warmup] * 3, (0, 2), monkeypatch)
+
+
+@pytest.mark.parametrize("base_type,weights_type", [
+    ("freevar", "learned_weights"), ("fixed", "learned_weights"),
+    ("free", "global_weights"), ("freevar", "global_weights"),
+    ("fixed", "global_weights"),
+])
+def test_train_steps_match_jax_at_other_configs(base_type, weights_type,
+                                                monkeypatch):
+    """The comparison above at the other point-base types (the
+    autoencoding and SVR configs use freevar) and with global weights."""
+    config = dict(CONFIG, p_decoder_base_type=base_type,
+                  weights_type=weights_type)
+    _check_steps([False] * 3, (0, 2), monkeypatch, config)
+
+
+def test_train_steps_match_jax_across_warmup(monkeypatch):
+    """A run that leaves warmup after two steps, as a training run does
+    after its warmup epochs: the learned weights encoder takes over."""
+    _check_steps([True, True, False, False], (1, 2, 3), monkeypatch)
 
 
 def test_train_step_fused_on_cpu_raises():
