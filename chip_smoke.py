@@ -46,7 +46,22 @@ non-zero at the first failure:
      buffer moved and the model's modes restored; the loop's ms/step
      beside phase 4's bare step, the eval step's ms/batch through the
      kernel and through the modules, the checkpoint's size and its save
-     and load seconds, and the pack_decoder cache's costs.
+     and load seconds, and the pack_decoder cache's costs;
+  6. svr: configs/config_SVR.yaml's model (FlowMixtureSVRModel: K=4, 11
+     flows of f=33, freevar, g=512, a ResNet-18 on 224 x 224 images) at
+     B=128, N=2500 on seeded ellipsoid clouds and noise images served by
+     the DataLoader: kernels 1, 2, 7 and 8 against their plain versions
+     at those shapes and kernel 5 on 8 of the 128 pairs, timed with
+     their bounds; one train step through the kernels against one
+     through the decoder's modules (at the largest batch that fits);
+     `train` for 4 steps, `evaluate_val` over 2 batches and
+     reconstruction-mode `evaluate` (CD, EMD, F1) over 2 batches, with
+     the five kernels' launch counters read around them; the meters
+     against the kernels' per-batch values and, on the first batch, the
+     plain versions; the samples against the plain decode; the eval loss
+     through kernel 1 against the modules; the loop's and bare steps'
+     ms/step in turns, peak memory, and a profiled step's busy time, the
+     ResNet's share of it and kernels 7 and 8.
 
 Phase 2 also checks that two launches of kernels 1, 2 and 6 give equal
 bits, holds kernel 2's minima equal to the plain version's (its indices
@@ -195,11 +210,11 @@ def make_model(config, seed: int, device):
     return model.to(device).eval()
 
 
-def reference_clouds(rng, n: int):
-    """Seeded clouds on random ellipsoid surfaces, (n, 3, N_POINTS)."""
+def reference_clouds(rng, n: int, n_points: int = N_POINTS):
+    """Seeded clouds on random ellipsoid surfaces, (n, 3, n_points)."""
     import numpy as np
 
-    dirs = rng.standard_normal((n, 3, N_POINTS))
+    dirs = rng.standard_normal((n, 3, n_points))
     dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
     axes = rng.uniform(0.1, 0.5, (n, 3, 1))
     return (dirs * axes).astype(np.float32)
@@ -688,6 +703,35 @@ def dw1_bmm_ms(K, n, f, C):
     return C * cuda_ms(lambda: torch.bmm(dh2, a), 10)
 
 
+def path_bounds(K, B, N, C, f):
+    """Bounds of the decodes (K components, B clouds of N points, C
+    couplings of width f), the paired Chamfer and the paired EMD (B pairs
+    of N points): the least time of each call, from the operations per
+    point, pair or pair element as the kernels' sources count them (an
+    FMA is 2 FLOP; an exp and a root or rsqrt one special-function
+    operation each)."""
+    fwd_flop = 4 * f * f + 24 * f  # 2 heads x (W0, W1, W2 products)
+    pairs = B * N * N
+    return {
+        "point_decode": bound(**decode_work(K, B, N, C, f, fwd_flop, 24)),
+        # the Chamfer kernels need each point pair's distance once, 3
+        # differences, 3 squares and 2 sums (8 FLOP), and its two minima,
+        # the row's and the column's (2), as the TPU's CD grid takes both
+        # from one distance tile (pairwise_kernel.py:90-97)
+        "nn_distance": bound(flop=pairs * CD_FLOP, nbytes=2 * B * N * 16),
+        "emd_cost": bound(flop=pairs * EMD_FLOP, sfu=pairs * EMD_SFU,
+                          nbytes=2 * B * N * 12),
+        # kernel 7 writes xsave (12 C bytes a point)
+        "train_decode_fwd": bound(**decode_work(K, B, N, C, f, fwd_flop,
+                                                24 + 12 * C)),
+        # kernel 8: the forward's recompute, dW2 and dfz (24 f), dW1 and
+        # W1^T dh2 (8 f^2 + 12 f), the input pass (36 f); it reads xsave,
+        # dp0 and dlv, writes dp
+        "train_decode_bwd": bound(**decode_work(
+            K, B, N, C, f, 12 * f * f + 96 * f, 24 + 12 * C)),
+    }
+
+
 def phase_kernels():
     from go_with_the_flows_tpu_torch.utils.config import FLAGSHIP_AIRPLANE
 
@@ -739,24 +783,12 @@ def phase_kernels():
     f_err, b_err, td_times = check_train_decode(
         FLAGSHIP_AIRPLANE, BATCH, N_POINTS, 19, timed=True)
 
-    # the least time of each timed call: operations per point, pair or
-    # pair element as the kernels' sources count them (an FMA is 2 FLOP;
-    # an exp and a root or rsqrt one special-function operation each)
     B, N = BATCH, N_POINTS
-    K, _, _, C, f = pd_times["dims"]
-    fwd_flop = 4 * f * f + 24 * f  # 2 heads x (W0, W1, W2 products)
     pairs = B * N * N
-    bounds = {
-        "point_decode": bound(**decode_work(K, B, N, C, f, fwd_flop, 24)),
-        # the Chamfer kernels need each point pair's distance once, 3
-        # differences, 3 squares and 2 sums (8 FLOP), and its two minima,
-        # the row's and the column's (2), as the TPU's CD grid takes both
-        # from one distance tile (pairwise_kernel.py:90-97)
-        "nn_distance": bound(flop=pairs * CD_FLOP, nbytes=2 * B * N * 16),
+    bounds = path_bounds(*pd_times["dims"])
+    bounds.update({
         "pairwise_cd_stats": bound(flop=S * R * N * N * CD_FLOP,
                                    nbytes=(S + R) * N * 12 + S * R * 16),
-        "emd_cost": bound(flop=pairs * EMD_FLOP, sfu=pairs * EMD_SFU,
-                          nbytes=2 * B * N * 12),
         # it reads both clouds and both residuals, writes da and db
         "emd_backward": bound(flop=pairs * EMD_BWD_FLOP,
                               sfu=pairs * EMD_BWD_SFU,
@@ -764,15 +796,7 @@ def phase_kernels():
         "pairwise_emd": bound(flop=E * E * N * N * EMD_FLOP,
                               sfu=E * E * N * N * EMD_SFU,
                               nbytes=2 * E * N * 12),
-        # kernel 7 writes xsave (12 C bytes a point)
-        "train_decode_fwd": bound(**decode_work(K, B, N, C, f, fwd_flop,
-                                                24 + 12 * C)),
-        # kernel 8: the forward's recompute, dW2 and dfz (24 f), dW1 and
-        # W1^T dh2 (8 f^2 + 12 f), the input pass (36 f); it reads xsave,
-        # dp0 and dlv, writes dp
-        "train_decode_bwd": bound(**decode_work(
-            K, B, N, C, f, 12 * f * f + 96 * f, 24 + 12 * C)),
-    }
+    })
     say(f"    EMD forward: the cost needs {EMD_SFU} exps and roots and "
         f"{EMD_FLOP} FLOP a point pair, the kernels do {EMD_SFU_RECOMPUTED} "
         f"exps and roots ({EMD_SFU_RECOMPUTED / EMD_SFU:.1f}x); the grid "
@@ -1083,15 +1107,17 @@ def train_step_ms(step, batches, reps):
     return ms, torch.cuda.max_memory_allocated() / 1e9
 
 
-def check_train_steps(base, clouds, eps):
+def check_train_steps(base, clouds, eps, images=None):
     """One step from one state through the kernels and through the
     decoder's modules: metrics rtol 1e-4, every parameter's gradient
     within 3e-2 of its own largest entry, parameters atol 5e-4, BatchNorm
     buffers atol 1e-4. The PointNet's last BatchNorm bias is invariant
     under the loss (the posterior's first BatchNorm removes it), so its
     gradient is rounding noise and AMSGrad moves it by +-lr either way
-    (RESULTS.md round 5): it is held to 2 lr. The step runs at lr 2e-4,
-    as tests/test_train_kernel.py holds the TPU kernels' step."""
+    (RESULTS.md round 5): it is held to 2 lr; so is an SVR model's ResNet
+    fc bias (its fc_bn removes it). The step runs at lr 2e-4, as
+    tests/test_train_kernel.py holds the TPU kernels' step. `images`:
+    an SVR model's step (make_train_step(..., svr=True))."""
     import copy
 
     import torch
@@ -1101,15 +1127,19 @@ def check_train_steps(base, clouds, eps):
     from go_with_the_flows_tpu_torch.train.step import make_train_step
 
     hp = dict(TRAIN_HP, min_lr=2e-4, max_lr=2e-4)
-    walker = "pc_encoder." + [n for n, m in base.pc_encoder.named_modules()
-                              if isinstance(m, BatchNorm)][-1] + ".bias"
+    walkers = {"pc_encoder." + [n for n, m in base.pc_encoder.named_modules()
+                                if isinstance(m, BatchNorm)][-1] + ".bias"}
+    svr = {} if images is None else {"images": images}
+    if svr:
+        walkers.add("img_encoder.fc.bias")
     say(f"    one step at B={clouds.shape[0]}, lr {hp['max_lr']:g}")
     out = {}
     for fused in (False, True):
         model = copy.deepcopy(base).cuda()
         step = make_train_step(model, make_optimizer(
-            list(model.parameters()), **hp), fused_decoder=fused)
-        metrics = step(clouds, clouds, posterior_eps=eps)
+            list(model.parameters()), **hp), svr=bool(svr),
+            fused_decoder=fused)
+        metrics = step(clouds, clouds, posterior_eps=eps, **svr)
         grads = {n: q.grad for n, q in model.named_parameters()}
         out[fused] = ({k: float(v) for k, v in metrics.items()}, grads,
                       model.state_dict())
@@ -1129,15 +1159,16 @@ def check_train_steps(base, clouds, eps):
             continue
         rel = ((got - want).abs().max()
                / (want.abs().max() + 1e-30)).item()
-        if name != walker:
+        if name not in walkers:
             worst_grad = max(worst_grad, (rel, name))
     buffers = {n for n, _ in base.named_buffers()}
     worst = {True: (0.0, ""), False: (0.0, "")}
+    walk = {}
     for name, want in sp.items():
         diff = (sk[name].float() - want.float()).abs().max().item()
-        if name == walker:
+        if name in walkers:
             bound = 2 * hp["max_lr"] * (1 + 1e-3)
-            walk = diff
+            walk[name] = diff
         else:
             bound = 1e-4 if name in buffers else 5e-4
             worst[name in buffers] = max(worst[name in buffers],
@@ -1150,7 +1181,8 @@ def check_train_steps(base, clouds, eps):
     say(f"    worst gradient {worst_grad[0]:.3g} of its max "
         f"({worst_grad[1]}); worst parameter |diff| {worst[False][0]:.3g} "
         f"({worst[False][1]}); worst buffer |diff| {worst[True][0]:.3g} "
-        f"({worst[True][1]}); {walker} |diff| {walk:.3g} (bound 2 lr)")
+        f"({worst[True][1]}); " + ", ".join(
+            f"{k} |diff| {v:.3g}" for k, v in walk.items()) + " (bound 2 lr)")
 
 
 def phase_train(card):
@@ -1309,14 +1341,15 @@ def optimizer_flat(opt):
     return {k: getattr(opt, k) for k in opt._FLAT}
 
 
-def check_eval_loss(model, batch, eps, pd_err):
+def check_eval_loss(model, batch, eps, pd_err, images=None):
     """The eval loss of one batch and one noise draw through kernel 1's
     inverse against the loss through the decoder's modules. Tolerance
     from the decode's own error: e, the largest |diff| of the two
     inverses' outputs (p0 and the logvar sum) on this batch, is held to
     1e-3 (phase 2 holds kernel 1 to 1e-4 of its plain version; the
     modules also fold BatchNorm another way), and the loss to twice its
-    first-order change e * (sum |dL/dp0| + sum |dL/dlv|)."""
+    first-order change e * (sum |dL/dp0| + sum |dL/dlv|). `images`: an
+    SVR model's eval step (make_eval_step(..., svr=True))."""
     import torch
 
     from go_with_the_flows_tpu_torch.losses import flow_mixture_nll
@@ -1324,10 +1357,13 @@ def check_eval_loss(model, batch, eps, pd_err):
         eval_mode, make_eval_step)
 
     g, p = batch
-    got = make_eval_step(model)(g, p, posterior_eps=eps)
-    want = make_eval_step(model, fused_decoder=False)(g, p, posterior_eps=eps)
+    svr = {} if images is None else {"images": images}
+    got = make_eval_step(model, svr=bool(svr))(g, p, posterior_eps=eps, **svr)
+    want = make_eval_step(model, svr=bool(svr), fused_decoder=False)(
+        g, p, posterior_eps=eps, **svr)
     with eval_mode(model), torch.inference_mode():
-        gs = model.encode(g, "training", posterior_eps=eps)["g_sample"]
+        gs = model.encode(g, "training", posterior_eps=eps,
+                          **svr)["g_sample"]
         kern = model.decode_eval(p, gs)
         mods = model.decode_training(p, gs)
     e = max((kern[k] - mods[k]).abs().max().item()
@@ -1677,6 +1713,387 @@ def phase_loop(card, bare_step_ms, pd_err):
     return launches
 
 
+def resnet_device_ms(prof, window):
+    """Device milliseconds of the ResNet in a profiled train step: the
+    kernels launched inside the `window` annotation around its forward,
+    and those of the backward functions autograd recorded for the
+    forward's operations (linked by their sequence numbers). None when
+    the profile holds no such annotation or no device time."""
+    from torch.autograd import DeviceType
+
+    events = list(prof.events())
+    spans = [e for e in events
+             if e.name == window and e.device_type == DeviceType.CPU]
+    if not spans:
+        return None
+
+    def below(e):
+        for c in e.cpu_children:
+            yield c
+            yield from below(c)
+
+    forward = [d for e in spans for d in below(e)]
+    seqs = {d.sequence_nr for d in forward if d.sequence_nr >= 0}
+    fwd_ms = sum(e.device_time_total for e in spans) / 1000.0
+    bwd_ms = sum(e.device_time_total for e in events
+                 if e.name.startswith("autograd::engine::evaluate_function")
+                 and e.sequence_nr in seqs) / 1000.0
+    if fwd_ms <= 0 or bwd_ms <= 0:
+        return None
+    return fwd_ms, bwd_ms
+
+
+def svr_batches(rng, n):
+    """n seeded SVR items, {cloud, eval_cloud, image}: ellipsoid clouds of
+    the SVR configuration's size and images of noise as the normalised
+    4-channel inputs the loader gives (zero mean, unit variance)."""
+    from go_with_the_flows_tpu_torch.utils.config import SVR_RUN
+
+    import numpy as np
+
+    H, W = SVR_RUN["image_size"]
+    clouds = reference_clouds(rng, n, SVR_RUN["cloud_size"])
+    images = rng.standard_normal((n, 4, H, W), dtype=np.float32)
+    return [{"cloud": c, "eval_cloud": c, "image": im}
+            for c, im in zip(clouds, images)]
+
+
+def check_svr_kernels():
+    """The SVR path's kernels against their plain versions at the shapes
+    the path gives them (B=128, N=2500; the decoder K=4, 11 flows of
+    f=33), timed, with their bounds: kernel 1 both directions, kernel 2,
+    kernels 7 and 8 as phase 2 checks them, kernel 5 (the EMD meter) on
+    8 of the 128 pairs against the plain auction (rtol 1e-4, phase 2's)
+    and timed on all 128."""
+    import torch
+
+    from go_with_the_flows_tpu_torch.ops.kernels.emd import (
+        emd_cost, emd_cost_plain)
+    from go_with_the_flows_tpu_torch.utils.config import (
+        SVR_RUN, SVR_SHAPENETALL13, model_config_kwargs)
+
+    B, N = SVR_RUN["batch_size"], SVR_RUN["cloud_size"]
+    decoder = model_config_kwargs(SVR_SHAPENETALL13)
+    pd_err, pd_times = check_point_decode(decoder, B, N, 30, timed=True)
+    nn_err, nn_times = check_nn_distance(B, N, N, 31, timed=True)
+    f_err, b_err, td_times = check_train_decode(decoder, B, N, 32,
+                                                timed=True)
+    gen = torch.Generator(device="cuda").manual_seed(33)
+    a = 0.3 * torch.randn(B, N, 3, device="cuda", generator=gen)
+    b = 0.3 * torch.randn(B, N, 3, device="cuda", generator=gen)
+    emd_err = check_close(f"emd B=8 (of {B}) N={N} M={N} cost",
+                          emd_cost(a[:8], b[:8]), emd_cost_plain(a[:8], b[:8]),
+                          0.0, 1e-4)
+    emd_ms = cuda_ms(lambda: emd_cost(a, b), 3)
+    say(f"    emd B={B} N={N} M={N}: cost kernel {emd_ms:.3f} ms")
+    bounds = path_bounds(*pd_times["dims"])
+    measured = {
+        "point_decode": (pd_err, pd_times["direct"][0]),
+        "nn_distance": (nn_err, nn_times[0]),
+        "emd_cost": (emd_err, emd_ms),
+        "train_decode_fwd": (f_err, td_times["train_decode_fwd"][0]),
+        "train_decode_bwd": (b_err, td_times["train_decode_bwd"][0]),
+    }
+    return measured, bounds, pd_times["dims"]
+
+
+def check_svr_metrics(model, batches, drawn, gen_seed, res):
+    """The reconstruction meters against the plain versions. On the first
+    batch: kernel 2's minima equal to the plain version's bit for bit
+    (so are the CD and F1 meters, which are made of them), kernel 5's
+    cost on 8 of the pairs rtol 1e-4 (phase 2's), and the samples against
+    decode_sampling's arithmetic on the plain packed path
+    (point_decode_plain) with the step's component ids and base noise,
+    atol 1e-4 (phase 2's kernel-1 tolerance). Over both batches: the
+    meters evaluate returned are the batch-weighted means of the kernels'
+    per-batch values."""
+    import torch
+
+    from go_with_the_flows_tpu_torch.metrics.evaluation import f_score
+    from go_with_the_flows_tpu_torch.ops.kernels.chamfer import (
+        nn_distance, nn_distance_plain)
+    from go_with_the_flows_tpu_torch.ops.kernels.emd import (
+        emd_cost, emd_cost_plain)
+    from go_with_the_flows_tpu_torch.ops.kernels.point_decode import (
+        film_alpha_beta, point_decode_plain)
+    from go_with_the_flows_tpu_torch.train.step import eval_mode
+    from go_with_the_flows_tpu_torch.utils.meters import AverageMeter
+
+    samples, labels, logits = drawn[0]
+    B, _, N = samples.shape
+    K = model.n_components
+    images = torch.from_numpy(batches[0]["image"]).cuda()
+    with eval_mode(model), torch.inference_mode():
+        gen = torch.Generator(device="cuda").manual_seed(gen_seed)
+        ids = torch.multinomial(logits.softmax(-1), N, replacement=True,
+                                generator=gen)
+        base_eps = torch.randn(K, B, 3, N, generator=gen, device="cuda")
+        if not torch.equal(ids + 1, labels):
+            fail("svr: the sample step's labels are not its ids redrawn")
+        g = model.encode(None, "reconstruction", images=images)["g_sample"]
+        packed = model.pack_decoder()
+        mus, logvars = model.point_base(g)
+        base = mus[None] + torch.exp(0.5 * logvars)[None] * base_eps
+        decoded, _ = point_decode_plain(packed, film_alpha_beta(packed, g),
+                                        base)
+        pick = ids[None, :, None, :].expand(1, B, 3, N)
+        want = torch.gather(decoded, 0, pick)[0]
+    check_close(f"svr samples B={B} N={N} against the plain decode", samples,
+                want, 1e-4)
+    meters = {k: AverageMeter() for k in res}
+    for i, (batch, (smp, _, _)) in enumerate(zip(batches, drawn)):
+        r = smp.transpose(1, 2).contiguous()
+        p = torch.from_numpy(
+            batch["eval_cloud"].transpose(0, 2, 1).copy()).cuda()
+        with torch.inference_mode():
+            dl, dr = nn_distance(r, p, with_idx=False)
+            emd = emd_cost(r, p) / N
+            if i == 0:
+                pl, pr = nn_distance_plain(r, p, with_idx=False)
+                check_close(f"svr CD minima B={B} N={N} (exact)",
+                            torch.cat([dl, dr]), torch.cat([pl, pr]), 0.0)
+                check_close(f"svr EMD meter, 8 of {B} pairs", emd[:8],
+                            emd_cost_plain(r[:8], p[:8]) / N, 0.0, 1e-4)
+            n = r.shape[0]
+            meters["cd"].update(float((dl.mean(dim=1)
+                                       + dr.mean(dim=1)).mean()), n)
+            meters["emd"].update(float(emd.mean()), n)
+            meters["f1_0.0010"].update(float(f_score(r, p, 1e-3).mean()), n)
+    for k, m in meters.items():
+        if abs(m.avg - res[k]) > 1e-6 * abs(res[k]):
+            fail(f"svr evaluate {k} {res[k]!r}, the kernels' per-batch "
+                 f"values give {m.avg!r}")
+    say("    reconstruction meters: evaluate's equal the kernels' per-batch "
+        "values, the first batch's CD and F1 inputs equal the plain "
+        "version's bit for bit")
+
+
+def phase_svr(card, pd_err):
+    import copy
+    import math
+
+    import numpy as np
+    import torch
+
+    from go_with_the_flows_tpu_torch.data import DataLoader
+    from go_with_the_flows_tpu_torch.eval.evaluating import evaluate
+    from go_with_the_flows_tpu_torch.models.mixture import (
+        FlowMixtureSVRModel)
+    from go_with_the_flows_tpu_torch.ops.kernels.chamfer import nn_distance
+    from go_with_the_flows_tpu_torch.ops.kernels.emd import emd_cost
+    from go_with_the_flows_tpu_torch.ops.kernels.point_decode import (
+        point_decode)
+    from go_with_the_flows_tpu_torch.ops.kernels.train_decode import (
+        train_decode_bwd, train_decode_fwd)
+    from go_with_the_flows_tpu_torch.optim import make_optimizer
+    from go_with_the_flows_tpu_torch.train import loops
+    from go_with_the_flows_tpu_torch.train.state import create_train_state
+    from go_with_the_flows_tpu_torch.train.step import (
+        make_eval_step, make_sample_step, make_train_step)
+    from go_with_the_flows_tpu_torch.utils.config import (
+        SVR_RUN, SVR_SHAPENETALL13, svr_model_config_kwargs)
+
+    B, N = SVR_RUN["batch_size"], SVR_RUN["cloud_size"]
+    H, W = SVR_RUN["image_size"]
+    say(f"[6] svr: configs/config_SVR.yaml's model (K=4, 11 flows of f=33, "
+        f"freevar, g=512, ResNet-18 on {H} x {W} images), B={B}, N={N}")
+    torch.cuda.empty_cache()
+    measured, bounds, dims = check_svr_kernels()
+    torch.cuda.empty_cache()
+
+    hp = {k: SVR_RUN[k] for k in ("cycle_length", "min_lr", "max_lr",
+                                  "beta1", "min_beta2", "max_beta2", "wd")}
+    hp["epoch_length"] = 4
+    base = FlowMixtureSVRModel(**svr_model_config_kwargs(SVR_SHAPENETALL13),
+                               generator=torch.Generator().manual_seed(0))
+    jiggle_batch_norms(base, 1000)
+    rng = np.random.default_rng(40)
+    train_set = svr_batches(rng, 4 * B)
+    val_set = svr_batches(rng, 2 * B)
+
+    # one step through the kernels against one through the decoder's
+    # modules, at the largest batch at which the modules' autograd fits
+    first = train_set[:B]
+    clouds = torch.from_numpy(np.stack([d["cloud"] for d in first])).cuda()
+    images = torch.from_numpy(np.stack([d["image"] for d in first])).cuda()
+    eps = torch.randn(B, base.g_latent_space_size, device="cuda",
+                      generator=torch.Generator(device="cuda").manual_seed(41))
+    for b in (B, B // 2, B // 4):
+        try:
+            check_train_steps(base, clouds[:b].contiguous(), eps[:b],
+                              images[:b].contiguous())
+            break
+        except torch.cuda.OutOfMemoryError:
+            torch.cuda.empty_cache()
+            say(f"    one-step comparison: the decoder's modules are out of "
+                f"memory at B={b}")
+    else:
+        fail("the SVR module path does not fit at any batch tried")
+    torch.cuda.empty_cache()
+
+    model = copy.deepcopy(base).cuda()
+    state = create_train_state(
+        model, make_optimizer(list(model.parameters()), **hp), seed=42)
+    train_loader = DataLoader(train_set, B, shuffle=True, seed=43)
+    val_loader = DataLoader(val_set, B, drop_last=False)
+    train_step = make_train_step(model, state.optimizer, svr=True)
+    eval_step = make_eval_step(model, svr=True)
+    sample_step = make_sample_step(model, N, "reconstruction", svr=True)
+    drawn = []
+
+    def recording_step(g, generator, images):
+        out = sample_step(g, generator, images=images)
+        drawn.append(out)
+        return out
+
+    wrappers = (point_decode, nn_distance, emd_cost, train_decode_fwd,
+                train_decode_bwd)
+    # the main path, its launches counted: one epoch of 4 train steps,
+    # evaluate_val over 2 batches, reconstruction metrics over 2 batches
+    for w in wrappers:
+        w.launches = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    state = loops.train(train_loader, train_step, state, 0, 0, False, "cuda",
+                        svr=True)
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t
+    t = time.perf_counter()
+    min_loss = loops.evaluate_val(
+        val_loader, eval_step, state, 0, False, math.inf,
+        torch.Generator(device="cuda").manual_seed(44), "cuda", svr=True)
+    val_s = time.perf_counter() - t
+    t = time.perf_counter()
+    res = evaluate(val_loader, recording_step,
+                   torch.Generator(device="cuda").manual_seed(45), "cuda",
+                   svr=True, util_mode="reconstruction", cd=True, emd=True,
+                   f1=True)
+    torch.cuda.synchronize()
+    rec_s = time.perf_counter() - t
+    launches = {w.__name__: w.launches for w in wrappers}
+    say(f"    train epoch of 4 steps {epoch_s:.2f} s, train means "
+        + ", ".join(f"{k} {v:.3f}" for k, v in state.train_metrics.items())
+        + f"; evaluate_val {val_s:.2f} s, "
+        + ", ".join(f"{k} {v:.3f}" for k, v in state.val_metrics.items())
+        + f"; evaluate (reconstruction) {rec_s:.2f} s, "
+        + ", ".join(f"{k} {v:.6f}" for k, v in res.items())
+        + f"; launches {launches}")
+    # kernel 1 once an eval and once a sampled batch; kernel 2 twice a
+    # reconstruction batch (the CD meter and f_score), kernel 5 once;
+    # kernels 7 and 8 once a train step
+    want = {"point_decode": 2 * len(val_loader),
+            "nn_distance": 2 * len(val_loader),
+            "emd_cost": len(val_loader),
+            "train_decode_fwd": len(train_loader),
+            "train_decode_bwd": len(train_loader)}
+    for name, n in launches.items():
+        if n != want[name]:
+            fail(f"{name} launched {n} times on the SVR path, {want[name]} "
+                 "expected: a step left the kernels")
+    vals = list(state.train_metrics.values()) + [min_loss] + list(
+        res.values())
+    if state.step != 4 or not all(math.isfinite(v) for v in vals):
+        fail(f"svr loop: step {state.step}, metrics {vals}")
+    samples = drawn[0][0]
+    if tuple(samples.shape) != (B, 3, N) \
+            or not bool(torch.isfinite(samples).all()):
+        fail(f"svr samples: {tuple(samples.shape)}, finite "
+             f"{bool(torch.isfinite(samples).all())}")
+
+    # the reconstruction meters against the plain versions, then the eval
+    # loss through kernel 1 against the decoder's modules
+    val_batches = list(val_loader)
+    check_svr_metrics(model, val_batches, drawn, 45, res)
+    batch0 = val_batches[0]
+    g0 = torch.from_numpy(batch0["cloud"]).cuda()
+    check_eval_loss(model, (g0, g0), eps, pd_err,
+                    torch.from_numpy(batch0["image"]).cuda())
+
+    # times: the loop's 4 steps against 4 bare steps over the same
+    # batches, in turns; peak memory over them
+    bare = [{k: torch.from_numpy(v).cuda() for k, v in b.items()}
+            for b in train_loader]
+    loop_ms, bare_ms = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for turn in range(2):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state = loops.train(train_loader, train_step, state, 1 + turn, 0,
+                            False, "cuda", svr=True)
+        torch.cuda.synchronize()
+        loop_ms.append(1000.0 * (time.perf_counter() - t) / len(train_loader))
+        t = time.perf_counter()
+        for b in bare:
+            train_step(b["cloud"], b["eval_cloud"], state.generator,
+                       images=b["image"])
+        torch.cuda.synchronize()
+        bare_ms.append(1000.0 * (time.perf_counter() - t) / len(bare))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    say(f"    SVR train step B={B}: loop " + ", ".join(
+        f"{v:.2f}" for v in loop_ms) + " ms/step, bare " + ", ".join(
+        f"{v:.2f}" for v in bare_ms) + f" ms/step, in turns; "
+        f"{1000.0 * B / min(bare_ms):.1f} clouds/s (bare, best turn); peak "
+        f"{peak:.2f} GB [{card}]")
+
+    # one profiled bare step: the card's busy time, the ResNet's share
+    # (its forward in an annotation, its backward by autograd's sequence
+    # numbers) and kernels 7 and 8
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    scope = []
+    hooks = [model.img_encoder.register_forward_pre_hook(
+                 lambda m, a: scope.append(
+                     record_function("resnet_forward").__enter__())),
+             model.img_encoder.register_forward_hook(
+                 lambda m, a, o: scope.pop().__exit__(None, None, None))]
+    b = bare[0]
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            train_step(b["cloud"], b["eval_cloud"], state.generator,
+                       images=b["image"])
+            torch.cuda.synchronize()
+    finally:
+        for h in hooks:
+            h.remove()
+    rows = device_kernels(prof)
+    busy = sum(r[0] for r in rows)
+    resnet = resnet_device_ms(prof, "resnet_forward")
+    # the ResNet alone, forward and backward in train mode, on a copy
+    enc = copy.deepcopy(model.img_encoder)
+    alone = cuda_ms(lambda: enc(b["image"]).sum().backward(), 3)
+    del enc
+    if busy <= 0:
+        say("    profiler: no device time recorded (idle share and the "
+            f"ResNet's share not measured); the ResNet alone, forward and "
+            f"backward: {alone:.2f} ms [{card}]")
+    else:
+        split = {what: passes_of(rows, passes)
+                 for what, passes in TRAIN_DECODE_PASSES.items()}
+        k78 = {what: sum(t for t, _ in d.values())
+               for what, d in split.items()}
+        share = ("not measured (no annotation or backward linked in the "
+                 "profile)" if resnet is None else
+                 f"{resnet[0]:.2f} ms forward + {resnet[1]:.2f} ms backward,"
+                 f" {100.0 * sum(resnet) / busy:.1f} % of the busy time")
+        say(f"    profiled SVR step: device busy {busy:.2f} ms of "
+            f"{min(bare_ms):.2f} ms/step, idle share "
+            f"{max(0.0, 1.0 - busy / min(bare_ms)):.3f}; the ResNet {share}"
+            f" (alone, forward and backward: {alone:.2f} ms); "
+            + "; ".join(f"{what} {ms:.3f} ms" for what, ms in k78.items())
+            + f" [{card}]")
+        for t_ms, n, name in rows[:10]:
+            say(f"      {t_ms:9.3f} ms {n:6d}x {name[:70]}")
+
+    say("    SVR-shape kernels (K={}, B={}, N={}, C={}, f={}): ".format(*dims)
+        + "; ".join(
+        f"{name} {ms:.3f} ms, bound {bounds[name][0]:.3f} ms "
+        f"({bounds[name][1]}), {launches[name]} launches in phase 6"
+        for name, (_, ms) in measured.items()) + f" [{card}]")
+    return launches, measured, bounds
+
+
 def main() -> None:
     try:
         import torch
@@ -1705,9 +2122,13 @@ def main() -> None:
     for name, n in loop_launches.items():
         launches[name] += n
     marks.append(time.perf_counter())
+    svr_launches, _, _ = phase_svr(card, measured["point_decode"][0])
+    for name, n in svr_launches.items():
+        launches[name] += n
+    marks.append(time.perf_counter())
     say("phase seconds: " + ", ".join(
         f"{name} {b - a:.1f}" for name, a, b in
-        zip(("build", "kernels", "slice", "train", "loop"), marks,
+        zip(("build", "kernels", "slice", "train", "loop", "svr"), marks,
             marks[1:])))
     if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
         fail("jax was imported")

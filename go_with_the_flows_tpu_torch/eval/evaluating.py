@@ -1,13 +1,14 @@
-"""Evaluation pass, generating and autoencoding modes, one process
-(counterpart of go_with_the_flows_tpu/eval/evaluating.py).
+"""Evaluation pass, one process (counterpart of
+go_with_the_flows_tpu/eval/evaluating.py): generating and autoencoding
+modes over the whole set, and single-view reconstruction with per-batch
+CD, EMD and F1 meters.
 
 `loader` is any iterable of batch dicts with numpy arrays: `cloud`
-(B, 3, N) for the encoder, `eval_cloud` (B, 3, N) for the metrics, and
-`orig_s` / `orig_c` when `orig_scale_evaluation` rescales. No h5 loader
-is needed.
+(B, 3, N) for the encoder, `eval_cloud` (B, 3, N) for the metrics,
+`image` (B, 4, H, W) for SVR, and `orig_s` / `orig_c` when
+`orig_scale_evaluation` rescales. No h5 loader is needed.
 
-Not ported yet: the h5 dump (`saving`), reconstruction (SVR, and with
-it EMD in that mode) and the voxel JSD.
+Not ported yet: the h5 dump (`saving`) and the voxel JSD.
 """
 
 from __future__ import annotations
@@ -18,7 +19,14 @@ from typing import Callable, Dict
 import numpy as np
 import torch
 
-from ..metrics.evaluation import EMD_CD_F1, compute_all_metrics
+from ..metrics.evaluation import (
+    EMD_CD_F1,
+    _as_tensor,
+    compute_all_metrics,
+    f_score,
+)
+from ..ops.kernels.chamfer import chamfer
+from ..ops.kernels.emd import emd_cost
 from ..utils.meters import AverageMeter
 
 
@@ -53,19 +61,24 @@ def _denormalize(r_clouds, p_clouds, batch, **kwargs):
 
 
 def evaluate(loader, sample_step: Callable, generator: torch.Generator,
-             device, **kwargs) -> Dict[str, float]:
+             device, svr: bool = False, **kwargs) -> Dict[str, float]:
     """One evaluation pass; returns the metric dict and prints the
     reference's protocol lines.
 
-    `sample_step` comes from train/step.make_sample_step; `generator`
-    (on `device`) drives every random draw, so a seed fixes the result.
-    kwargs are the flat config keys the JAX `evaluate` reads (util_mode, cd,
-    emd, f1, f1_threshold_lst, the de-normalisation keys, ref_cache).
+    `sample_step` comes from train/step.make_sample_step (with `svr`, an
+    SVR step, handed each batch's `image`); `generator` (on `device`)
+    drives every random draw, so a seed fixes the result. kwargs are the
+    flat config keys the JAX `evaluate` reads (util_mode, cd, emd, f1,
+    f1_threshold_lst, the de-normalisation keys, ref_cache).
+
+    Reconstruction keeps per-batch meters, each batch weighted by its
+    size: CD as mean(dl) + mean(dr) per cloud (the `nn_distance` kernel
+    on the card), EMD as the auction cost / N (`emd_cost`), F1 at each
+    threshold (`f_score`); it returns `cd`, `emd` and `f1_{thr:.4f}`.
     """
     util_mode = kwargs.get("util_mode")
-    if util_mode not in ("generating", "autoencoding"):
-        raise NotImplementedError(
-            f"util_mode {util_mode!r} is not ported yet")
+    if util_mode not in ("generating", "autoencoding", "reconstruction"):
+        raise ValueError(f"unknown util_mode {util_mode!r}")
     for key in ("saving", "jsd"):
         if kwargs.get(key):
             raise NotImplementedError(f"{key!r} is not ported yet")
@@ -74,11 +87,16 @@ def evaluate(loader, sample_step: Callable, generator: torch.Generator,
     inf_time = AverageMeter()
     gen_buf, ref_buf = [], []
     thresholds = kwargs.get("f1_threshold_lst", [1e-3])
+    cd_meter, emd_meter = AverageMeter(), AverageMeter()
+    f1_meters = [AverageMeter() for _ in thresholds]
     for batch in loader:
-        g_clouds = torch.as_tensor(
-            np.asarray(batch["cloud"], np.float32)).to(device)
+        g_clouds = _as_tensor(batch["cloud"], device)
         start = perf_counter()
-        samples, _, _ = sample_step(g_clouds, generator)
+        if svr:
+            samples, _, _ = sample_step(
+                g_clouds, generator, images=_as_tensor(batch["image"], device))
+        else:
+            samples, _, _ = sample_step(g_clouds, generator)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         bsz = samples.shape[0]
@@ -86,13 +104,41 @@ def evaluate(loader, sample_step: Callable, generator: torch.Generator,
         r_clouds, p_clouds = _denormalize(
             samples.cpu().numpy(), np.asarray(batch["eval_cloud"]), batch,
             **kwargs)
-        gen_buf.append(r_clouds)
-        ref_buf.append(p_clouds)
+        if util_mode != "reconstruction":
+            gen_buf.append(r_clouds)
+            ref_buf.append(p_clouds)
+            continue
+        with torch.inference_mode():
+            r = _as_tensor(np.transpose(r_clouds, (0, 2, 1)), device)
+            p = _as_tensor(np.transpose(p_clouds, (0, 2, 1)), device)
+            if kwargs.get("cd"):
+                dl, dr = chamfer(r, p)
+                cd_meter.update(
+                    float((dl.mean(dim=1) + dr.mean(dim=1)).mean()), bsz)
+            if kwargs.get("emd"):
+                emd_meter.update(float((emd_cost(r, p) / r.shape[1]).mean()),
+                                 bsz)
+            if kwargs.get("f1"):
+                for meter, thr in zip(f1_meters, thresholds):
+                    meter.update(float(f_score(r, p, thr).mean()), bsz)
     print(f"Inference time: {inf_time.avg} sec/sample")
+
+    res: Dict[str, float] = {}
+    if util_mode == "reconstruction":
+        if kwargs.get("cd"):
+            print("CD: {:.6f}".format(cd_meter.avg))
+            res["cd"] = cd_meter.avg
+        if kwargs.get("emd"):
+            print("EMD: {:.6f}".format(emd_meter.avg))
+            res["emd"] = emd_meter.avg
+        if kwargs.get("f1"):
+            for meter, thr in zip(f1_meters, thresholds):
+                print("F1-%.4f: %.2f" % (thr, meter.avg))
+                res[f"f1_{thr:.4f}"] = meter.avg
+        return res
 
     gen = np.transpose(np.concatenate(gen_buf), (0, 2, 1))
     ref = np.transpose(np.concatenate(ref_buf), (0, 2, 1))
-    res: Dict[str, float] = {}
     if util_mode == "autoencoding":
         for thr in thresholds:
             metrics = EMD_CD_F1(

@@ -37,12 +37,24 @@ def _paired_stats(sample, ref, f1_threshold: float, with_emd: bool):
     dl, dr = chamfer(sample, ref)
     emd = (emd_cost(sample, ref) / sample.shape[1] if with_emd
            else sample.new_zeros(sample.shape[0]))
-    cdl = dl.mean(dim=1)
-    cdr = dr.mean(dim=1)
-    precision = 100.0 * (dr < f1_threshold).float().mean(dim=1)
-    recall = 100.0 * (dl < f1_threshold).float().mean(dim=1)
-    f1 = 2.0 * precision * recall / (precision + recall + 1e-7)
-    return cdl, cdr, emd, f1
+    return dl.mean(dim=1), dr.mean(dim=1), emd, _f1(dl, dr, f1_threshold)
+
+
+def _f1(dl, dr, threshold: float) -> torch.Tensor:
+    """F1 (in %) per pair from the nearest-neighbour squared distances
+    (B, N) of the sample's points (dl) and of the reference's (dr)."""
+    precision = 100.0 * (dr < threshold).float().mean(dim=1)
+    recall = 100.0 * (dl < threshold).float().mean(dim=1)
+    return 2.0 * precision * recall / (precision + recall + 1e-7)
+
+
+def f_score(predicted: torch.Tensor, true: torch.Tensor,
+            threshold: float = 1e-3) -> torch.Tensor:
+    """Per-pair F1 (B,) of paired clouds (B, N, 3) and (B, M, 3), the
+    reconstruction protocol's streaming F1: the `nn_distance` kernel on
+    CUDA tensors, its plain version on CPU tensors."""
+    dl, dr = chamfer(predicted, true)
+    return _f1(dl, dr, threshold)
 
 
 def EMD_CD_F1(

@@ -1,6 +1,7 @@
 """Mixture-of-flows point-cloud VAE (counterpart of
 go_with_the_flows_tpu/models/mixture.py): the training forward and the
-eval paths.
+eval paths, and the single-view reconstruction model
+(FlowMixtureSVRModel).
 
 The K point decoders are one PointDecoderFlow with K-stacked weights
 (`stack=(K,)`), not a loop over K modules. Sampling draws per-point
@@ -46,6 +47,7 @@ from ..ops.kernels.train_decode import (
 from ..ops.layers import reset_parameters
 from .encoders import FeatureEncoder, PointNetCloudEncoder, WeightsEncoder
 from .flows import LatentPriorFlow, PointDecoderFlow, point_decoder_param_count
+from .resnet import ResNet18
 
 
 def reduce_decoder_params(
@@ -201,30 +203,34 @@ class FlowMixtureModel(nn.Module):
         lv0 = self.g0_prior_logvars.expand(B, G)
         out = {"g_prior_mus0": mu0, "g_prior_logvars0": lv0}
         if mode in ("training", "autoencoding"):
-            post_mus, post_logvars = self.posterior(g_input)
-            out["g_posterior_mus"] = post_mus
-            out["g_posterior_logvars"] = post_logvars
-            if mode == "training":
-                if posterior_eps is None:
-                    raise ValueError("training mode needs posterior_eps "
-                                     "(B, G)")
-                g_s = post_mus + torch.exp(0.5 * post_logvars) * posterior_eps
-            else:
-                g_s = post_mus
-            g0, flow_lv_sum = self.g_prior(g_s, "inverse")
+            g0, g_s, flow_lv_sum = self._encode_posterior(
+                g_input, mode, posterior_eps, out)
         elif mode == "generating":
             if g0_eps is None:
                 raise ValueError("generating mode needs g0_eps (B, G)")
             g0 = mu0 + torch.exp(0.5 * lv0) * g0_eps
             g_s, flow_lv_sum = self.g_prior(g0, "direct")
         else:
-            raise NotImplementedError(
-                f"encode mode {mode!r} is not ported yet (the port has the "
-                "training, generating and autoencoding modes)")
-        out["g0_sample"] = g0
-        out["g_sample"] = g_s
-        out["g_prior_logvar_sum"] = lv0 + flow_lv_sum
+            raise ValueError(f"encode: unsupported mode {mode!r}")
+        out.update(g0_sample=g0, g_sample=g_s,
+                   g_prior_logvar_sum=lv0 + flow_lv_sum)
         return out
+
+    def _encode_posterior(self, g_input, mode, posterior_eps, out):
+        """The posterior's sample (training) or mean (autoencoding),
+        inverted through the prior flow: (g0, g, the flow's logvar sum);
+        the posterior's mus and logvars go into `out`."""
+        post_mus, post_logvars = self.posterior(g_input)
+        out["g_posterior_mus"] = post_mus
+        out["g_posterior_logvars"] = post_logvars
+        if mode == "training":
+            if posterior_eps is None:
+                raise ValueError("training mode needs posterior_eps (B, G)")
+            g_s = post_mus + torch.exp(0.5 * post_logvars) * posterior_eps
+        else:
+            g_s = post_mus
+        g0, flow_lv_sum = self.g_prior(g_s, "inverse")
+        return g0, g_s, flow_lv_sum
 
     # ------------------------------------------------------------------ #
     # decode                                                             #
@@ -360,3 +366,56 @@ class FlowMixtureModel(nn.Module):
         pick = ids[None, :, None, :].expand(1, B, 3, N)
         samples = torch.gather(decoded, 0, pick)[0]
         return samples, ids + 1
+
+
+class FlowMixtureSVRModel(FlowMixtureModel):
+    """Single-view reconstruction: the latent prior's base comes from a
+    ResNet-18 image encoder and an image-conditioned FeatureEncoder
+    (`g0_prior`), not from the learned `g0_prior_mus` / `g0_prior_logvars`,
+    which stay unused (as in the JAX package: they get no gradient, so
+    the optimizer leaves them as they are).
+
+    Constructor arguments: FlowMixtureModel's, and `g_prior_n_layers`,
+    the depth of g0_prior's MLP. The YAML's `img_enc_*` keys are not
+    read: the image encoder is ResNet18(num_classes=g_latent_space_size)
+    at its default widths, as in the JAX package.
+    """
+
+    def __init__(self, *args, g_prior_n_layers: int = 1,
+                 generator: Optional[torch.Generator] = None, **kwargs):
+        generator = generator or torch.Generator().manual_seed(0)
+        super().__init__(*args, generator=generator, **kwargs)
+        G = self.g_latent_space_size
+        self.img_encoder = ResNet18(num_classes=G, generator=generator)
+        self.g0_prior = FeatureEncoder(
+            G, g_prior_n_layers, G, deterministic=False,
+            mu_weight_std=0.0033, mu_bias=0.0, logvar_weight_std=0.033,
+            logvar_bias=0.0)
+        reset_parameters(self.g0_prior, generator)
+
+    def encode(self, g_input: torch.Tensor, mode: str,
+               images: Optional[torch.Tensor] = None,
+               posterior_eps: Optional[torch.Tensor] = None) -> Dict:
+        """Image-prior encoding of a batch; images (B, 4, H, W).
+
+        The prior base (mu0, lv0) = g0_prior(img_encoder(images)).
+        training: g = mu + exp(lv / 2) * posterior_eps from the point
+        cloud's posterior (posterior_eps (B, G) is required), inverted
+        through the prior flow. reconstruction: g0 = mu0, no noise,
+        pushed forward through the prior flow (g_input is not read).
+        """
+        if images is None:
+            raise ValueError("SVR encode needs images (B, 4, H, W)")
+        mu0, lv0 = self.g0_prior(self.img_encoder(images))
+        out = {"g_prior_mus0": mu0, "g_prior_logvars0": lv0}
+        if mode == "training":
+            g0, g_s, flow_lv_sum = self._encode_posterior(
+                g_input, mode, posterior_eps, out)
+        elif mode == "reconstruction":
+            g0 = mu0
+            g_s, flow_lv_sum = self.g_prior(g0, "direct")
+        else:
+            raise ValueError(f"SVR encode: unsupported mode {mode!r}")
+        out.update(g0_sample=g0, g_sample=g_s,
+                   g_prior_logvar_sum=lv0 + flow_lv_sum)
+        return out

@@ -10,8 +10,10 @@ go_with_the_flows_tpu/train/loops.py, one process, no TensorBoard).
     and their .npy dump.
 
 Loaders yield dicts of numpy arrays (`data/loader.py`): `cloud` (B, 3, N')
-for the encoder, `eval_cloud` (B, 3, N) for the decoder's likelihood.
-The loops move them to `device`, which defaults to the card.
+for the encoder, `eval_cloud` (B, 3, N) for the decoder's likelihood,
+and for single-view reconstruction (`svr=True`) `image` (B, 4, H, W),
+which the loops hand to the steps. The loops move them to `device`,
+which defaults to the card.
 
 train() reads each step's metrics one step behind: the host queues step
 i, then waits for step i - 1's metrics alone (a copy to pinned memory and
@@ -44,11 +46,12 @@ class NaNLossError(RuntimeError):
 
 
 def _to_device(batch, device) -> Dict[str, torch.Tensor]:
-    """The batch's clouds on `device`. To the card they go through pinned
-    memory with an asynchronous copy: from pageable memory the copy would
-    wait for the stream, that is for the step just queued."""
+    """The batch's clouds and images on `device`. To the card they go
+    through pinned memory with an asynchronous copy: from pageable memory
+    the copy would wait for the stream, that is for the step just
+    queued."""
     out = {}
-    for k in ("cloud", "eval_cloud"):
+    for k in ("cloud", "eval_cloud", "image"):
         if k in batch:
             x = torch.from_numpy(np.ascontiguousarray(batch[k], np.float32))
             if device.type == "cuda":
@@ -81,15 +84,22 @@ def _fetch(metrics) -> Dict[str, float]:
     return _finish_fetch(_start_fetch(metrics))
 
 
+def _images(dev, svr: bool) -> Dict[str, torch.Tensor]:
+    """The step's `images` keyword argument: the batch's images with
+    `svr`, nothing without."""
+    return {"images": dev["image"]} if svr else {}
+
+
 def train(loader, train_step: Callable, state: TrainState, epoch: int,
-          start_iter: int, warmup: bool, device="cuda",
+          start_iter: int, warmup: bool, device="cuda", svr: bool = False,
           **config) -> TrainState:
     """One training epoch; returns the state, whose model, optimizer,
     generator and step count have moved on, with the epoch's mean
     metrics in state.train_metrics.
 
     `train_step(g, p, generator, warmup=...)` is train/step.make_train_step's
-    step over state.model and state.optimizer; its noise comes from
+    step over state.model and state.optimizer (with `svr`, an SVR step,
+    called with images=the batch's images); its noise comes from
     state.generator. Config keys, as the JAX loop reads them: logging,
     checkpointing (defaults to logging), logging_path, model_name,
     num_workers (the stdout cadence), logging_img_steps (the checkpoint
@@ -137,7 +147,8 @@ def train(loader, train_step: Callable, state: TrainState, epoch: int,
             g, p = dev["cloud"], dev["eval_cloud"]
             with (profiling.annotate(f"train_step_{it}") if profile_dir
                   else contextlib.nullcontext()):
-                metrics = train_step(g, p, state.generator, warmup=warmup)
+                metrics = train_step(g, p, state.generator, warmup=warmup,
+                                     **_images(dev, svr))
             state.step += 1
             fetch = _start_fetch(metrics)
             if profile_dir and i == profile_steps:
@@ -183,14 +194,15 @@ def train(loader, train_step: Callable, state: TrainState, epoch: int,
 
 def evaluate_val(loader, eval_step: Callable, state: TrainState, epoch: int,
                  warmup: bool, min_loss: float, generator: torch.Generator,
-                 device="cuda", **config) -> float:
+                 device="cuda", svr: bool = False, **config) -> float:
     """Validation epoch: the training-path loss with BatchNorm running
     statistics, and the best-model checkpoint ("best_model_" +
     model_name) when the mean loss beats `min_loss`. Returns the updated
     min_loss; the means go to state.val_metrics.
 
-    `eval_step` is train/step.make_eval_step's step over state.model;
-    its noise comes from `generator`, not from the state's training
+    `eval_step` is train/step.make_eval_step's step over state.model
+    (with `svr`, called with the batch's images); its noise comes from
+    `generator`, not from the state's training
     generator, so validating does not move the training draws. A short
     last batch is taken as it is and weighs its own size in the means,
     as in the JAX package's single-process run. Config keys: logging,
@@ -206,7 +218,8 @@ def evaluate_val(loader, eval_step: Callable, state: TrainState, epoch: int,
     for batch in loader:
         dev = _to_device(batch, device)
         g, p = dev["cloud"], dev["eval_cloud"]
-        m = _fetch(eval_step(g, p, generator, warmup=warmup))
+        m = _fetch(eval_step(g, p, generator, warmup=warmup,
+                             **_images(dev, svr)))
         if not np.isfinite(m["loss"]):
             raise NaNLossError(f"Eval loss is {m['loss']} at epoch {epoch}")
         for k in meters:
@@ -224,17 +237,20 @@ def evaluate_val(loader, eval_step: Callable, state: TrainState, epoch: int,
 
 
 def reconstruct(loader, sample_step: Callable, generator: torch.Generator,
-                device="cuda", max_batches: Optional[int] = None):
+                device="cuda", max_batches: Optional[int] = None,
+                svr: bool = False):
     """Labeled reconstructions of a loader's clouds (`sample_step` from
-    make_sample_step, usually in autoencoding mode), batched. Returns
+    make_sample_step, usually in autoencoding mode; with `svr`, in
+    reconstruction mode, from the batch's images), batched. Returns
     numpy (samples (S, 3, N), ground truths (S, 3, N'), labels (S, N))."""
     device = torch.device(device)
     all_samples, all_gts, all_labels = [], [], []
     for b, batch in enumerate(loader):
         if max_batches is not None and b >= max_batches:
             break
-        g = _to_device(batch, device)["cloud"]
-        samples, labels, _ = sample_step(g, generator)
+        dev = _to_device(batch, device)
+        samples, labels, _ = sample_step(dev["cloud"], generator,
+                                         **_images(dev, svr))
         all_samples.append(samples.cpu().numpy())
         all_gts.append(np.asarray(batch["cloud"]))
         all_labels.append(labels.cpu().numpy())
@@ -243,11 +259,11 @@ def reconstruct(loader, sample_step: Callable, generator: torch.Generator,
 
 
 def predict(loader, sample_step: Callable, generator: torch.Generator,
-            out_dir: str, device="cuda"):
+            out_dir: str, device="cuda", svr: bool = False):
     """Reconstruct the whole loader and write all_samples.npy,
     all_gts.npy and all_labels.npy into out_dir."""
     samples, gts, labels = reconstruct(loader, sample_step, generator,
-                                       device)
+                                       device, svr=svr)
     os.makedirs(out_dir, exist_ok=True)
     np.save(os.path.join(out_dir, "all_samples.npy"), samples)
     np.save(os.path.join(out_dir, "all_gts.npy"), gts)

@@ -45,14 +45,25 @@ def _posterior_eps(model, g_clouds, generator, posterior_eps):
                        generator=generator, device=g_clouds.device)
 
 
+def _encode_training(model, g_clouds, svr, images, posterior_eps):
+    """The training-mode encode, the image prior's when `svr`."""
+    if svr:
+        return model.encode(g_clouds, "training", images=images,
+                            posterior_eps=posterior_eps)
+    return model.encode(g_clouds, "training", posterior_eps=posterior_eps)
+
+
 def make_train_step(model, optimizer, pnll_weight: float = 1.0,
                     gnll_weight: float = 1.0, gent_weight: float = 1.0,
+                    svr: bool = False,
                     fused_decoder: Optional[bool] = None) -> Callable:
-    """Training step of a FlowMixtureModel.
+    """Training step of a FlowMixtureModel (or, with `svr`, of a
+    FlowMixtureSVRModel).
 
     step(g_clouds (B, 3, N'), p_clouds (B, 3, N), generator, warmup=False,
-    posterior_eps=None) -> {"loss", "pnll", "gnll", "gent"} as 0-d
-    tensors. One forward with train-mode BatchNorm, the loss, the
+    posterior_eps=None, images=None) -> {"loss", "pnll", "gnll", "gent"}
+    as 0-d tensors; with `svr` the images (B, 4, H, W) give the latent
+    prior's base. One forward with train-mode BatchNorm, the loss, the
     backward and one optimizer step; the model's parameters, its
     BatchNorm running statistics and the optimizer change in place. The
     posterior noise (B, G) is drawn from `generator` on the model's
@@ -68,7 +79,8 @@ def make_train_step(model, optimizer, pnll_weight: float = 1.0,
     def train_step(g_clouds: torch.Tensor, p_clouds: torch.Tensor,
                    generator: Optional[torch.Generator] = None,
                    warmup: bool = False,
-                   posterior_eps: Optional[torch.Tensor] = None
+                   posterior_eps: Optional[torch.Tensor] = None,
+                   images: Optional[torch.Tensor] = None
                    ) -> Dict[str, torch.Tensor]:
         on_card = p_clouds.device.type == "cuda"
         fused = on_card if fused_decoder is None else bool(fused_decoder)
@@ -79,8 +91,7 @@ def make_train_step(model, optimizer, pnll_weight: float = 1.0,
                                        posterior_eps)
         model.train()
         optimizer.zero_grad(set_to_none=True)
-        out = model.encode(g_clouds, "training",
-                           posterior_eps=posterior_eps)
+        out = _encode_training(model, g_clouds, svr, images, posterior_eps)
         out.update(model.decode_training(p_clouds, out["g_sample"], warmup,
                                          fused))
         loss, metrics = flow_mixture_loss(out, pnll_weight, gnll_weight,
@@ -93,15 +104,16 @@ def make_train_step(model, optimizer, pnll_weight: float = 1.0,
 
 
 def make_eval_step(model, pnll_weight: float = 1.0, gnll_weight: float = 1.0,
-                   gent_weight: float = 1.0,
+                   gent_weight: float = 1.0, svr: bool = False,
                    fused_decoder: bool = True) -> Callable:
     """Validation loss step: the training forward path with BatchNorm
     running statistics (mode "training", train=False in the JAX package),
     the reference's eval() semantics.
 
     step(g_clouds (B, 3, N'), p_clouds (B, 3, N), generator, warmup=False,
-    posterior_eps=None) -> {"loss", "pnll", "gnll", "gent"} as 0-d
-    tensors. Runs under torch.inference_mode() in eval mode and gives the
+    posterior_eps=None, images=None) -> {"loss", "pnll", "gnll", "gent"}
+    as 0-d tensors (`svr`: the images as the train step takes them).
+    Runs under torch.inference_mode() in eval mode and gives the
     model its modes back; changes no parameter and no buffer. The
     posterior noise is drawn as the train step draws it.
 
@@ -117,13 +129,14 @@ def make_eval_step(model, pnll_weight: float = 1.0, gnll_weight: float = 1.0,
     def eval_step(g_clouds: torch.Tensor, p_clouds: torch.Tensor,
                   generator: Optional[torch.Generator] = None,
                   warmup: bool = False,
-                  posterior_eps: Optional[torch.Tensor] = None
+                  posterior_eps: Optional[torch.Tensor] = None,
+                  images: Optional[torch.Tensor] = None
                   ) -> Dict[str, torch.Tensor]:
         with eval_mode(model, modules), torch.inference_mode():
             posterior_eps = _posterior_eps(model, g_clouds, generator,
                                            posterior_eps)
-            out = model.encode(g_clouds, "training",
-                               posterior_eps=posterior_eps)
+            out = _encode_training(model, g_clouds, svr, images,
+                                   posterior_eps)
             if fused_decoder:
                 out.update(model.decode_eval(p_clouds, out["g_sample"],
                                              warmup))
@@ -138,31 +151,41 @@ def make_eval_step(model, pnll_weight: float = 1.0, gnll_weight: float = 1.0,
 
 
 def make_sample_step(model, n_sampled_points: int,
-                     mode: str = "generating") -> Callable:
+                     mode: str = "generating", svr: bool = False) -> Callable:
     """Labeled sampling step for evaluation and reconstruction.
 
-    step(g_clouds (B, 3, N'), generator) -> (samples (B, 3, N),
-    labels (B, N) in 1..K, logits (B, K)), with N = n_sampled_points.
+    step(g_clouds (B, 3, N'), generator, images=None) -> (samples
+    (B, 3, N), labels (B, N) in 1..K, logits (B, K)), with
+    N = n_sampled_points. Modes: generating and autoencoding, or with
+    `svr` reconstruction, whose latent is the image prior's mean for the
+    images (B, 4, H, W) (g_clouds gives the batch size and the device).
     Every random draw comes from `generator`, which must live on the
     model's device. Each call runs under torch.inference_mode() in eval
     mode (BatchNorm running statistics, none of them written) on the
     model's weights of that moment, and gives the model its modes back.
     """
-    if mode not in ("generating", "autoencoding"):
-        raise NotImplementedError(f"sample mode {mode!r} is not ported yet")
+    modes = ("reconstruction",) if svr else ("generating", "autoencoding")
+    if mode not in modes:
+        raise ValueError(f"sample mode {mode!r} with svr={svr}: expected "
+                         f"one of {modes}")
     K, G = model.n_components, model.g_latent_space_size
     N = n_sampled_points
     modules = list(model.modules())
 
-    def sample_step(g_clouds: torch.Tensor, generator: torch.Generator):
+    def sample_step(g_clouds: torch.Tensor, generator: torch.Generator,
+                    images: Optional[torch.Tensor] = None):
         with eval_mode(model, modules), torch.inference_mode():
             packed = model.pack_decoder()
             B = g_clouds.shape[0]
             device = g_clouds.device
-            g0_eps = None
-            if mode == "generating":
-                g0_eps = torch.randn(B, G, generator=generator, device=device)
-            g = model.encode(g_clouds, mode, g0_eps)["g_sample"]
+            if svr:
+                g = model.encode(g_clouds, mode, images=images)["g_sample"]
+            else:
+                g0_eps = None
+                if mode == "generating":
+                    g0_eps = torch.randn(B, G, generator=generator,
+                                         device=device)
+                g = model.encode(g_clouds, mode, g0_eps)["g_sample"]
             logits = model.get_weights(g)
             ids = torch.multinomial(logits.softmax(-1), N, replacement=True,
                                     generator=generator)

@@ -11,7 +11,8 @@ port's K point decoders are one module with a leading K axis
 Both decoder layouts are accepted: the scanned default
 (`periods/nvp{k}` + `tail_nvp{j}`, leaves (K, n_pairs, ...)) and the
 unrolled `flow{i}_nvp{j}`. Flax Dense kernels are (in, out); the port's
-Linear weights are (out, in).
+Linear weights are (out, in). A FlowMixtureSVRModel's image encoder
+(flax HWIO conv kernels, the port's OIHW) and g0_prior come across too.
 
 The per-module functions take a `prefix` and add entries to `sd`, so a
 test can convert one module at a time.
@@ -162,9 +163,32 @@ def pointnet_to_sd(sd, prefix, params, stats):
                          params[f"{name}_bn"], stats[f"{name}_bn"])
 
 
+def resnet_to_sd(sd, prefix, params, stats):
+    """ResNet18 variables -> the port's ResNet18 at `prefix`. Flax conv
+    kernels are HWIO, the port's OIHW."""
+
+    def conv(name, p):
+        _put(sd, f"{prefix}.{name}.weight",
+             np.transpose(np.asarray(p["kernel"]), (3, 2, 0, 1)))
+
+    conv("conv1", params["conv1"])
+    batch_norm_to_sd(sd, f"{prefix}.bn1", params["bn1"], stats["bn1"])
+    for block in sorted(k for k in params if k.startswith("layer")):
+        p, s = params[block], stats[block]
+        for c in ("conv1", "conv2", "downsample_conv"):
+            if c in p:
+                conv(f"{block}.{c}", p[c])
+        for b in ("bn1", "bn2", "downsample_bn"):
+            if b in p:
+                batch_norm_to_sd(sd, f"{prefix}.{block}.{b}", p[b], s[b])
+    _put(sd, f"{prefix}.fc.weight", _dense_t(params["fc"]["kernel"]))
+    _put(sd, f"{prefix}.fc.bias", params["fc"]["bias"])
+    batch_norm_to_sd(sd, f"{prefix}.fc_bn", params["fc_bn"], stats["fc_bn"])
+
+
 def state_dict_from_flax(variables: Dict, config: Dict) -> Dict[str, torch.Tensor]:
-    """FlowMixtureModel variables -> the port's FlowMixtureModel
-    state_dict. `config` holds the YAML model keys (n_components,
+    """FlowMixtureModel (or FlowMixtureSVRModel) variables -> the port's
+    model state_dict. `config` holds the YAML model keys (n_components,
     params_reduce_mode, p_decoder_n_flows, p_decoder_n_features,
     g_latent_space_size)."""
     params, stats = variables["params"], variables["batch_stats"]
@@ -189,4 +213,9 @@ def state_dict_from_flax(variables: Dict, config: Dict) -> Dict[str, torch.Tenso
     enc = "mixture_weights_encoder"
     feature_encoder_to_sd(sd, enc, params[enc]["features"],
                           stats[enc]["features"])
+    if "img_encoder" in params:
+        resnet_to_sd(sd, "img_encoder", params["img_encoder"],
+                     stats["img_encoder"])
+        feature_encoder_to_sd(sd, "g0_prior", params["g0_prior"],
+                              stats["g0_prior"])
     return sd

@@ -6,8 +6,8 @@ layout of the weights and FiLM rows, the double-buffered staging of each
 coupling (the cp.async copies land at once here), the coupling order of
 both directions, and the register tile of several points a thread with a
 partial last tile, without a card. Widths f=8 (no padding), f=37 (the
-flagship's, padded to 40) and f=45 (padded to 48, the other register
-tile). Tolerance atol 1e-4, as the card tests'
+flagship's, padded to 40), f=33 (the SVR configuration's, padded to 40)
+and f=45 (padded to 48, the other register tile). Tolerance atol 1e-4, as the card tests'
 (tests/test_torch_port_cuda.py): the CPU's float rounding differs from
 the GPU's, not the algorithm. Two launches must give equal bits."""
 
@@ -106,7 +106,8 @@ def _inputs(f, B, N, seed, K=2):
 # N = 50: one block whose first points are partial; f = 45 (padded to
 # 48, 2 points a thread) at N = 600: the second block's first points
 # live in 88 threads, its second points in none
-@pytest.mark.parametrize("f,N", [(8, 818), (37, 818), (37, 50), (45, 600)])
+@pytest.mark.parametrize("f,N", [(8, 818), (37, 818), (37, 50), (45, 600),
+                                 (33, 1250)])
 @pytest.mark.parametrize("inverse", [False, True])
 def test_emulated_point_decode(lib, f, N, inverse):
     packed, ab, p = _inputs(f, 2, N, f + N)

@@ -8,7 +8,8 @@ thread, so the shapes are small: f=5 (padded to 8) with a ragged second
 512-point segment, f=13 (padded to 16) with B=1; the forward also at
 f=8 (the narrowest width, no padding) over three segments ragged in
 every tile size (B=3: 9 partial rows a component), and at f=45 (padded
-to 48, above the flagship's 40). The forward runs twice and must give
+to 48, above the flagship's 40); both kernels also at f=33 (the SVR
+configuration's width, padded to 40) with a ragged N=1250. The forward runs twice and must give
 equal bits. Tolerances are the card tests'
 (tests/test_torch_port_cuda.py): the CPU's float rounding differs from
 the GPU's, not the algorithm."""
@@ -106,12 +107,15 @@ def _rel_err(got, want):
     return ((got - want).abs().max() / (want.abs().max() + 1e-12)).item()
 
 
-SHAPES = [(5, 2, 600), (13, 1, 130)]
+# f = 33 (padded to 40), the SVR configuration's width, at a ragged
+# N = 1250: three 512-point segments, the last of 226 points, ragged in
+# the 128-point tiles too
+SHAPES = [(5, 2, 600), (13, 1, 130), (33, 2, 1250)]
 # N = 1100: three 512-point segments (9 partial rows a component, more
 # than the reductions' 8 row groups), the last ragged in the 128-point
 # tiles of the hidden and update passes; the emulated card's 3 SMs give
 # the hidden pass 3 persistent blocks a component, 9 tiles each
-FWD_SHAPES = SHAPES + [(8, 3, 1100), (45, 1, 70)]
+FWD_SHAPES = SHAPES + [(8, 3, 1100), (45, 1, 70), (33, 3, 1250)]
 
 
 @pytest.mark.parametrize("f,B,N", FWD_SHAPES)
