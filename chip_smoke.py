@@ -61,7 +61,25 @@ non-zero at the first failure:
      plain versions; the samples against the plain decode; the eval loss
      through kernel 1 against the modules; the loop's and bare steps'
      ms/step in turns, peak memory, and a profiled step's busy time, the
-     ResNet's share of it and kernels 7 and 8.
+     ResNet's share of it and kernels 7 and 8;
+  7. cli: the four command-line entry points' `run` functions (cli/
+     train_ae, evaluate_ae, reconstruct_ae, train_svr), their arguments
+     parsed as scripts/*.sh give them, on in-memory ShapeNet layouts
+     (data/synthetic.py: jittered closed ellipsoids of 5,120 faces, and
+     for SVR 24 noise RGBA views of 137 x 137 a shape) read by the
+     port's datasets, which sample each batch's clouds from the meshes:
+     the flagship config (config_generative_modeling_airplane.yaml, read
+     by the port's YAML reader) through train_ae for one epoch (4 steps,
+     checkpoint, validation), evaluate_ae generating (CD, EMD, JSD, 2
+     reps) and autoencoding (CD, EMD, F1) on its checkpoint, and
+     reconstruct_ae's dump; config_SVR.yaml through train_svr for one
+     epoch (4 steps at B=128) and evaluate_ae reconstruction (CD, EMD,
+     F1) over 2 batches. Each stage's kernel launches are read around
+     it; the restored models are bit-equal to the trained ones, every
+     metric is finite and the JSD in [0, 1], and sampled clouds lie on
+     their meshes. It prints the loader's ms/batch by part, the CLI
+     loop's ms/step beside phases 5's and 6's, whether the loader keeps
+     up with the step, and each evaluation's wall time.
 
 Phase 2 also checks that two launches of kernels 1, 2 and 6 give equal
 bits, holds kernel 2's minima equal to the plain version's (its indices
@@ -1710,7 +1728,7 @@ def phase_loop(card, bare_step_ms, pd_err):
         f"{timings['modules']:.2f} ms/batch; "
         f"pack_decoder's check of the decoder's tensors {key_ms:.3f} ms, a "
         f"full pack {pack_ms:.2f} ms [{card}]")
-    return launches
+    return launches, loop_ms
 
 
 def resnet_device_ms(prof, window):
@@ -2091,7 +2109,540 @@ def phase_svr(card, pd_err):
         f"{name} {ms:.3f} ms, bound {bounds[name][0]:.3f} ms "
         f"({bounds[name][1]}), {launches[name]} launches in phase 6"
         for name, (_, ms) in measured.items()) + f" [{card}]")
-    return launches, measured, bounds
+    return launches, loop_ms
+
+
+# --------------------------------------------------------------------- #
+# phase 7: the command-line entry points on mesh-sampled data          #
+# --------------------------------------------------------------------- #
+
+# shapes of the in-memory ShapeNet layouts (data/synthetic.py): closed
+# jittered ellipsoids of 5,120 faces (icosphere level 4), 2,562 vertices
+SPHERE_LEVEL = 4
+FLAGSHIP_SHAPES = {"train": 256, "val": 128, "test": 64}
+# 24 views a shape: 22 shapes give 4 train batches of 128 views, 10 test
+# shapes 2 reconstruction batches (128 and 112 views)
+SVR_SHAPES = {"train": 22, "test": 10}
+SURFACE_ATOL = 1e-5
+
+
+def surface_distance(points, vertices, faces):
+    """Each point's distance to the nearest triangle that contains its
+    projection (float64, on the card): 0 up to rounding for a point
+    sampled from the surface."""
+    import torch
+
+    tri = torch.as_tensor(vertices, dtype=torch.float64,
+                          device="cuda")[torch.as_tensor(
+                              faces.astype("int64"), device="cuda")]
+    a, e0, e1 = tri[:, 0], tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0]
+    n = torch.linalg.cross(e0, e1)
+    n = n / n.norm(dim=1, keepdim=True)
+    d00, d01, d11 = ((e0 * e0).sum(1), (e0 * e1).sum(1), (e1 * e1).sum(1))
+    den = d00 * d11 - d01 * d01
+    pts = torch.as_tensor(points, dtype=torch.float64, device="cuda")
+    out = []
+    for chunk in pts.split(512):
+        d = chunk[:, None, :] - a[None]
+        dist = (d * n).sum(-1).abs()
+        d20, d21 = (d * e0).sum(-1), (d * e1).sum(-1)
+        s = (d11 * d20 - d01 * d21) / den
+        t = (d00 * d21 - d01 * d20) / den
+        inside = (s >= -1e-6) & (t >= -1e-6) & (s + t <= 1 + 1e-6)
+        out.append(torch.where(inside, dist, torch.inf).min(1).values)
+    return torch.cat(out)
+
+
+def shape_of(dataset, i) -> int:
+    """The mesh index of a ShapeNet dataset's item i."""
+    if hasattr(dataset, "_view"):
+        return dataset._view(i)[0]
+    if dataset.chosen_label is not None:
+        return int(dataset.chosen_label_inds[i])
+    return int(i)
+
+
+def check_on_surface(dataset, scale, n_clouds=4):
+    """The clouds that the dataset's get_batch draws for its first items
+    (both halves, cloud and eval_cloud, undone by the config's scale)
+    lie on their meshes."""
+    indices = list(range(n_clouds))
+    shapes = [shape_of(dataset, i) for i in indices]
+    worst = 0.0
+    for sample, shape in zip(dataset.get_batch(indices), shapes):
+        vertices, faces = dataset._read_mesh(shape)
+        for key in ("cloud", "eval_cloud"):
+            pts = sample[key].T.astype("float64") * scale
+            worst = max(worst, float(surface_distance(pts, vertices,
+                                                      faces).max()))
+    if not worst <= SURFACE_ATOL:
+        fail(f"sampled clouds lie up to {worst:.3g} off their meshes' "
+             f"surfaces (tolerance {SURFACE_ATOL})")
+    return worst
+
+
+def loader_breakdown(dataset, batch_size, reps=3):
+    """Host milliseconds per batch of the data path, its parts timed
+    alone on the same batches: mesh sampling (one native call), the cloud
+    transforms, the image transforms (SVR), the collate, and the whole
+    assembly of a batch as the loader does it (get_batch and collate)."""
+    import numpy as np
+
+    from go_with_the_flows_tpu_torch.data.loader import DataLoader, _collate
+
+    loader = DataLoader(dataset, batch_size, shuffle=True, seed=3,
+                        prefetch=0)
+    chunks = [np.arange(b * batch_size, (b + 1) * batch_size)
+              for b in range(min(reps, len(dataset) // batch_size))]
+    parts = {"sampling": [], "clouds": [], "images": [], "collate": [],
+             "batch": []}
+    for chunk in chunks:
+        views = [dataset._view(i) for i in chunk] \
+            if hasattr(dataset, "_view") else None
+        shapes = [shape_of(dataset, i) for i in chunk]
+        t = time.perf_counter()
+        pts = dataset._sample_batch(shapes, views[0][1] if views
+                                    else shapes[0])
+        parts["sampling"].append(time.perf_counter() - t)
+        samples = [dataset._split(p) for p in pts]
+        if views:
+            raw = [dataset._image(im) for _, im in views]
+            t = time.perf_counter()
+            images = [dataset.image_transform(im) for im in raw]
+            parts["images"].append(time.perf_counter() - t)
+            for s, im in zip(samples, images):
+                s["image"] = im
+        t = time.perf_counter()
+        samples = [dataset.cloud_transform(s) for s in samples]
+        parts["clouds"].append(time.perf_counter() - t)
+        t = time.perf_counter()
+        _collate(samples)
+        parts["collate"].append(time.perf_counter() - t)
+        t = time.perf_counter()
+        loader._assemble(chunk)
+        parts["batch"].append(time.perf_counter() - t)
+    return {k: 1000.0 * sum(v) / len(v) for k, v in parts.items() if v}
+
+
+def zero(wrappers):
+    for w in wrappers:
+        w.launches = 0
+
+
+def read(wrappers):
+    return {w.__name__: w.launches for w in wrappers}
+
+
+def expect_launches(stage, got, named, exact=None):
+    """Fail unless each kernel named for the stage launched (exactly
+    `exact[name]` times where given)."""
+    for name in named:
+        if got[name] == 0:
+            fail(f"{stage}: {name} was not launched")
+    for name, n in (exact or {}).items():
+        if got[name] != n:
+            fail(f"{stage}: {name} launched {got[name]} times, {n} "
+                 "expected")
+
+
+def same_model(stage, restored, saved_state):
+    import torch
+
+    got = restored.state_dict()
+    want = saved_state.model.state_dict()
+    bad = [k for k in want if not torch.equal(got[k].cpu(), want[k].cpu())]
+    if sorted(got) != sorted(want) or bad:
+        fail(f"{stage}: the restored model differs from the trained one "
+             f"in {bad[:5]}")
+
+
+def finite_metrics(stage, results):
+    import math
+
+    for res in results:
+        bad = {k: v for k, v in res.items() if not math.isfinite(v)}
+        if bad or not res:
+            fail(f"{stage}: metrics {res}")
+        if "jsd" in res and not -1e-9 <= res["jsd"] / 100.0 <= 1.0 + 1e-9:
+            fail(f"{stage}: JSD {res['jsd'] / 100.0} outside [0, 1]")
+
+
+class TimedLoader:
+    """A DataLoader whose batches are timed on the host, per epoch: the
+    main thread's wait in next() for each batch, and each batch's
+    assembly on the producer thread (wall time, and that thread's own
+    CPU time)."""
+
+    def __init__(self, loader):
+        self.loader = loader
+        self.waits, self.prod_wall, self.prod_cpu = [], 0.0, 0.0
+        assemble = loader._assemble
+
+        def timed(chunk):
+            cpu, wall = time.thread_time(), time.perf_counter()
+            out = assemble(chunk)
+            self.prod_cpu += time.thread_time() - cpu
+            self.prod_wall += time.perf_counter() - wall
+            return out
+
+        loader._assemble = timed
+
+    def set_epoch(self, epoch):
+        self.waits, self.prod_wall, self.prod_cpu = [], 0.0, 0.0
+        self.loader.set_epoch(epoch)
+
+    def __len__(self):
+        return len(self.loader)
+
+    def __iter__(self):
+        it = iter(self.loader)
+        while True:
+            t = time.perf_counter()
+            batch = next(it, None)
+            if batch is None:
+                return
+            self.waits.append(time.perf_counter() - t)
+            yield batch
+
+
+def paired_turns(dataset, batch_size, num_workers, seed, step, state, svr,
+                 first_epoch, turns=3):
+    """train() epochs (the loop alone: no checkpoint) over the mesh loader
+    and over the same dataset's samples drawn once into memory, whose
+    loader only collates, in alternating turns (memory, mesh, mesh,
+    memory, ...). Per turn and loader, in ms: a step's wall time, the
+    step's wall time after the first batch (whose assembly nothing
+    overlaps), the main thread's wait for a batch after the first, its
+    CPU time a step, the producer's wall and CPU time a batch; and the
+    CPU cores the whole process kept busy (all threads' CPU time over the
+    wall time)."""
+    import numpy as np
+    import torch
+
+    from go_with_the_flows_tpu_torch.data.loader import DataLoader
+    from go_with_the_flows_tpu_torch.train import loops
+
+    items = []
+    for b in range(0, len(dataset), batch_size):
+        items += dataset.get_batch(np.arange(b, min(b + batch_size,
+                                                    len(dataset))))
+    loaders = {
+        "memory": TimedLoader(DataLoader(items, batch_size, shuffle=True,
+                                         seed=seed)),
+        "mesh": TimedLoader(DataLoader(dataset, batch_size, shuffle=True,
+                                       seed=seed, num_workers=num_workers))}
+    out = {name: [] for name in loaders}
+    epoch = first_epoch
+    for turn in range(turns):
+        for name in (("memory", "mesh") if turn % 2 == 0
+                     else ("mesh", "memory")):
+            loader = loaders[name]
+            torch.cuda.synchronize()
+            wall, main, proc = (time.perf_counter(), time.thread_time(),
+                                time.process_time())
+            state = loops.train(loader, step, state, epoch, 0, False, "cuda",
+                                svr=svr)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - wall
+            main = time.thread_time() - main
+            proc = time.process_time() - proc
+            n = len(loader)
+            first = loader.waits[0]
+            out[name].append({
+                "ms": 1000.0 * wall / n,
+                "ms_after_first": 1000.0 * (wall - first) / n,
+                "wait": 1000.0 * sum(loader.waits[1:]) / max(n - 1, 1),
+                "main_cpu": 1000.0 * main / n,
+                "producer_wall": 1000.0 * loader.prod_wall / n,
+                "producer_cpu": 1000.0 * loader.prod_cpu / n,
+                "cores": proc / wall})
+            epoch += 1
+    return out
+
+
+def phase_cli(card, loop_ms, svr_loop_ms):
+    import importlib.util
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from go_with_the_flows_tpu_torch.cli import (
+        evaluate_ae, reconstruct_ae, train_ae, train_svr)
+    from go_with_the_flows_tpu_torch.data.synthetic import (
+        synthetic_images, synthetic_meshes)
+    from go_with_the_flows_tpu_torch.ops.kernels.chamfer import nn_distance
+    from go_with_the_flows_tpu_torch.ops.kernels.emd import (
+        emd_backward, emd_cost)
+    from go_with_the_flows_tpu_torch.ops.kernels.pairwise import (
+        pairwise_cd_stats, pairwise_emd)
+    from go_with_the_flows_tpu_torch.ops.kernels.point_decode import (
+        point_decode)
+    from go_with_the_flows_tpu_torch.ops.kernels.train_decode import (
+        train_decode_bwd, train_decode_fwd)
+    from go_with_the_flows_tpu_torch.train.step import make_train_step
+    from go_with_the_flows_tpu_torch.utils.config import (
+        load_config, write_config)
+
+    wrappers = (point_decode, nn_distance, pairwise_cd_stats, emd_cost,
+                emd_backward, pairwise_emd, train_decode_fwd,
+                train_decode_bwd)
+    total = {w.__name__: 0 for w in wrappers}
+
+    def stage(name, fn, named, exact=None):
+        zero(wrappers)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        got = read(wrappers)
+        expect_launches(name, got, named, exact)
+        for k, n in got.items():
+            total[k] += n
+        say(f"    {name}: {seconds:.2f} s, launches "
+            + ", ".join(f"{k} {n}" for k, n in got.items() if n)
+            + f" [{card}]")
+        return out, seconds
+
+    say(f"[7] cli: train_ae, evaluate_ae, reconstruct_ae and train_svr "
+        f"(their run functions) on in-memory ShapeNet layouts of "
+        f"{20 * 4 ** SPHERE_LEVEL}-face meshes")
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
+        # ---- the flagship: train_ae, evaluate_ae, reconstruct_ae ----
+        yaml_path = os.path.join(tmp, "airplane.yaml")
+        raw = load_config(os.path.join(
+            ROOT, "configs", "config_generative_modeling_airplane.yaml"))
+        write_config(dict(raw, path2save=os.path.join(tmp, "results")),
+                     yaml_path)
+        t = time.perf_counter()
+        store = synthetic_meshes(n_shapes=FLAGSHIP_SHAPES,
+                                 labels=raw["chosen_label"], seed=70,
+                                 sphere_level=SPHERE_LEVEL)
+        make_s = time.perf_counter() - t
+        # scripts/train_airplane_gen.sh's first command, 1 epoch
+        args = train_ae.define_options_parser().parse_args([
+            yaml_path, "airplane_gen_model", "1", "0.000256",
+            "--weights_type", "learned_weights", "--warmup_epoch", "5",
+            "--jobid", "chip"])
+        config = train_ae.configure(args)
+        exp = config["logging_path"]
+        if load_config(yaml_path).get("logging_path") != exp:
+            fail("train_ae did not write logging_path back into its config")
+        train_ds, val_ds = train_ae.build_datasets(config, seed=args.seed,
+                                                   store=store)
+        scale = config["cloud_scale_scale"]
+        worst = check_on_surface(train_ds, scale)
+        ae_load = loader_breakdown(train_ds, config["batch_size"])
+        say(f"    flagship data: {FLAGSHIP_SHAPES} shapes of "
+            f"{20 * 4 ** SPHERE_LEVEL} faces made in {make_s:.2f} s; "
+            f"sampled clouds at most {worst:.3g} off their meshes "
+            f"(tolerance {SURFACE_ATOL}); loader ms/batch at "
+            f"B={config['batch_size']}: "
+            + ", ".join(f"{k} {v:.2f}" for k, v in ae_load.items())
+            + f" [{card}]")
+        # train_ae.run imports torch.utils.tensorboard when tensorboard
+        # is installed: the first time, part of its set-up
+        say("    tensorboard installed: "
+            f"{importlib.util.find_spec('tensorboard') is not None}")
+        (state, timings), run_s = stage(
+            "train_ae.run (1 epoch)",
+            lambda: train_ae.run(config, train_ds, val_ds, "cuda",
+                                 seed=args.seed,
+                                 warmup_epoch=args.warmup_epoch),
+            ["train_decode_fwd", "train_decode_bwd", "point_decode"],
+            {"train_decode_fwd": 4, "train_decode_bwd": 4,
+             "point_decode": 2})
+        epoch = timings[0]
+        cli_ms = 1000.0 * epoch["train_s"] / epoch["steps"]
+        rest = run_s - epoch["train_s"] - epoch["val_s"]
+        say(f"    train_ae.run: set-up and close {rest:.2f} s (the model "
+            f"built and moved, logging), train {epoch['train_s']:.2f} s, "
+            f"validation {epoch['val_s']:.2f} s [{card}]")
+        finite_metrics("train_ae", [state.train_metrics, state.val_metrics])
+
+        def evaluate(mode, *flags):
+            n = str(config["cloud_size"])
+            eargs = evaluate_ae.define_options_parser().parse_args([
+                exp, "airplane_gen_model.ckpt", "test", n, n, mode,
+                "--weights_type", "learned_weights", "--batch_size",
+                str(config["batch_size"]), *flags])
+            econfig = evaluate_ae.eval_config(eargs)
+            dataset = evaluate_ae.build_dataset(econfig, eargs.part,
+                                                seed=eargs.seed, store=store)
+            return evaluate_ae.run(econfig, dataset, "cuda", reps=eargs.reps,
+                                   seed=eargs.seed)
+
+        # scripts/run_evaluate_gen.sh, 2 reps (10 there)
+        (model, gen_res), gen_s = stage(
+            "evaluate_ae generating --cd --emd --jsd --reps 2",
+            lambda: evaluate("generating", "--reps", "2",
+                             "--f1_threshold_lst", "0.0001", "--cd", "--emd",
+                             "--jsd"),
+            ["point_decode", "pairwise_cd_stats", "pairwise_emd"])
+        same_model("evaluate_ae generating", model, state)
+        finite_metrics("evaluate_ae generating", gen_res)
+        (model, ae_res), ae_s = stage(
+            "evaluate_ae autoencoding --cd --emd --f1",
+            lambda: evaluate("autoencoding", "--cd", "--emd", "--f1"),
+            ["point_decode", "nn_distance", "emd_cost"])
+        same_model("evaluate_ae autoencoding", model, state)
+        finite_metrics("evaluate_ae autoencoding", ae_res)
+
+        def reconstruct():
+            rconfig = load_config(os.path.join(exp, "config.yaml"))
+            rconfig.update(logging_path=exp,
+                           model_name="airplane_gen_model.ckpt")
+            dataset = reconstruct_ae.build_dataset(rconfig, "val",
+                                                   store=store)
+            return reconstruct_ae.run(rconfig, dataset, "cuda",
+                                      batch_size=config["batch_size"])
+
+        (samples, gts, labels), rec_s = stage(
+            "reconstruct_ae", reconstruct, ["point_decode"],
+            {"point_decode": 2})
+        cloud = (FLAGSHIP_SHAPES["val"], 3, config["cloud_size"])
+        if samples.shape != cloud or gts.shape != cloud \
+                or labels.shape != (cloud[0], cloud[2]) \
+                or not np.isfinite(samples).all() or labels.min() < 1 \
+                or labels.max() > config["n_components"]:
+            fail(f"reconstruct_ae: {samples.shape}, {gts.shape}, "
+                 f"{labels.shape}, labels {labels.min()}..{labels.max()}")
+        for name in ("all_samples", "all_gts", "all_labels"):
+            if not os.path.isfile(os.path.join(exp, name + ".npy")):
+                fail(f"reconstruct_ae wrote no {name}.npy")
+        say("    generating (mean of 2 reps): " + ", ".join(
+            f"{k} {np.mean([r[k] for r in gen_res]):.2f}" for k in gen_res[0])
+            + "; autoencoding: " + ", ".join(
+                f"{k} {v:.3f}" for k, v in ae_res[0].items())
+            + "; the restored models bit-equal to the trained one")
+        ae_turns = paired_turns(
+            train_ds, config["batch_size"], config["num_workers"], args.seed,
+            make_train_step(state.model, state.optimizer), state, False, 1)
+        del state, model
+        torch.cuda.empty_cache()
+
+        # ---- SVR: train_svr, evaluate_ae reconstruction ----
+        svr_yaml = os.path.join(tmp, "svr.yaml")
+        raw = load_config(os.path.join(ROOT, "configs", "config_SVR.yaml"))
+        write_config(dict(raw, path2save=os.path.join(tmp, "results")),
+                     svr_yaml)
+        t = time.perf_counter()
+        hw = 137
+        svr_store = {**synthetic_meshes(n_shapes=SVR_SHAPES,
+                                        parts=tuple(SVR_SHAPES), seed=71,
+                                        sphere_level=SPHERE_LEVEL),
+                     **synthetic_images(n_shapes=SVR_SHAPES,
+                                        parts=tuple(SVR_SHAPES), hw=hw,
+                                        seed=72)}
+        make_s = time.perf_counter() - t
+        # scripts/train_all_svr.sh's first command, 1 epoch
+        sargs = train_svr.define_options_parser().parse_args([
+            svr_yaml, "all_svr_model", "1", "0.000256", "--weights_type",
+            "learned_weights", "--warmup_epoch", "1", "--jobid", "chip"])
+        sconfig = train_svr.configure(sargs)
+        svr_ds = train_svr.build_dataset(sconfig, seed=sargs.seed,
+                                         store=svr_store)
+        worst = check_on_surface(svr_ds, sconfig["cloud_scale_scale"])
+        svr_load = loader_breakdown(svr_ds, sconfig["batch_size"])
+        say(f"    SVR data: {SVR_SHAPES} shapes x 24 views of {hw} x {hw} "
+            f"RGBA, made in {make_s:.2f} s; sampled clouds at most "
+            f"{worst:.3g} off their meshes; loader ms/batch at "
+            f"B={sconfig['batch_size']}: "
+            + ", ".join(f"{k} {v:.2f}" for k, v in svr_load.items())
+            + f" [{card}]")
+        (sstate, stimings), _ = stage(
+            "train_svr.run (1 epoch)",
+            lambda: train_svr.run(sconfig, svr_ds, "cuda", seed=sargs.seed,
+                                  warmup_epoch=sargs.warmup_epoch),
+            ["train_decode_fwd", "train_decode_bwd"],
+            {"train_decode_fwd": 4, "train_decode_bwd": 4})
+        svr_cli_ms = 1000.0 * stimings[0]["train_s"] / stimings[0]["steps"]
+        finite_metrics("train_svr", [sstate.train_metrics])
+
+        def evaluate_svr():
+            # scripts/run_evaluate_svr.sh, at the training batch
+            n = str(sconfig["cloud_size"])
+            eargs = evaluate_ae.define_options_parser().parse_args([
+                sconfig["logging_path"], "all_svr_model.ckpt", "test", n, n,
+                "reconstruction", "--weights_type",
+                "learned_weights", "--reps", "1", "--f1_threshold_lst",
+                "0.001", "--cd", "--f1", "--emd", "--unit_scale_evaluation",
+                "--batch_size", str(sconfig["batch_size"])])
+            econfig = evaluate_ae.eval_config(eargs)
+            dataset = evaluate_ae.build_dataset(econfig, eargs.part,
+                                                seed=eargs.seed,
+                                                store=svr_store)
+            return evaluate_ae.run(econfig, dataset, "cuda", reps=eargs.reps,
+                                   seed=eargs.seed)
+
+        (model, rec_res), svr_eval_s = stage(
+            "evaluate_ae reconstruction --cd --emd --f1 (SVR)",
+            evaluate_svr, ["point_decode", "nn_distance", "emd_cost"],
+            {"point_decode": 2})
+        same_model("evaluate_ae reconstruction", model, sstate)
+        finite_metrics("evaluate_ae reconstruction", rec_res)
+        say("    SVR reconstruction: " + ", ".join(
+            f"{k} {v:.6f}" for k, v in rec_res[0].items())
+            + "; the restored model bit-equal to the trained one")
+        svr_turns = paired_turns(
+            svr_ds, sconfig["batch_size"], sconfig["num_workers"], sargs.seed,
+            make_train_step(sstate.model, sstate.optimizer, svr=True),
+            sstate, True, 1)
+        del sstate, model
+
+    say(f"    evaluate_ae wall s: generating (2 reps) {gen_s:.2f}, "
+        f"autoencoding {ae_s:.2f}, SVR reconstruction {svr_eval_s:.2f}; "
+        f"reconstruct_ae {rec_s:.2f} [{card}]")
+    from go_with_the_flows_tpu_torch.data.native import sampler_threads
+
+    say(f"    host: {os.cpu_count()} CPUs, {sampler_threads()} in this "
+        f"process's affinity (the sampler's threads a batch, at most one a "
+        f"mesh)")
+    for what, phase, cli, steps, loop, turns, load in (
+            (f"flagship B={config['batch_size']}", 5, cli_ms,
+             epoch["steps"], loop_ms, ae_turns, ae_load),
+            (f"SVR B={sconfig['batch_size']}", 6, svr_cli_ms,
+             stimings[0]["steps"], svr_loop_ms, svr_turns, svr_load)):
+        med = {name: {k: float(np.median([t[k] for t in runs]))
+                      for k in runs[0]} for name, runs in turns.items()}
+        mem = [t["ms_after_first"] for t in turns["memory"]]
+        step_ms = med["memory"]["ms_after_first"]
+        spread = max(mem) - min(mem)
+        excess = med["mesh"]["ms_after_first"] - step_ms
+        # the verdict: the loader alone against the step; then whether the
+        # loop over it is slower than the in-memory loop by more than the
+        # in-memory turns' own spread
+        if load["batch"] >= step_ms:
+            keeps = (f"does NOT keep up: the loader alone takes "
+                     f"{load['batch']:.2f} ms a batch against the step's "
+                     f"{step_ms:.2f}")
+        elif excess > spread:
+            keeps = (f"keeps up alone ({load['batch']:.2f} ms a batch "
+                     f"against the step's {step_ms:.2f}), but the loop over "
+                     f"it is {excess:+.2f} ms/step off the in-memory loop, "
+                     f"beyond that loop's spread of {spread:.2f}")
+        else:
+            keeps = (f"keeps up: {load['batch']:.2f} ms a batch against the "
+                     f"step's {step_ms:.2f}, and the loop over it "
+                     f"{excess:+.2f} ms/step off the in-memory loop, within "
+                     f"that loop's spread of {spread:.2f}")
+        say(f"    {what}: the input pipeline {keeps} [{card}]")
+        for name in ("memory", "mesh"):
+            say(f"      {name} loader, {len(turns[name])} turns "
+                f"interleaved: ms/step " + ", ".join(
+                    f"{t['ms']:.2f}" for t in turns[name])
+                + "; medians: " + ", ".join(
+                    f"{k} {v:.2f}" for k, v in med[name].items())
+                + f" [{card}]")
+        say(f"      phase {phase}'s in-memory loop " + ", ".join(
+            f"{v:.2f}" for v in loop) + f" ms/step; the CLI's epoch "
+            f"{cli:.2f} ms/step ({steps} steps, the first batch's assembly "
+            f"and the end-of-epoch checkpoint included); the loader alone "
+            f"on one thread, the config's num_workers unused by get_batch "
+            f"[{card}]")
+    return total
 
 
 def main() -> None:
@@ -2118,18 +2669,22 @@ def main() -> None:
     train_launches, bare_step_ms = phase_train(card)
     launches.update(train_launches)
     marks.append(time.perf_counter())
-    loop_launches = phase_loop(card, bare_step_ms, measured["point_decode"][0])
+    loop_launches, loop_ms = phase_loop(card, bare_step_ms,
+                                        measured["point_decode"][0])
     for name, n in loop_launches.items():
         launches[name] += n
     marks.append(time.perf_counter())
-    svr_launches, _, _ = phase_svr(card, measured["point_decode"][0])
+    svr_launches, svr_loop_ms = phase_svr(card, measured["point_decode"][0])
     for name, n in svr_launches.items():
+        launches[name] += n
+    marks.append(time.perf_counter())
+    for name, n in phase_cli(card, loop_ms, svr_loop_ms).items():
         launches[name] += n
     marks.append(time.perf_counter())
     say("phase seconds: " + ", ".join(
         f"{name} {b - a:.1f}" for name, a, b in
-        zip(("build", "kernels", "slice", "train", "loop", "svr"), marks,
-            marks[1:])))
+        zip(("build", "kernels", "slice", "train", "loop", "svr", "cli"),
+            marks, marks[1:])))
     if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
         fail("jax was imported")
 

@@ -10,7 +10,11 @@ numpy batches and hands (B, 3, N) clouds to the step, which moves them
 to the device.
 
 A dataset is anything with `__len__` and `__getitem__` that returns a
-dict of arrays; its `set_epoch(epoch)` is called when it has one. Workers: `num_workers > 0` with the default
+dict of arrays; its `set_epoch(epoch)` is called when it has one. A
+dataset with `get_batch(indices)` (the ShapeNet datasets, whose
+`get_batch` draws a whole batch's clouds in one multithreaded native
+call) gives each batch's samples in one call, and the workers are not
+used. Otherwise, `num_workers > 0` with the default
 `worker_type="thread"` maps the samples over a thread pool;
 `worker_type="process"` over a spawn-based process pool, each worker
 holding its own unpickled copy of the dataset. `prefetch > 0` assembles
@@ -130,6 +134,8 @@ class DataLoader:
         return self._pool
 
     def _assemble(self, chunk) -> dict:
+        if hasattr(self.dataset, "get_batch"):
+            return _collate(self.dataset.get_batch(chunk))
         pool = self._get_pool()
         if pool is None:
             samples = [self.dataset[int(i)] for i in chunk]

@@ -6,13 +6,15 @@ CD, EMD and F1 meters.
 `loader` is any iterable of batch dicts with numpy arrays: `cloud`
 (B, 3, N) for the encoder, `eval_cloud` (B, 3, N) for the metrics,
 `image` (B, 4, H, W) for SVR, and `orig_s` / `orig_c` when
-`orig_scale_evaluation` rescales. No h5 loader is needed.
-
-Not ported yet: the h5 dump (`saving`) and the voxel JSD.
+`orig_scale_evaluation` rescales. With `saving`, the sampled and
+ground-truth clouds, the labels and (SVR) the images go into an h5 file
+beside the checkpoint (h5py is imported only then); `jsd` adds the voxel
+JSD to the generating protocol.
 """
 
 from __future__ import annotations
 
+import os
 from time import perf_counter
 from typing import Callable, Dict
 
@@ -24,6 +26,7 @@ from ..metrics.evaluation import (
     _as_tensor,
     compute_all_metrics,
     f_score,
+    voxel_jsd,
 )
 from ..ops.kernels.chamfer import chamfer
 from ..ops.kernels.emd import emd_cost
@@ -60,6 +63,54 @@ def _denormalize(r_clouds, p_clouds, batch, **kwargs):
     return r_clouds, p_clouds
 
 
+class _CloudsDump:
+    """The h5 dump of an evaluation pass (JAX eval/evaluating.py:106-140,
+    185-203): `sampled_clouds` (S, 3, N), `gt_clouds` (S, 3, N'),
+    `sampled_labels` (S, N) int8 and, for SVR, `image_clouds` (S, 4, H,
+    W), S = N_sets x the dataset's length, rows written in loader order
+    up to S."""
+
+    def __init__(self, loader, svr: bool, **kwargs):
+        import h5py
+
+        n_total = kwargs.get("N_sets", 1) * len(loader.dataset)
+        n_points = kwargs["sampled_cloud_size"]
+        name = "{}_{}_{}_{}_clouds_{}.h5".format(
+            os.path.splitext(kwargs["model_name"])[0], loader.dataset.part,
+            kwargs["cloud_size"], n_points, kwargs["util_mode"])
+        self.path = os.path.join(kwargs["logging_path"], name)
+        print(self.path)
+        self.file = h5py.File(self.path, "w")
+        f = self.file
+        self.sets = {
+            "sampled": f.create_dataset("sampled_clouds",
+                                        shape=(n_total, 3, n_points),
+                                        dtype=np.float32),
+            "gt": f.create_dataset("gt_clouds",
+                                   shape=(n_total, 3, kwargs["cloud_size"]),
+                                   dtype=np.float32),
+            "labels": f.create_dataset("sampled_labels",
+                                       shape=(n_total, n_points),
+                                       dtype=np.int8),
+        }
+        if svr:
+            h, w = kwargs.get("image_size", [224, 224])
+            self.sets["images"] = f.create_dataset(
+                "image_clouds", shape=(n_total, 4, h, w), dtype=np.float32)
+        self.pos = 0
+
+    def write(self, **rows) -> None:
+        take = max(0, min(len(rows["sampled"]),
+                          self.sets["sampled"].shape[0] - self.pos))
+        for key, ds in self.sets.items():
+            ds[self.pos:self.pos + take] = np.asarray(
+                rows[key][:take]).astype(ds.dtype)
+        self.pos += take
+
+    def close(self) -> None:
+        self.file.close()
+
+
 def evaluate(loader, sample_step: Callable, generator: torch.Generator,
              device, svr: bool = False, **kwargs) -> Dict[str, float]:
     """One evaluation pass; returns the metric dict and prints the
@@ -69,7 +120,9 @@ def evaluate(loader, sample_step: Callable, generator: torch.Generator,
     SVR step, handed each batch's `image`); `generator` (on `device`)
     drives every random draw, so a seed fixes the result. kwargs are the
     flat config keys the JAX `evaluate` reads (util_mode, cd, emd, f1,
-    f1_threshold_lst, the de-normalisation keys, ref_cache).
+    f1_threshold_lst, the de-normalisation keys, ref_cache, jsd, and
+    with saving: model_name, logging_path, cloud_size,
+    sampled_cloud_size, N_sets and, for SVR, image_size).
 
     Reconstruction keeps per-batch meters, each batch weighted by its
     size: CD as mean(dl) + mean(dr) per cloud (the `nn_distance` kernel
@@ -79,11 +132,20 @@ def evaluate(loader, sample_step: Callable, generator: torch.Generator,
     util_mode = kwargs.get("util_mode")
     if util_mode not in ("generating", "autoencoding", "reconstruction"):
         raise ValueError(f"unknown util_mode {util_mode!r}")
-    for key in ("saving", "jsd"):
-        if kwargs.get(key):
-            raise NotImplementedError(f"{key!r} is not ported yet")
     device = torch.device(device)
+    dump = _CloudsDump(loader, svr, **kwargs) if kwargs.get("saving") \
+        else None
+    try:
+        return _evaluate(loader, sample_step, generator, device, svr, dump,
+                         **kwargs)
+    finally:
+        if dump is not None:
+            dump.close()
 
+
+def _evaluate(loader, sample_step, generator, device, svr, dump,
+              **kwargs) -> Dict[str, float]:
+    util_mode = kwargs["util_mode"]
     inf_time = AverageMeter()
     gen_buf, ref_buf = [], []
     thresholds = kwargs.get("f1_threshold_lst", [1e-3])
@@ -93,10 +155,10 @@ def evaluate(loader, sample_step: Callable, generator: torch.Generator,
         g_clouds = _as_tensor(batch["cloud"], device)
         start = perf_counter()
         if svr:
-            samples, _, _ = sample_step(
+            samples, labels, _ = sample_step(
                 g_clouds, generator, images=_as_tensor(batch["image"], device))
         else:
-            samples, _, _ = sample_step(g_clouds, generator)
+            samples, labels, _ = sample_step(g_clouds, generator)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         bsz = samples.shape[0]
@@ -104,6 +166,12 @@ def evaluate(loader, sample_step: Callable, generator: torch.Generator,
         r_clouds, p_clouds = _denormalize(
             samples.cpu().numpy(), np.asarray(batch["eval_cloud"]), batch,
             **kwargs)
+        if dump is not None:
+            rows = dict(sampled=r_clouds, gt=p_clouds,
+                        labels=labels.cpu().numpy())
+            if svr:
+                rows["images"] = batch["image"]
+            dump.write(**rows)
         if util_mode != "reconstruction":
             gen_buf.append(r_clouds)
             ref_buf.append(p_clouds)
@@ -168,6 +236,10 @@ def evaluate(loader, sample_step: Callable, generator: torch.Generator,
                                  device=device).item())
         dup = np.random.default_rng(seed).choice(ok, size=len(nan_inds))
         gen[nan_inds] = gen[dup]
+
+    if kwargs.get("jsd"):
+        res["jsd"] = voxel_jsd(gen, ref, warn=False) * 1e2
+        print("JSD:\t{:.2f}".format(res["jsd"]))
 
     for thr in thresholds:
         metrics = compute_all_metrics(

@@ -6,9 +6,8 @@ where the metric work runs: the card (the default) unless the caller
 names the CPU. On the card the paired metrics go through the
 `nn_distance` and `emd_cost` kernels and the (S, R) matrices through the
 `pairwise_cd_stats` and `pairwise_emd` kernels; on the CPU through their
-plain versions.
-
-Not ported yet: the voxel JSD (the card's machine has no scikit-learn).
+plain versions. The voxel JSD (`voxel_jsd`) is host numpy, as in the
+JAX package, its entropies written out instead of taken from scipy.
 """
 
 from __future__ import annotations
@@ -258,3 +257,46 @@ def compute_all_metrics(
         upd_nn("CD-left", ss[3], rs_cdl, rr[3])
         upd_nn("CD-right", ss[4], rs_cdr, rr[4])
     return results
+
+
+# --------------------------------------------------------------------- #
+# The voxel JSD of the generative protocol (JAX metrics/evaluation.py:  #
+# 581-618; reference lib/networks/utils.py:45-87): the JSD between two  #
+# sets' 28^3 voxel point-count distributions                            #
+# --------------------------------------------------------------------- #
+
+def voxel_occupancy_dist(all_clouds, res: int = 28, bound: float = 0.5,
+                         warn: bool = True, flag: str = "gen") -> np.ndarray:
+    """Normalised voxel point-count histogram over [-bound, bound)^3 of
+    clouds (S, N, 3); points outside the cube (and NaN points) are
+    dropped."""
+    all_clouds = np.asarray(all_clouds)
+    if warn and np.any(np.fabs(all_clouds) > bound):
+        print(f"{flag} clouds out of cube bounds: [-{bound}; {bound}]")
+    n_nans = int(np.isnan(all_clouds).sum())
+    if n_nans > 0:
+        print(f"{n_nans} NaN values in point cloud tensors.")
+
+    edges = -bound + np.arange(res + 1) * (2 * bound / res)
+    pts = all_clouds.reshape(-1, 3)
+    hist = np.zeros((res, res, res), np.uint64)
+    idx = np.stack([np.digitize(pts[:, c], edges) - 1 for c in range(3)],
+                   axis=1)
+    valid = ((idx >= 0) & (idx < res)).all(axis=1)
+    idx = idx[valid]
+    np.add.at(hist, (idx[:, 0], idx[:, 1], idx[:, 2]), 1)
+    return np.float64(hist) / max(hist.sum(), 1)
+
+
+def _entropy2(p: np.ndarray) -> float:
+    """Base-2 entropy -sum p log2 p over the cells with p > 0."""
+    p = p[p > 0]
+    return float(-(p * np.log2(p)).sum())
+
+
+def voxel_jsd(clouds1, clouds2, warn: bool = True) -> float:
+    """Base-2 JSD between the voxel point-count distributions of two sets
+    of clouds (S, N, 3), in [0, 1]."""
+    d1 = voxel_occupancy_dist(clouds1, warn=warn, flag="gen").ravel()
+    d2 = voxel_occupancy_dist(clouds2, warn=warn, flag="ref").ravel()
+    return _entropy2((d1 + d2) / 2.0) - 0.5 * (_entropy2(d1) + _entropy2(d2))

@@ -51,14 +51,17 @@ def save_checkpoint(logging_path: str, model_name: str, state: TrainState,
 
 
 def restore_checkpoint(logging_path: str, model_name: str,
-                       state: TrainState) -> Tuple[TrainState, int, int]:
+                       state: TrainState, restore_optimizer: bool = True
+                       ) -> Tuple[TrainState, int, int]:
     """Load a checkpoint into `state` (its model, optimizer and generator
     are written in place, on their own devices) and return (state, epoch,
-    iter)."""
+    iter). With restore_optimizer=False the optimizer keeps its fresh
+    state (the reference's --resume without --resume_optimizer)."""
     path = os.path.join(_ckpt_dir(logging_path, model_name), _FILE)
     payload = torch.load(path, map_location="cpu", weights_only=True)
     state.model.load_state_dict(payload["model_state"])
-    state.optimizer.load_state_dict(payload["optimizer_state"])
+    if restore_optimizer:
+        state.optimizer.load_state_dict(payload["optimizer_state"])
     state.generator.set_state(payload["generator_state"])
     state.step = int(payload["step"])
     return state, int(payload["epoch"]), int(payload["iter"])

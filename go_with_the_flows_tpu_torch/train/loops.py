@@ -1,5 +1,5 @@
 """Training, validation and reconstruction loops (counterpart of
-go_with_the_flows_tpu/train/loops.py, one process, no TensorBoard).
+go_with_the_flows_tpu/train/loops.py, one process).
 
   * train(): one epoch of train steps; stdout meter lines every
     `num_workers` steps; a NaN or infinite loss raises NaNLossError;
@@ -19,6 +19,10 @@ train() reads each step's metrics one step behind: the host queues step
 i, then waits for step i - 1's metrics alone (a copy to pinned memory and
 an event recorded behind that step), never for the step it just queued;
 the batches go to the card through pinned memory, asynchronously.
+
+`writer`: a TensorBoard SummaryWriter (or anything with `add_scalar`)
+that takes the epoch's train and val means, or with `per_step_tb` the
+running train means at every global step, as the JAX loops write them.
 """
 
 from __future__ import annotations
@@ -90,9 +94,16 @@ def _images(dev, svr: bool) -> Dict[str, torch.Tensor]:
     return {"images": dev["image"]} if svr else {}
 
 
+def _add_scalars(writer, prefix: str, means: Dict[str, float],
+                 step: int) -> None:
+    for key, tag in (("loss", "loss"), ("pnll", "PNLL"), ("gnll", "GNLL"),
+                     ("gent", "GENT")):
+        writer.add_scalar(f"{prefix}/{tag}", means[key], step)
+
+
 def train(loader, train_step: Callable, state: TrainState, epoch: int,
           start_iter: int, warmup: bool, device="cuda", svr: bool = False,
-          **config) -> TrainState:
+          writer=None, per_step_tb: bool = False, **config) -> TrainState:
     """One training epoch; returns the state, whose model, optimizer,
     generator and step count have moved on, with the epoch's mean
     metrics in state.train_metrics.
@@ -128,6 +139,10 @@ def train(loader, train_step: Callable, state: TrainState, epoch: int,
                 f"Loss is {m['loss']} at epoch {epoch} iter {it}")
         for k in meters:
             meters[k].update(m[k], bsz)
+        if per_step_tb and writer is not None and logging:
+            _add_scalars(writer, "train",
+                         {k: v.avg for k, v in meters.items()},
+                         epoch * n_batches + it + 1)
 
     loader.set_epoch(epoch)
     n_batches = len(loader)
@@ -189,12 +204,15 @@ def train(loader, train_step: Callable, state: TrainState, epoch: int,
     if ckpting:
         save_checkpoint(logging_path, model_name, state, epoch + 1, 0)
     state.train_metrics = {k: m.avg for k, m in meters.items()}
+    if logging and writer is not None and not per_step_tb:
+        _add_scalars(writer, "train", state.train_metrics, epoch)
     return state
 
 
 def evaluate_val(loader, eval_step: Callable, state: TrainState, epoch: int,
                  warmup: bool, min_loss: float, generator: torch.Generator,
-                 device="cuda", svr: bool = False, **config) -> float:
+                 device="cuda", svr: bool = False, writer=None,
+                 **config) -> float:
     """Validation epoch: the training-path loss with BatchNorm running
     statistics, and the best-model checkpoint ("best_model_" +
     model_name) when the mean loss beats `min_loss`. Returns the updated
@@ -228,6 +246,8 @@ def evaluate_val(loader, eval_step: Callable, state: TrainState, epoch: int,
     if logging:
         print(f"[epoch {epoch}]: eval loss {meters['loss'].avg:f}")
     state.val_metrics = {k: m.avg for k, m in meters.items()}
+    if logging and writer is not None:
+        _add_scalars(writer, "val", state.val_metrics, epoch)
     if meters["loss"].avg < min_loss:
         min_loss = meters["loss"].avg
         if ckpting:

@@ -87,6 +87,28 @@ def test_port_imports_no_jax():
     assert int(out.stdout.strip()) >= 15
 
 
+CLI_AND_DATA = (
+    "cli", "cli.train_ae", "cli.evaluate_ae", "cli.reconstruct_ae",
+    "cli.train_svr", "data", "data.native", "data.cloud_sampling",
+    "data.cloud_transforms", "data.image_transforms", "data.datasets",
+    "data.loader", "data.synthetic", "utils.config",
+)
+
+
+def test_cli_and_data_modules_import_no_jax():
+    """The entry points and the data path, imported alone, load no JAX
+    and no module of the JAX package (nor h5py, yaml, cv2, scipy or
+    tensorboard, which the card's machine lacks)."""
+    names = ["go_with_the_flows_tpu_torch." + n for n in CLI_AND_DATA]
+    code = _IMPORT_THESE + (
+        "absent = ('h5py', 'yaml', 'cv2', 'scipy', 'tensorboard')\n"
+        "assert not [m for m in sys.modules if m.split('.')[0] in absent]\n")
+    out = subprocess.run([sys.executable, "-c", code] + names, cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) == len(CLI_AND_DATA)
+
+
 def test_chip_smoke_imports_no_jax():
     """Every import statement of chip_smoke.py, those inside its
     functions included, names no forbidden module, and importing all of

@@ -5,7 +5,9 @@ Tolerances: MMD and CD rtol 1e-5 (the same per-pair minima, averaged in
 another order); MMD-EMD and paired EMD rtol 1e-4 (the auction's sums run
 in another order, the bound of tests/test_pallas_kernels.py); COV and
 1-NNA exact (argmins and nearest neighbours of matrices that agree to
-1e-4 on these sets).
+1e-4 on these sets). The voxel JSD and its histograms: 1e-12 absolute
+(the same float64 histogram; the entropies summed by numpy here and by
+scipy there).
 """
 
 import inspect
@@ -13,7 +15,13 @@ import inspect
 import numpy as np
 import pytest
 
+import jax
+import jax.numpy as jnp
+import torch
+
+from go_with_the_flows_tpu.eval.evaluating import evaluate as j_evaluate
 from go_with_the_flows_tpu.metrics import evaluation as jev
+from go_with_the_flows_tpu_torch.eval.evaluating import evaluate as t_evaluate
 from go_with_the_flows_tpu_torch.metrics import evaluation as tev
 
 THR = 0.02  # in the bulk of the nearest-neighbour distances below
@@ -129,3 +137,75 @@ def test_metric_entry_points_default_to_the_card(entry):
     tests above do)."""
     fn = getattr(tev, entry)
     assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+def _voxel_sets(seed):
+    """Seeded clouds (S, N, 3) with points outside the [-0.5, 0.5) cube
+    and a NaN."""
+    rng = np.random.RandomState(seed)
+    a = (rng.randn(5, 200, 3) * 0.3).astype(np.float32)
+    b = (rng.randn(7, 150, 3) * 0.25).astype(np.float32)
+    a[0, :3] = [0.7, -0.6, 0.55]
+    a[1, 0, 2] = np.nan
+    b[2, 5] = [0.5, 0.49, -0.5]  # on the cube's edges
+    return a, b
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_voxel_occupancy_dist_matches_jax(seed, capsys):
+    a, b = _voxel_sets(seed)
+    for clouds in (a, b):
+        got = tev.voxel_occupancy_dist(clouds)
+        want = jev.voxel_occupancy_dist(clouds)
+        assert got.shape == want.shape == (28, 28, 28)
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-12)
+        assert abs(got.sum() - 1.0) < 1e-12
+    out = capsys.readouterr().out
+    assert "out of cube bounds" in out and "1 NaN values" in out
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_voxel_jsd_matches_jax(seed):
+    a, b = _voxel_sets(seed)
+    got = tev.voxel_jsd(a, b, warn=False)
+    want = jev.voxel_jsd(a, b, warn=False)
+    assert abs(got - want) < 1e-12
+    assert 0.0 < got < 1.0
+    assert abs(tev.voxel_jsd(a, a, warn=False)) < 1e-12
+
+
+def test_evaluate_jsd_matches_jax(capsys):
+    """evaluate(util_mode="generating", jsd=True, cd=True) in the port
+    and the JAX evaluate, each handed the same samples by its step: the
+    same JSD (1e-12) and CD protocol (rtol 1e-5, COV and 1-NNA exact)."""
+    rng = np.random.RandomState(3)
+    B, N = 4, 64
+    batches = [{"cloud": (rng.randn(B, 3, N) * 0.2).astype(np.float32),
+                "eval_cloud": (rng.randn(B, 3, N) * 0.2).astype(np.float32)}
+               for _ in range(2)]
+    samples = [(rng.randn(B, 3, N) * 0.25).astype(np.float32)
+               for _ in range(2)]
+    labels = np.ones((B, N), np.int32)
+    opts = dict(util_mode="generating", jsd=True, cd=True, f1=False,
+                emd=False, f1_threshold_lst=[THR])
+
+    replay = iter(samples)
+
+    def t_step(g, generator):
+        return torch.from_numpy(next(replay)), torch.from_numpy(labels), None
+
+    got = t_evaluate(batches, t_step, torch.Generator().manual_seed(0),
+                     "cpu", **opts)
+    replay = iter(samples)
+
+    def j_step(state, g, key):
+        return jnp.asarray(next(replay)), jnp.asarray(labels), None
+
+    want = j_evaluate(batches, j_step, None, jax.random.PRNGKey(0), **opts)
+    capsys.readouterr()
+    assert set(got) == set(want) == {"jsd", "cd_mmds", "cd_covs", "cd_1nns"}
+    assert abs(got["jsd"] - want["jsd"]) < 1e-12
+    assert 0.0 < got["jsd"] < 100.0
+    np.testing.assert_allclose(got["cd_mmds"], want["cd_mmds"], rtol=1e-5)
+    assert got["cd_covs"] == want["cd_covs"]
+    assert got["cd_1nns"] == want["cd_1nns"]
