@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch + CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py              # phases 0-8, one card
+    python3 chip_smoke.py --cards 4    # the build, then the NCCL launch
 
 Runs from the root of a checkout, imports nothing of JAX, and exits
 non-zero at the first failure:
@@ -79,7 +80,29 @@ non-zero at the first failure:
      metric is finite and the JSD in [0, 1], and sampled clouds lie on
      their meshes. It prints the loader's ms/batch by part, the CLI
      loop's ms/step beside phases 5's and 6's, whether the loader keeps
-     up with the step, and each evaluation's wall time.
+     up with the step, and each evaluation's wall time;
+  8. dist: data-parallel training of the flagship model on 2 ranks,
+     spawned processes in a gloo process group sharing this one card
+     (NCCL refuses two ranks on a card), at a global B=64 (32 a rank):
+     (a) kernels 7 and 8 in their SPMD form against the one-process
+     kernels and the plain versions on the whole batch; (b) 3 train
+     steps against 3 one-process steps from the same weights and noise
+     (the losses, the reduced gradient before the first update, the
+     running statistics, the parameters within a bound in lr), the
+     ranks' parameters bit-equal, and the 2-rank step's ms and
+     collectives (no scaling figure: the ranks share the card); (c) a
+     rank-0 checkpoint restored on both ranks; (d) cli/train_ae's run
+     over the 2 loader shards of phase 7's in-memory layout, then
+     reconstruct gathered and equal on both ranks. The ranks' launches
+     add to the kernels line, each kernel's as many as the steps and
+     batches give, every launch of kernels 7 and 8 in its SPMD form.
+
+With `--cards N` it runs only phases 0 and 1 and then cli/train_ae's
+data-parallel launch on N cards of the host (cli.run_ranks, one rank a
+card, NCCL between them): one epoch of the flagship config on phase 7's
+in-memory layout, then reconstruct gathered; the models, validation
+means and reconstructions must be equal on every rank and every launch
+of kernels 7 and 8 in SPMD form. It ends with the status line alone.
 
 Phase 2 also checks that two launches of kernels 1, 2 and 6 give equal
 bits, holds kernel 2's minima equal to the plain version's (its indices
@@ -2645,7 +2668,588 @@ def phase_cli(card, loop_ms, svr_loop_ms):
     return total
 
 
+# --------------------------------------------------------------------- #
+# phase 8: data-parallel training on two ranks                          #
+# --------------------------------------------------------------------- #
+
+DIST_WORLD = 2
+DIST_SECONDS = 600  # the two ranks' join; a rank waits 300 s in a collective
+DIST_STEPS = 3
+DIST_SEED = 31
+# the running statistics after the last of DIST_STEPS steps, 2 ranks
+# against one process, relative to their size (floor 1e-3): those steps
+# read parameters that AMSGrad moved apart by up to about 4 lr (its
+# normalised step on gradients at rounding noise). About twice the
+# reading on an H100 (0.0446); after the first step, from equal
+# parameters, they agree to atol 1e-5 + rtol 1e-5
+DIST_STAT_DRIFT = 0.1
+
+
+def dist_train_setup(rows):
+    """The flagship model (seed 0, jiggled running statistics) on the card
+    with its optimizer and kernel-path train step, and `rows` of the
+    seeded clouds and posterior noise (B=64 in all)."""
+    import numpy as np
+    import torch
+
+    from go_with_the_flows_tpu_torch.models.mixture import FlowMixtureModel
+    from go_with_the_flows_tpu_torch.optim import make_optimizer
+    from go_with_the_flows_tpu_torch.train.step import make_train_step
+    from go_with_the_flows_tpu_torch.utils.config import FLAGSHIP_AIRPLANE
+
+    model = FlowMixtureModel(**FLAGSHIP_AIRPLANE,
+                             generator=torch.Generator().manual_seed(0))
+    jiggle_batch_norms(model, 1000)
+    model.cuda()
+    opt = make_optimizer(list(model.parameters()), **TRAIN_HP)
+    step = make_train_step(model, opt)
+    rng = np.random.default_rng(DIST_SEED)
+    clouds = torch.from_numpy(reference_clouds(rng, BATCH)[rows]).cuda()
+    eps = torch.from_numpy(rng.standard_normal(
+        (BATCH, model.g_latent_space_size)).astype(np.float32)[rows]).cuda()
+    return model, opt, step, clouds, eps
+
+
+def dist_steps(step, opt, model, clouds, eps):
+    """DIST_STEPS train steps on one batch with given noise: the losses,
+    the flat gradient of the first step (the ranks' mean, before the
+    update) and the state dicts after the first and the last step, on the
+    host."""
+    losses, grad, states = [], None, []
+    for i in range(DIST_STEPS):
+        losses.append(float(step(clouds, clouds, None,
+                                 posterior_eps=eps)["loss"]))
+        if i in (0, DIST_STEPS - 1):
+            states.append({k: v.cpu().clone()
+                           for k, v in model.state_dict().items()})
+        if grad is None:
+            grad = opt.flat_grad.cpu().clone()
+    return losses, grad, states
+
+
+def dist_cli_setup(work, jobid, extra=()):
+    """cli/train_ae's command line for one epoch of the flagship config
+    (lr 0.000256, learned weights, warmup 5 epochs, results under
+    `work`) with the flags `extra`, parsed and configured, and phase 7's
+    in-memory meshes in work/store.npz: (args, config)."""
+    import numpy as np
+
+    from go_with_the_flows_tpu_torch.cli import train_ae
+    from go_with_the_flows_tpu_torch.data.synthetic import synthetic_meshes
+    from go_with_the_flows_tpu_torch.utils.config import (load_config,
+                                                          write_config)
+
+    yaml_path = os.path.join(work, "airplane.yaml")
+    raw = load_config(os.path.join(
+        ROOT, "configs", "config_generative_modeling_airplane.yaml"))
+    write_config(dict(raw, path2save=os.path.join(work, "results")),
+                 yaml_path)
+    args = train_ae.define_options_parser().parse_args([
+        yaml_path, f"airplane_{jobid}", "1", "0.000256", "--weights_type",
+        "learned_weights", "--warmup_epoch", "5", "--jobid", jobid,
+        *extra])
+    config = train_ae.configure(args)
+    np.savez(os.path.join(work, "store.npz"), **synthetic_meshes(
+        n_shapes=FLAGSHIP_SHAPES, labels=raw["chosen_label"], seed=70,
+        sphere_level=SPHERE_LEVEL))
+    return args, config
+
+
+def dist_rank(rank, work, config):
+    """One rank of phase 8 (spawned): kernels 7 and 8 in their SPMD form,
+    the train steps, the checkpoint and the CLI's loops on this rank's
+    half of every batch; the results go to work/rank<r>.pt."""
+    import numpy as np
+    import torch
+
+    from go_with_the_flows_tpu_torch.cli import train_ae
+    from go_with_the_flows_tpu_torch.data.loader import DataLoader
+    from go_with_the_flows_tpu_torch.models.mixture import FlowMixtureModel
+    from go_with_the_flows_tpu_torch.ops.kernels.chamfer import nn_distance
+    from go_with_the_flows_tpu_torch.ops.kernels.emd import (
+        emd_backward, emd_cost)
+    from go_with_the_flows_tpu_torch.ops.kernels.pairwise import (
+        pairwise_cd_stats, pairwise_emd)
+    from go_with_the_flows_tpu_torch.ops.kernels.point_decode import (
+        point_decode)
+    from go_with_the_flows_tpu_torch.ops.kernels.train_decode import (
+        train_decode_bwd, train_decode_fwd)
+    from go_with_the_flows_tpu_torch.optim import make_optimizer
+    from go_with_the_flows_tpu_torch.parallel import dist
+    from go_with_the_flows_tpu_torch.train import loops
+    from go_with_the_flows_tpu_torch.train.checkpoints import (
+        restore_checkpoint, save_checkpoint)
+    from go_with_the_flows_tpu_torch.train.state import create_train_state
+    from go_with_the_flows_tpu_torch.train.step import make_sample_step
+    from go_with_the_flows_tpu_torch.utils.config import FLAGSHIP_AIRPLANE
+
+    torch.cuda.set_device(0)
+    # gloo: NCCL refuses two ranks on one card
+    dist.distributed_init("gloo", f"file://{work}/rendezvous", DIST_WORLD,
+                          rank, timeout=300)
+    half = BATCH // DIST_WORLD
+    rows = slice(rank * half, (rank + 1) * half)
+    out = {}
+    try:
+        # (a) kernels 7 and 8, SPMD, on this rank's half of B=64
+        packed, ab, p = train_decode_inputs(FLAGSHIP_AIRPLANE, BATCH,
+                                            N_POINTS, DIST_SEED)
+        gen = torch.Generator(device="cuda").manual_seed(DIST_SEED)
+        dp0 = torch.randn(p.shape, device="cuda", generator=gen)
+        dlv = torch.randn(p.shape, device="cuda", generator=gen)
+        ab, p, dp0, dlv = (t[:, rows].contiguous() for t in (ab, p, dp0, dlv))
+        p0, lv, xsave, stats = train_decode_fwd(packed, ab, p)
+        dp, grads, dab = train_decode_bwd(packed, ab, xsave, stats, dp0, dlv)
+        torch.cuda.synchronize()
+        out["kernels"] = {"p0": p0.cpu(), "lv": lv.cpu(), "stats": stats.cpu(),
+                          "dp": dp.cpu(), "dab": dab.cpu(),
+                          "grads": {k: v.cpu() for k, v in grads.items()}}
+        fwd_ms = cuda_ms(lambda: train_decode_fwd(packed, ab, p), 3)
+        bwd_ms = cuda_ms(lambda: train_decode_bwd(packed, ab, xsave, stats,
+                                                  dp0, dlv), 3)
+        mom = torch.ones(p.shape[0], 9, dtype=torch.float64, device="cuda")
+        out["kernel_ms"] = (fwd_ms, bwd_ms,  # and one exchange alone
+                            cuda_ms(lambda: dist.sum_over_ranks(mom), 20))
+        del packed, xsave, stats, dp, grads, dab, p0, lv
+
+        # (b) the main path: train steps, then the CLI's loops; every
+        # kernel's launches counted over both, and those of kernels 7 and 8
+        # in their SPMD form
+        wrappers = (point_decode, nn_distance, pairwise_cd_stats, emd_cost,
+                    emd_backward, pairwise_emd, train_decode_fwd,
+                    train_decode_bwd)
+        spmd = (train_decode_fwd, train_decode_bwd)
+        zero(wrappers)
+        for w in spmd:
+            w.spmd_launches = 0
+        model, opt, step, clouds, eps = dist_train_setup(rows)
+        out["steps"] = dist_steps(step, opt, model, clouds, eps)
+        before = dict(dist.counts)
+        step(clouds, clouds, None, posterior_eps=eps)
+        out["collectives"] = {k: dist.counts[k] - before[k] for k in before}
+        torch.cuda.synchronize()
+        dist.barrier()
+        t = time.perf_counter()
+        for _ in range(DIST_STEPS):
+            step(clouds, clouds, None, posterior_eps=eps)
+        torch.cuda.synchronize()
+        dist.barrier()
+        out["step_ms"] = 1e3 * (time.perf_counter() - t) / DIST_STEPS
+
+        # (c) a checkpoint: rank 0 writes, every rank restores
+        state = create_train_state(model, opt, seed=5)
+        state.step = 9
+        t = time.perf_counter()
+        save_checkpoint(os.path.join(work, "ckpt"), "dist.pkl", state, 2, 1)
+        save_s = time.perf_counter() - t
+        fresh = FlowMixtureModel(
+            **FLAGSHIP_AIRPLANE,
+            generator=torch.Generator().manual_seed(77)).cuda()
+        fopt = make_optimizer(list(fresh.parameters()), **TRAIN_HP)
+        restored = create_train_state(fresh, fopt, seed=6)
+        t = time.perf_counter()
+        restored, epoch, it = restore_checkpoint(
+            os.path.join(work, "ckpt"), "dist.pkl", restored)
+        load_s = time.perf_counter() - t
+        out["ckpt"] = {
+            "meta": (epoch, it, restored.step),
+            "model": all(torch.equal(a, b) for a, b in zip(
+                model.state_dict().values(), fresh.state_dict().values())),
+            "optimizer": all(torch.equal(getattr(opt, k), getattr(fopt, k))
+                             for k in opt._FLAT),
+            "generator": torch.equal(restored.generator.get_state(),
+                                     state.generator.get_state()),
+            "seconds": (save_s, load_s)}
+        del model, opt, step, fresh, fopt, state, restored
+
+        # (d) the CLI's run (loops.train and evaluate_val over this rank's
+        # loader shards, rank 0's checkpoints), then reconstruct gathered
+        store = dict(np.load(os.path.join(work, "store.npz")))
+        train_ds, val_ds = train_ae.build_datasets(config, seed=0,
+                                                   store=store)
+        # the batches of this rank's loader shards, as run's loaders take
+        # them: a train step, a validation pass of kernel 1 each
+        shard = dict(num_replicas=DIST_WORLD, rank=rank)
+        train_steps, val_batches = (
+            len(DataLoader(ds, config["batch_size"] // DIST_WORLD, **shard))
+            for ds in (train_ds, val_ds))
+        t = time.perf_counter()
+        trained, timings = train_ae.run(config, train_ds, val_ds, "cuda",
+                                        seed=0, warmup_epoch=5)
+        run_s = time.perf_counter() - t
+        val = DataLoader(val_ds, config["batch_size"] // DIST_WORLD,
+                         shuffle=False, drop_last=False,
+                         num_replicas=DIST_WORLD, rank=rank)
+        sample = make_sample_step(trained.model, config["cloud_size"],
+                                  mode="autoencoding")
+        t = time.perf_counter()
+        recon = loops.reconstruct(
+            val, sample, torch.Generator(device="cuda").manual_seed(8),
+            "cuda", max_batches=2)
+        recon_s = time.perf_counter() - t
+        out["launches"] = read(wrappers)
+        out["spmd_launches"] = {w.__name__: w.spmd_launches for w in spmd}
+        steps = 2 * DIST_STEPS + 1 + train_steps  # (b) and run's epoch
+        out["expect"] = dict(
+            {w.__name__: 0 for w in wrappers}, train_decode_fwd=steps,
+            train_decode_bwd=steps,
+            point_decode=val_batches + min(2, len(val)))  # reconstruct's 2
+        out["run"] = {"timings": timings, "run_s": run_s,
+                      "recon_s": recon_s, "recon": recon,
+                      "train_metrics": trained.train_metrics,
+                      "val_metrics": trained.val_metrics,
+                      "state": {k: v.cpu() for k, v in
+                                trained.model.state_dict().items()}}
+        val.close()
+        train_ds.close()
+        val_ds.close()
+    finally:
+        torch.save(out, os.path.join(work, f"rank{rank}.pt"))
+        dist.shutdown()
+
+
+def phase_dist(card):
+    """Phase 8: data-parallel training, two ranks on this one card."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+
+    from go_with_the_flows_tpu_torch.ops.kernels.train_decode import (
+        _KERNEL_KEYS, train_decode_bwd, train_decode_bwd_plain,
+        train_decode_fwd, train_decode_fwd_plain)
+    from go_with_the_flows_tpu_torch.utils.config import FLAGSHIP_AIRPLANE
+
+    say(f"[8] dist: data-parallel training of the flagship model on "
+        f"{DIST_WORLD} ranks (processes, gloo) sharing this one card, a "
+        f"global B={BATCH}, N={N_POINTS}")
+    torch.cuda.empty_cache()
+    lr = TRAIN_HP["max_lr"]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dist_") as work:
+        # the one-process references: kernels 7 and 8 (the single entries)
+        # and their plain versions on the whole batch
+        packed, ab, p = train_decode_inputs(FLAGSHIP_AIRPLANE, BATCH,
+                                            N_POINTS, DIST_SEED)
+        gen = torch.Generator(device="cuda").manual_seed(DIST_SEED)
+        dp0 = torch.randn(p.shape, device="cuda", generator=gen)
+        dlv = torch.randn(p.shape, device="cuda", generator=gen)
+        one = list(train_decode_fwd(packed, ab, p))
+        one_b = train_decode_bwd(packed, ab, one[2], one[3], dp0, dlv)
+        plain = list(train_decode_fwd_plain(packed, ab, p))
+        plain_b = train_decode_bwd_plain(packed, ab, plain[2], plain[3], dp0,
+                                         dlv)
+        refs = {}
+        for name, f, b in (("1-process kernel", one, one_b),
+                           ("plain", plain, plain_b)):
+            refs[name] = {"p0": f[0].cpu(), "lv": f[1].cpu(),
+                          "stats": f[3].cpu(), "dp": b[0].cpu(),
+                          "dab": b[2].cpu(),
+                          "grads": {k: v.cpu() for k, v in b[1].items()}}
+        del packed, ab, p, dp0, dlv, one, one_b, plain, plain_b
+        # ... and DIST_STEPS one-process train steps
+        model, opt, step, clouds, eps = dist_train_setup(slice(None))
+        one_steps = dist_steps(step, opt, model, clouds, eps)
+        del model, opt, step, clouds, eps
+        torch.cuda.empty_cache()
+
+        # the CLI's config and in-memory meshes (phase 7's layout)
+        _, config = dist_cli_setup(work, "dist")
+
+        t = time.perf_counter()
+        ctx = mp.start_processes(dist_rank, args=(work, config),
+                                 nprocs=DIST_WORLD, join=False,
+                                 start_method="spawn")
+        try:
+            while not ctx.join(timeout=1.0):
+                if time.perf_counter() - t > DIST_SECONDS:
+                    fail(f"the {DIST_WORLD} ranks were not done within "
+                         f"{DIST_SECONDS} s")
+        except mp.ProcessRaisedException as e:
+            fail(f"a rank failed:\n{e}")
+        except mp.ProcessExitedException as e:
+            fail(f"a rank exited: {e}")
+        finally:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.kill()
+        ranks_s = time.perf_counter() - t
+        got = [torch.load(os.path.join(work, f"rank{r}.pt"),
+                          weights_only=False) for r in range(DIST_WORLD)]
+
+    # (a) kernels 7 and 8: the ranks' halves against the whole batch
+    def rel(a, b):
+        return ((a.double() - b.double()).abs().max()
+                / b.double().abs().max().clamp_min(1e-30)).item()
+
+    k = [g["kernels"] for g in got]
+    kcat = {key: torch.cat([x[key] for x in k], 1)
+            for key in ("p0", "lv", "dp", "dab")}
+    for name, ref in refs.items():
+        errs = {key: (kcat[key] - ref[key]).abs().max().item()
+                for key in ("p0", "lv")}
+        stat_used = max(((x["stats"] - ref["stats"]).abs()
+                         / (1e-5 + 1e-5 * ref["stats"].abs())).max().item()
+                        for x in k)
+        dp_norm = ((kcat["dp"] - ref["dp"]).norm() / ref["dp"].norm()).item()
+        dp_far = ((kcat["dp"] - ref["dp"]).abs()
+                  > 1e-3 * ref["dp"].abs().max()).float().mean().item()
+        grad_rel = {key: rel(k[0]["grads"][key] + k[1]["grads"][key],
+                             ref["grads"][key]) for key in _KERNEL_KEYS}
+        grad_rel["ab"] = rel(kcat["dab"], ref["dab"])
+        say(f"    (a) SPMD kernels 7 and 8 on {DIST_WORLD} ranks against the "
+            f"{name} version at B={BATCH}: p0 {errs['p0']:.3g}, logvar "
+            f"{errs['lv']:.3g} (atol 1e-4); stats {stat_used:.3g} of the "
+            f"allowance atol 1e-5 + rtol 1e-5; dp in norm {dp_norm:.2g} "
+            f"(3e-3), beyond 1e-3 of its max {dp_far:.2g} (3e-4); gradients "
+            f"summed over the ranks, |diff| / max: " + ", ".join(
+                f"d{key} {v:.2g}" for key, v in grad_rel.items())
+            + " (3e-2)")
+        if (max(errs.values()) > 1e-4 or stat_used > 1.0 or dp_norm > 3e-3
+                or dp_far > 3e-4 or max(grad_rel.values()) > 3e-2):
+            fail(f"(a) the SPMD kernels disagree with the {name} version")
+    say(f"    (a) SPMD kernel 7 {got[0]['kernel_ms'][0]:.3f} ms, kernel 8 "
+        f"{got[0]['kernel_ms'][1]:.3f} ms on rank 0's B={BATCH // 2} (66 "
+        f"exchanges each; one exchange of a (K, 9) float64 tensor alone "
+        f"{got[0]['kernel_ms'][2]:.3f} ms), both ranks' processes "
+        f"time-sharing one card [{card}]")
+
+    # (b) train steps: 2 ranks against one process; ranks bit-equal
+    losses, grad, states = got[0]["steps"]
+    if not all(torch.equal(a[key], b[key]) for a, b in
+               zip(states, got[1]["steps"][2]) for key in a):
+        fail("(b) the ranks' parameters or statistics differ after the "
+             "steps")
+    one_losses, one_grad, one_states = one_steps
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, one_losses))
+    grad_rel = rel(grad, one_grad)
+    # the model's buffers are its BatchNorms' running statistics
+    sd, one_sd = states[-1], one_states[-1]
+    buffers = [n for n in sd if n.endswith(("running_mean", "running_var"))]
+    # after the first step: the initial weights' global-batch statistics,
+    # summed in another order; later steps start from parameters that
+    # AMSGrad's normalised update moved apart (below), so after the last
+    # step they are held to DIST_STAT_DRIFT of their size (floor 1e-3)
+    stat_used = max(((states[0][n] - one_states[0][n]).abs()
+                     / (1e-5 + 1e-5 * one_states[0][n].abs())).max().item()
+                    for n in buffers)
+    stat_last = max(((sd[n] - one_sd[n]).abs()
+                     / one_sd[n].abs().clamp_min(1e-3)).max().item()
+                    for n in buffers)
+    param_err = max((sd[n] - one_sd[n]).abs().max().item()
+                    for n in sd if n not in buffers)
+    say(f"    (b) {DIST_STEPS} train steps, {DIST_WORLD} ranks against one "
+        f"process: losses " + ", ".join(f"{v:.6f}" for v in losses)
+        + f" (one process " + ", ".join(f"{v:.6f}" for v in one_losses)
+        + f"), max relative diff {loss_rel:.3g} (1e-5); the reduced "
+        f"gradient before the first update {grad_rel:.3g} of its max "
+        f"(1e-4); running statistics after the first step {stat_used:.3g} "
+        f"of the allowance atol 1e-5 + rtol 1e-5, after the last "
+        f"{stat_last:.3g} of their size, floor 1e-3 ({DIST_STAT_DRIFT}); "
+        f"parameters after the last "
+        f"{param_err:.3g} (bound {2 * DIST_STEPS} lr = "
+        f"{2 * DIST_STEPS * lr:.3g}: AMSGrad moves a parameter whose "
+        f"gradient is rounding noise by up to lr a step, either way); the "
+        f"ranks' parameters and statistics bit-equal")
+    if not (loss_rel <= 1e-5 and grad_rel <= 1e-4 and stat_used <= 1.0
+            and stat_last <= DIST_STAT_DRIFT
+            and param_err <= 2 * DIST_STEPS * lr):
+        fail("(b) the 2-rank steps disagree with the one-process steps")
+    coll = got[0]["collectives"]
+    say(f"    (b) the 2-rank step: {got[0]['step_ms']:.2f} ms/step (rank 1 "
+        f"{got[1]['step_ms']:.2f}); per step {coll['all_reduce']} "
+        f"all_reduces, {coll['broadcast']} broadcasts, "
+        f"{coll['all_gather']} all_gathers. Both ranks share one card "
+        f"through gloo (host copies), so the time is no scaling figure "
+        f"[{card}]")
+
+    # (c) the checkpoint
+    for r, g in enumerate(got):
+        ck = g["ckpt"]
+        if not (ck["model"] and ck["optimizer"] and ck["generator"]
+                and ck["meta"] == (2, 1, 9)):
+            fail(f"(c) rank {r}'s restored state differs from the saved one")
+    save_s, load_s = got[0]["ckpt"]["seconds"]
+    say(f"    (c) checkpoint: rank 0 saved in {save_s:.2f} s; restored on "
+        f"both ranks (rank 0 reads and broadcasts) in {load_s:.2f} s; equal "
+        f"to the saved state")
+
+    # (d) the CLI's loops and the gathered reconstructions
+    runs = [g["run"] for g in got]
+    if not all(torch.equal(runs[0]["state"][key], runs[1]["state"][key])
+               for key in runs[0]["state"]):
+        fail("(d) the ranks' models differ after train_ae.run")
+    if runs[0]["val_metrics"] != runs[1]["val_metrics"]:
+        fail("(d) the ranks' validation means differ")
+    finite_metrics("(d) train_ae.run", [runs[0]["train_metrics"],
+                                        runs[0]["val_metrics"]])
+    for a, b in zip(runs[0]["recon"], runs[1]["recon"]):
+        if not np.array_equal(a, b):
+            fail("(d) the ranks' gathered reconstructions differ")
+    samples = runs[0]["recon"][0]
+    if samples.shape != (2 * BATCH, 3, N_POINTS) or not np.isfinite(
+            samples).all():
+        fail(f"(d) reconstructions of shape {samples.shape}, finite "
+             f"{np.isfinite(samples).all()}")
+    epoch = runs[0]["timings"][0]
+    say(f"    (d) train_ae.run on {DIST_WORLD} ranks: {epoch['steps']} steps "
+        f"in {epoch['train_s']:.2f} s, validation {epoch['val_s']:.2f} s, "
+        f"{runs[0]['run_s']:.2f} s in all; reconstruct of 2 global batches "
+        f"gathered on both ranks in {runs[0]['recon_s']:.2f} s, equal there "
+        f"[{card}]")
+    def summed(key):
+        return {name: sum(g[key][name] for g in got) for name in got[0][key]}
+
+    launches = summed("launches")
+    expect_launches("phase 8's main path", launches,
+                    ["train_decode_fwd", "train_decode_bwd", "point_decode"],
+                    exact=summed("expect"))
+    spmd = summed("spmd_launches")
+    # inside the group every launch of kernels 7 and 8 is in SPMD form
+    expect_launches("phase 8's main path in SPMD form", spmd, list(spmd),
+                    exact={name: launches[name] for name in spmd})
+    say(f"    the ranks' main path (b, d), launches summed over the ranks: "
+        + ", ".join(f"{k} {n}" for k, n in launches.items() if n)
+        + " (each as expected from the steps and batches), of them in SPMD "
+        "form " + ", ".join(f"{k} {n}" for k, n in spmd.items())
+        + f"; the ranks ran {ranks_s:.1f} s")
+    return launches
+
+
+# --------------------------------------------------------------------- #
+# --cards N: the data-parallel launch on N cards, NCCL between them      #
+# --------------------------------------------------------------------- #
+
+def nccl_rank(device, config, work):
+    """One rank of the --cards run, as cli.run_ranks starts it (device
+    cuda:<local>, its process group NCCL): train_ae.run over this rank's
+    loader shards of the in-memory layout, then reconstruct gathered;
+    the results go to work/nccl<rank>.pt."""
+    import numpy as np
+    import torch
+    import torch.distributed as tdist
+
+    from go_with_the_flows_tpu_torch.cli import train_ae
+    from go_with_the_flows_tpu_torch.data.loader import DataLoader
+    from go_with_the_flows_tpu_torch.ops.kernels.point_decode import (
+        point_decode)
+    from go_with_the_flows_tpu_torch.ops.kernels.train_decode import (
+        train_decode_bwd, train_decode_fwd)
+    from go_with_the_flows_tpu_torch.parallel import dist
+    from go_with_the_flows_tpu_torch.train import loops
+    from go_with_the_flows_tpu_torch.train.step import make_sample_step
+
+    world, rank = dist.world_size(), dist.rank()
+    store = dict(np.load(os.path.join(work, "store.npz")))
+    train_ds, val_ds = train_ae.build_datasets(config, seed=0, store=store)
+    try:
+        t = time.perf_counter()
+        trained, timings = train_ae.run(config, train_ds, val_ds, device,
+                                        seed=0, warmup_epoch=5)
+        run_s = time.perf_counter() - t
+        val = DataLoader(val_ds, config["batch_size"] // world,
+                         shuffle=False, drop_last=False, num_replicas=world,
+                         rank=rank)
+        sample = make_sample_step(trained.model, config["cloud_size"],
+                                  mode="autoencoding")
+        recon = loops.reconstruct(
+            val, sample, torch.Generator(device=device).manual_seed(8),
+            device, max_batches=2)
+        val.close()
+        out = {"backend": tdist.get_backend(), "device": str(device),
+               "world": world, "timings": timings, "run_s": run_s,
+               "val_metrics": trained.val_metrics,
+               "train_metrics": trained.train_metrics, "recon": recon,
+               "state": {k: v.cpu() for k, v in
+                         trained.model.state_dict().items()},
+               "launches": {w.__name__: w.launches for w in
+                            (train_decode_fwd, train_decode_bwd,
+                             point_decode)},
+               "spmd_launches": {w.__name__: w.spmd_launches for w in
+                                 (train_decode_fwd, train_decode_bwd)},
+               "collectives": dict(dist.counts)}
+    finally:
+        train_ds.close()
+        val_ds.close()
+    torch.save(out, os.path.join(work, f"nccl{rank}.pt"))
+
+
+def phase_nccl(card, cards):
+    """cli/train_ae's data-parallel launch (cli.run_ranks, as
+    `--distributed -n 1 -g <cards>` starts it) on `cards` cards of this
+    host, one rank a card and NCCL between them, at the flagship's width
+    and global B=64: one epoch of train_ae.run (the train steps,
+    evaluate_val's count-weighted reduce of CPU sums, rank 0's
+    checkpoints), then reconstruct gathered on every rank."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from go_with_the_flows_tpu_torch.cli import run_ranks
+
+    if torch.cuda.device_count() < cards:
+        fail(f"--cards {cards}: this host has "
+             f"{torch.cuda.device_count()} cards")
+    say(f"[nccl] train_ae --distributed -n 1 -g {cards}: the flagship "
+        f"model on {cards} cards, one rank a card, a global B={BATCH}")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_nccl_") as work:
+        args, config = dist_cli_setup(work, "nccl", [
+            "--distributed", "-n", "1", "-g", str(cards), "--coordinator",
+            f"file://{work}/rendezvous"])
+        t = time.perf_counter()
+        try:
+            run_ranks(args, nccl_rank, config, work)
+        except Exception as e:  # noqa: BLE001  (fails the run)
+            fail(f"a rank failed:\n{e}")
+        ranks_s = time.perf_counter() - t
+        got = [torch.load(os.path.join(work, f"nccl{r}.pt"),
+                          weights_only=False) for r in range(cards)]
+
+    devices = [g["device"] for g in got]
+    if {g["backend"] for g in got} != {"nccl"} or len(set(devices)) != cards:
+        fail(f"backends {[g['backend'] for g in got]} on {devices}: one "
+             "NCCL rank a card expected")
+    for r, g in enumerate(got[1:], 1):
+        if not all(torch.equal(got[0]["state"][k], g["state"][k])
+                   for k in g["state"]):
+            fail(f"rank {r}'s model differs from rank 0's after the epoch")
+        if g["val_metrics"] != got[0]["val_metrics"]:
+            fail(f"rank {r}'s validation means differ from rank 0's")
+        if not all(np.array_equal(a, b)
+                   for a, b in zip(got[0]["recon"], g["recon"])):
+            fail(f"rank {r}'s gathered reconstructions differ")
+    finite_metrics("train_ae.run on NCCL", [got[0]["train_metrics"],
+                                            got[0]["val_metrics"]])
+    samples = got[0]["recon"][0]
+    if samples.shape != (2 * BATCH, 3, N_POINTS) or not np.isfinite(
+            samples).all():
+        fail(f"reconstructions of shape {samples.shape}, finite "
+             f"{np.isfinite(samples).all()}")
+    for r, g in enumerate(got):
+        steps = g["timings"][0]["steps"]
+        for name, n in g["spmd_launches"].items():
+            if not steps or n != g["launches"][name] or n < steps:
+                fail(f"rank {r}: {name} launched {g['launches'][name]} "
+                     f"times, {n} in SPMD form, over {steps} steps")
+    epoch = got[0]["timings"][0]
+    say(f"    {cards} NCCL ranks on {devices}: {epoch['steps']} steps in "
+        f"{epoch['train_s']:.2f} s, validation {epoch['val_s']:.2f} s "
+        f"(means {', '.join(f'{k} {v:.6f}' for k, v in got[0]['val_metrics'].items())}), "
+        f"{got[0]['run_s']:.2f} s in all; models, validation means and "
+        f"the gathered reconstructions equal on every rank; rank 0's "
+        f"launches {got[0]['launches']}, collectives "
+        f"{got[0]['collectives']}; the ranks ran {ranks_s:.1f} s [{card}]")
+
+
 def main() -> None:
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[1])
+    parser.add_argument("--cards", type=int, default=None,
+                        help="Run only cli/train_ae's data-parallel launch "
+                             "on this many cards (NCCL), after the build.")
+    cli = parser.parse_args()
     try:
         import torch
     except ImportError:
@@ -2661,6 +3265,13 @@ def main() -> None:
 
     marks = [time.perf_counter()]
     phase_build()
+    if cli.cards is not None:
+        phase_nccl(card, cli.cards)
+        say(f"chip_smoke wall time: {time.perf_counter() - t_start:.1f} s")
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}), flush=True)
+        return
     marks.append(time.perf_counter())
     measured, bounds = phase_kernels()
     marks.append(time.perf_counter())
@@ -2681,10 +3292,13 @@ def main() -> None:
     for name, n in phase_cli(card, loop_ms, svr_loop_ms).items():
         launches[name] += n
     marks.append(time.perf_counter())
+    for name, n in phase_dist(card).items():
+        launches[name] += n
+    marks.append(time.perf_counter())
     say("phase seconds: " + ", ".join(
         f"{name} {b - a:.1f}" for name, a, b in
-        zip(("build", "kernels", "slice", "train", "loop", "svr", "cli"),
-            marks, marks[1:])))
+        zip(("build", "kernels", "slice", "train", "loop", "svr", "cli",
+             "dist"), marks, marks[1:])))
     if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
         fail("jax was imported")
 

@@ -17,19 +17,27 @@ unless it is given `--device cpu`. Each module splits into `main(argv)`
 datasets, or in-memory arrays handed in as `store`) and `run(config,
 datasets, device)`, which chip_smoke.py calls on the card.
 
-The port runs one process at fp32 'highest': `--distributed` or more
-than one node, and a config whose `matmul_precision` or
-`eval_matmul_precision` names another precision, are refused.
+train_ae trains data-parallel as the reference's DDP launch does:
+`--distributed -n NODES -g PROCESSES_A_NODE -nr NODE --coordinator
+HOST:PORT` spawns -g processes on this node, rank nr * g + local of
+n * g, each on the card cuda:<local> (NCCL between them; gloo when
+ranks share a card) or, under `--device cpu`, on the CPU (gloo); the
+coordinator may also be a `file://` URL. The config's batch_size is the
+global batch. train_svr refuses `--distributed` (ROADMAP.md, queue 1
+item 5). The port runs at fp32 'highest': a config whose
+`matmul_precision` or `eval_matmul_precision` names another precision is
+refused.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Dict, Tuple
+from typing import Callable, Dict, Tuple
 
 import numpy as np
 import torch
 
+from ..parallel import dist
 from ..train.checkpoints import checkpoint_exists, restore_checkpoint
 from ..train.state import TrainState
 from ..utils.config import write_config
@@ -56,10 +64,54 @@ def check_precision(config: Dict) -> None:
 
 
 def refuse_distributed(args) -> None:
+    """train_svr's refusal of --distributed."""
     if args.distributed or args.nodes > 1:
         raise NotImplementedError(
-            "multi-process training is not ported yet (ROADMAP.md, queue 1 "
-            "item 5): run one process")
+            "data-parallel SVR training is not ported yet (ROADMAP.md, "
+            "queue 1 item 5): run one process")
+
+
+# seconds a rank waits at the rendezvous or in a collective for the others
+DIST_TIMEOUT = 300.0
+
+
+def run_ranks(args, target: Callable, *target_args):
+    """target(device, *target_args) in this process, or with
+    `--distributed` in args.gpus spawned processes of this node, each a
+    rank of args.nodes * args.gpus in a process group (a failed rank
+    fails the command: the others are stopped). Returns target's result
+    in this process, None with --distributed."""
+    if not args.distributed:
+        if args.nodes > 1:
+            raise ValueError("-n above 1 needs --distributed")
+        return target(resolve_device(args.device), *target_args)
+    if args.gpus < 1 or args.nodes < 1 or not 0 <= args.nr < args.nodes:
+        raise ValueError(f"--distributed needs -g >= 1 processes a node and "
+                         f"0 <= -nr < -n, got -g {args.gpus}, -n "
+                         f"{args.nodes}, -nr {args.nr}")
+    import torch.multiprocessing as mp
+    mp.start_processes(_rank_main, args=(args, target, target_args),
+                       nprocs=args.gpus, join=True, start_method="spawn")
+    return None
+
+
+def _rank_main(local: int, args, target: Callable, target_args) -> None:
+    world, rank = args.nodes * args.gpus, args.nr * args.gpus + local
+    device = resolve_device(args.device)
+    backend = "gloo"
+    if device.type == "cuda":
+        cards = torch.cuda.device_count()
+        device = torch.device("cuda", local % cards)
+        torch.cuda.set_device(device)
+        if args.gpus <= cards:  # NCCL refuses two ranks on one card
+            backend = "nccl"
+    url = args.coordinator
+    dist.distributed_init(backend, url if "://" in url else f"tcp://{url}",
+                          world, rank, DIST_TIMEOUT)
+    try:
+        target(device, *target_args)
+    finally:
+        dist.shutdown()
 
 
 def derived_seed(seed: int, *tags: int) -> int:
@@ -72,7 +124,10 @@ def derived_seed(seed: int, *tags: int) -> int:
 def start_logging(config: Dict):
     """Create the run's logging_path, write its config.yaml there, and
     return a TensorBoard writer, or None (with one line saying so) when
-    tensorboard is not installed."""
+    tensorboard is not installed; None on every rank but rank 0, which
+    alone logs."""
+    if dist.rank() != 0:
+        return None
     os.makedirs(config["logging_path"], exist_ok=True)
     write_config(config, os.path.join(config["logging_path"], "config.yaml"))
     try:
@@ -93,7 +148,8 @@ def maybe_resume(config: Dict, state: TrainState
         state, epoch, it = restore_checkpoint(
             config["logging_path"], config["model_name"], state,
             restore_optimizer=config["resume_optimizer"])
-        print(f"Resumed from epoch {epoch} iter {it}.")
+        if dist.rank() == 0:
+            print(f"Resumed from epoch {epoch} iter {it}.")
         return state, epoch, it
     return state, 0, 0
 
@@ -110,15 +166,17 @@ def add_common_train_options(parser) -> None:
     parser.add_argument("--resume", action="store_true")
     parser.add_argument("--resume_optimizer", action="store_true")
     parser.add_argument("--distributed", action="store_true",
-                        help="Not ported: refused.")
+                        help="Data-parallel training over -n nodes of -g "
+                             "processes (train_ae; train_svr refuses it).")
     parser.add_argument("-n", "--nodes", default=1, type=int, metavar="N",
-                        help="More than 1 is refused (one process).")
+                        help="Nodes of the run.")
     parser.add_argument("-g", "--gpus", default=0, type=int,
-                        help="Unused (one card); kept for CLI parity.")
+                        help="Processes (cards) a node.")
     parser.add_argument("-nr", "--nr", default=0, type=int,
-                        help="Unused (one process); kept for CLI parity.")
+                        help="This node's rank among the nodes.")
     parser.add_argument("--coordinator", type=str, default="127.0.0.1:9731",
-                        help="Unused (one process); kept for CLI parity.")
+                        help="Rendezvous: HOST:PORT of rank 0 (or a URL, "
+                             "file:///path for one machine).")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--profile", type=str, default=None, metavar="DIR",
                         help="Write a torch.profiler trace of a few early "

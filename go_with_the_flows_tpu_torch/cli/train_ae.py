@@ -3,15 +3,19 @@ the JAX package's train_ae.py, with the same arguments):
 
     python -m go_with_the_flows_tpu_torch.cli.train_ae CONFIG NAME \\
         N_EPOCHS LR [--weights_type ...] [--warmup_epoch ...] \\
-        [--resume [--resume_optimizer]] [--device cpu]
+        [--resume [--resume_optimizer]] [--device cpu] \\
+        [--distributed -n NODES -g CARDS [-nr NODE] [--coordinator ...]]
 
 Reads the YAML config (utils/config.load_config), writes the generated
 logging_path back into it, and trains on the ShapeNetCore h5 meshes:
 each epoch a training pass (kernels 7 and 8 on the card) with its
 checkpoint and a validation pass (kernel 1's inverse) with the
 best-model checkpoint. TensorBoard scalars go to logging_path/log when
-tensorboard is installed. Not ported: the TensorBoard reconstruction
-figures (`logging_img`, ROADMAP.md queue 1 item 6).
+tensorboard is installed. With --distributed every rank trains on its
+shard of each global batch of the config's batch_size (cli/__init__.py
+says how the ranks start); rank 0 logs and writes the checkpoints. Not
+ported: the TensorBoard reconstruction figures (`logging_img`,
+ROADMAP.md queue 1 item 6).
 """
 
 from __future__ import annotations
@@ -32,9 +36,9 @@ from ..train.state import TrainState, create_train_state
 from ..train.step import make_eval_step, make_train_step
 from ..utils.config import (count_params, load_config, model_config_kwargs,
                             resolve_config)
+from ..parallel import dist
 from . import (add_common_train_options, check_precision, derived_seed,
-               maybe_resume, refuse_distributed, resolve_device,
-               start_logging)
+               maybe_resume, resolve_device, run_ranks, start_logging)
 
 
 def define_options_parser() -> argparse.ArgumentParser:
@@ -78,21 +82,30 @@ def run(config: Dict, train_dataset, val_dataset, device="cuda",
     """Train a resolved config's model from epoch 0 (or its checkpoint,
     with `resume`) to n_epochs. Returns the state and, per epoch run,
     {"epoch", "steps", "train_s", "val_s"} (wall seconds, the card's work
-    included)."""
+    included). Inside a process group every rank calls it: its loaders
+    take its shard of the datasets, batch_size / world clouds a batch."""
     check_precision(config)
     device = torch.device(device)
-    config = dict(config, logging=True, checkpointing=True)
+    world, rank = dist.world_size(), dist.rank()
+    if config["batch_size"] % world:
+        raise ValueError(f"batch_size {config['batch_size']} not divisible "
+                         f"by the {world} ranks")
+    config = dict(config, logging=rank == 0, checkpointing=True,
+                  profile_dir=config.get("profile_dir") if rank == 0
+                  else None)
     writer = start_logging(config)
-    batch_size = config["batch_size"]
+    batch_size = config["batch_size"] // world
     workers = dict(num_workers=config.get("num_workers", 0),
-                   worker_type=config.get("worker_type", "thread"))
+                   worker_type=config.get("worker_type", "thread"),
+                   num_replicas=world, rank=rank)
     train_loader = DataLoader(train_dataset, batch_size,
                               shuffle=config.get("shuffle", True),
                               seed=seed, **workers)
     val_loader = DataLoader(val_dataset, batch_size, shuffle=False,
                             seed=seed, **workers)
-    print(f"Size of training data: {len(train_dataset)}")
-    print(f"Size of validation data: {len(val_dataset)}")
+    if config["logging"]:
+        print(f"Size of training data: {len(train_dataset)}")
+        print(f"Size of validation data: {len(val_dataset)}")
     try:
         model = FlowMixtureModel(
             **model_config_kwargs(config),
@@ -100,7 +113,8 @@ def run(config: Dict, train_dataset, val_dataset, device="cuda",
         optimizer = make_optimizer(list(model.parameters()),
                                    epoch_length=len(train_loader), **config)
         state = create_train_state(model, optimizer, seed=seed)
-        print("Total number of parameters:", count_params(model))
+        if config["logging"]:
+            print("Total number of parameters:", count_params(model))
         state, cur_epoch, cur_iter = maybe_resume(config, state)
         weights = {k: config.get(k, 1.0)
                    for k in ("pnll_weight", "gnll_weight", "gent_weight")}
@@ -125,9 +139,10 @@ def run(config: Dict, train_dataset, val_dataset, device="cuda",
             t2 = time.perf_counter()
             timings.append({"epoch": epoch, "steps": state.step - steps,
                             "train_s": t1 - t0, "val_s": t2 - t1})
-            print(f"epoch {epoch}: train {t1 - t0:.2f} s "
-                  f"({timings[-1]['steps']} steps), validation "
-                  f"{t2 - t1:.2f} s")
+            if config["logging"]:
+                print(f"epoch {epoch}: train {t1 - t0:.2f} s "
+                      f"({timings[-1]['steps']} steps), validation "
+                      f"{t2 - t1:.2f} s")
             cur_iter = 0
         return state, timings
     finally:
@@ -159,14 +174,19 @@ def configure(args) -> Dict:
 
 
 def main(argv: Optional[List[str]] = None):
+    """Run the command line `argv`: (state, timings) of `run`, or None
+    with --distributed (the ranks are other processes)."""
     args = define_options_parser().parse_args(argv)
-    refuse_distributed(args)
-    device = resolve_device(args.device)
+    resolve_device(args.device)  # before the config file is written
     config = configure(args)
-    train_dataset, val_dataset = build_datasets(config, seed=args.seed)
+    return run_ranks(args, _train, config, args.seed, args.warmup_epoch)
+
+
+def _train(device, config: Dict, seed: int, warmup_epoch: int):
+    train_dataset, val_dataset = build_datasets(config, seed=seed)
     try:
-        return run(config, train_dataset, val_dataset, device,
-                   seed=args.seed, warmup_epoch=args.warmup_epoch)
+        return run(config, train_dataset, val_dataset, device, seed=seed,
+                   warmup_epoch=warmup_epoch)
     finally:
         train_dataset.close()
         val_dataset.close()

@@ -1,7 +1,6 @@
-"""Evaluation pass, one process (counterpart of
-go_with_the_flows_tpu/eval/evaluating.py): generating and autoencoding
-modes over the whole set, and single-view reconstruction with per-batch
-CD, EMD and F1 meters.
+"""Evaluation pass (counterpart of go_with_the_flows_tpu/eval/evaluating.py):
+generating and autoencoding modes over the whole set, and single-view
+reconstruction with per-batch CD, EMD and F1 meters.
 
 `loader` is any iterable of batch dicts with numpy arrays: `cloud`
 (B, 3, N) for the encoder, `eval_cloud` (B, 3, N) for the metrics,
@@ -10,6 +9,14 @@ CD, EMD and F1 meters.
 ground-truth clouds, the labels and (SVR) the images go into an h5 file
 beside the checkpoint (h5py is imported only then); `jsd` adds the voxel
 JSD to the generating protocol.
+
+Data-parallel (inside a process group of several ranks,
+parallel/dist.py), each rank samples its loader's shard; every batch's
+rows are gathered from all the ranks (a shorter last batch padded for
+the gather and trimmed after it), so that every rank computes the
+metrics over the whole set and returns the same numbers (the pairwise
+matrices split their rows over the ranks), and rank 0 alone writes the
+h5 dump.
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ from ..metrics.evaluation import (
 )
 from ..ops.kernels.chamfer import chamfer
 from ..ops.kernels.emd import emd_cost
+from ..parallel import dist
 from ..utils.meters import AverageMeter
 
 
@@ -133,8 +141,8 @@ def evaluate(loader, sample_step: Callable, generator: torch.Generator,
     if util_mode not in ("generating", "autoencoding", "reconstruction"):
         raise ValueError(f"unknown util_mode {util_mode!r}")
     device = torch.device(device)
-    dump = _CloudsDump(loader, svr, **kwargs) if kwargs.get("saving") \
-        else None
+    dump = (_CloudsDump(loader, svr, **kwargs)
+            if kwargs.get("saving") and dist.rank() == 0 else None)
     try:
         return _evaluate(loader, sample_step, generator, device, svr, dump,
                          **kwargs)
@@ -151,24 +159,34 @@ def _evaluate(loader, sample_step, generator, device, svr, dump,
     thresholds = kwargs.get("f1_threshold_lst", [1e-3])
     cd_meter, emd_meter = AverageMeter(), AverageMeter()
     f1_meters = [AverageMeter() for _ in thresholds]
+    keys = ["cloud", "eval_cloud", "orig_s", "orig_c"] + (
+        ["image"] if svr else [])
+    # the images' rows are gathered only for the dump (the same choice on
+    # every rank: the gathers are collectives)
+    gathered = [k for k in keys if k != "image" or kwargs.get("saving")]
     for batch in loader:
-        g_clouds = _as_tensor(batch["cloud"], device)
+        host, trim = dist.place_batch_uneven(
+            {k: batch[k] for k in keys if k in batch})
+        g_clouds = _as_tensor(host["cloud"], device)
         start = perf_counter()
         if svr:
             samples, labels, _ = sample_step(
-                g_clouds, generator, images=_as_tensor(batch["image"], device))
+                g_clouds, generator, images=_as_tensor(host["image"], device))
         else:
             samples, labels, _ = sample_step(g_clouds, generator)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
+        real = len(batch["cloud"])
+        inf_time.update((perf_counter() - start) / real, real)
+        samples = trim(dist.gather_global(samples))
+        labels = trim(dist.gather_global(labels))
+        batch = {k: trim(dist.gather_global(v)) for k, v in host.items()
+                 if k in gathered}
         bsz = samples.shape[0]
-        inf_time.update((perf_counter() - start) / bsz, bsz)
-        r_clouds, p_clouds = _denormalize(
-            samples.cpu().numpy(), np.asarray(batch["eval_cloud"]), batch,
-            **kwargs)
+        r_clouds, p_clouds = _denormalize(samples, batch["eval_cloud"],
+                                          batch, **kwargs)
         if dump is not None:
-            rows = dict(sampled=r_clouds, gt=p_clouds,
-                        labels=labels.cpu().numpy())
+            rows = dict(sampled=r_clouds, gt=p_clouds, labels=labels)
             if svr:
                 rows["images"] = batch["image"]
             dump.write(**rows)

@@ -21,6 +21,7 @@ import torch
 from ..ops.kernels.chamfer import chamfer
 from ..ops.kernels.emd import emd_cost
 from ..ops.kernels.pairwise import pairwise_cd_stats, pairwise_emd
+from ..parallel import dist
 
 # pairs per chunk of the pairwise grid, as in the JAX package's grid loop
 _GRID_PAIR_BUDGET = 16384
@@ -111,7 +112,29 @@ def pairwise_EMD_CD_F1(
     Samples are chunked so that one chunk covers at most
     _GRID_PAIR_BUDGET pairs. `batch_size` is accepted for the JAX
     package's signature and unused: the pair grid needs no
-    reference-side batching."""
+    reference-side batching.
+
+    Inside a process group of several ranks (parallel/dist.py), whose
+    every rank calls it on the same clouds, rank r computes the rows
+    [r P, (r + 1) P) of P = ceil(N_sample / W), the last block padded by
+    repeating the last sample, and every rank returns the gathered
+    matrices (a pair's entries do not depend on the block it is in)."""
+    args = (f1_threshold, emd_option, verbose, device)
+    n_sample = sample_pcs.shape[0]
+    world = dist.world_size()
+    if world == 1 or n_sample < 2:
+        return _pairwise_grid(sample_pcs, ref_pcs, *args)
+    rows = -(-n_sample // world)
+    lo = dist.rank() * rows
+    idx = np.minimum(np.arange(lo, lo + rows), n_sample - 1)
+    block = _pairwise_grid(sample_pcs[idx], ref_pcs, *args)
+    full = dist.gather_global(np.stack(block, axis=1))[:n_sample]
+    return tuple(np.ascontiguousarray(full[:, i]) for i in range(5))
+
+
+def _pairwise_grid(sample_pcs, ref_pcs, f1_threshold, emd_option, verbose,
+                   device):
+    """pairwise_EMD_CD_F1's matrices over all the rows, in this process."""
     n_sample, n_ref = sample_pcs.shape[0], ref_pcs.shape[0]
     n_pts = sample_pcs.shape[1]
     emd_m = np.zeros((n_sample, n_ref), np.float32)

@@ -45,6 +45,7 @@ from ..ops.kernels.train_decode import (
     pack_point_decoder_train,
 )
 from ..ops.layers import reset_parameters
+from ..parallel import dist
 from .encoders import FeatureEncoder, PointNetCloudEncoder, WeightsEncoder
 from .flows import LatentPriorFlow, PointDecoderFlow, point_decoder_param_count
 from .resnet import ResNet18
@@ -281,18 +282,24 @@ class FlowMixtureModel(nn.Module):
         fused=False runs the decoder's modules under autograd; fused=True
         runs `fused_train_decode` (the kernels on a CUDA tensor, their
         plain versions on a CPU tensor) and writes the batch statistics
-        it returns into the decoder's running statistics.
+        it returns into the decoder's running statistics. Inside a
+        process group of several ranks both take their BatchNorm
+        statistics over the global batch (kernels 7 and 8 in their SPMD
+        form).
         """
         K = self.n_components
         B, _, N = p_input.shape
         p_stack = p_input[None].expand(K, B, 3, N)
         if fused:
+            # inside a process group: statistics over the global batch of
+            # `world` equal shards
+            world = dist.world_size()
             packed = pack_point_decoder_train(self.pc_decoder)
             ab, film_stats = film_ab_train(packed, g_sample)
             p0, lv_sums, stats = fused_train_decode(
                 packed, ab, p_stack.contiguous())
             decoder_stats_update(self.pc_decoder, stats, film_stats,
-                                 n_sd=B * N, n_film=B)
+                                 n_sd=world * B * N, n_film=world * B)
         else:
             p0, lv_sums = self.pc_decoder(p_stack, g_sample, "inverse")
         return self._decoder_outputs(p0, lv_sums, g_sample, warmup)

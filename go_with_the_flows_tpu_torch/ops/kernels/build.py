@@ -38,6 +38,7 @@ NVCC_FLAGS = ARCH_FLAGS + [
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_D = ctypes.c_double
 # name -> argtypes; every entry returns int (a cudaError_t)
 _SIGNATURES = {
     # p, weights, film, out, lv, K, B, C, N, f, inverse, stream
@@ -59,10 +60,17 @@ _SIGNATURES = {
     # xsave, stats, w0, s0, b0, w1, w2, b2, ab, dp0, dlv, dp, dw0, ds0,
     # db0, dw1, dw2, db2, dab, work, K, B, C, N, f, stream
     "gwtf_train_decode_bwd": [_P] * 20 + [_I] * 5 + [_P],
+    # the SPMD form's stages: stage, c, n, the single entry's pointers,
+    # sums_in, sums_out, K, B, C, N, f, stream
+    "gwtf_train_decode_fwd_stage": [_I, _I, _D] + [_P] * 15 + [_I] * 5
+    + [_P],
+    "gwtf_train_decode_bwd_stage": [_I, _I, _D] + [_P] * 22 + [_I] * 5
+    + [_P],
 }
 # entry points that return something else than a cudaError_t
 _OTHER_SIGNATURES = {
-    # which (0 forward, 1 backward), K, B, C, N, f -> floats of scratch
+    # which (0 forward, 1 backward, 2 SPMD backward), K, B, C, N, f ->
+    # floats of scratch
     "gwtf_train_decode_workspace": ([_I] * 6, ctypes.c_longlong),
     # N -> row chunks of one launch (a scratch is needed above 1)
     "gwtf_nn_distance_chunks": ([_I], _I),

@@ -35,6 +35,15 @@ apart (W1 is (2, f, f), not the TPU's (2f, 2f) block diagonal).
 p; its `stats` output (K, C, 4, 2f) = [mean0, var0, mean1, var1] of each
 coupling's two BatchNorms (biased variances) is not, and
 `decoder_stats_update` blends it into the decoder's running statistics.
+
+Data-parallel (the SPMD form of `make_fused_train_decode_spmd`), inside
+a process group of several ranks (parallel/dist.py's `active()`), p is
+a rank's shard and every BatchNorm statistic is over the global batch.
+The plain versions sum their partial sums over the ranks
+(`layers.batch_stats`); the kernels run stage by stage through the
+per-stage C entries (`_spmd_fwd`, `_spmd_bwd`), the sums over the ranks
+between the stages taking the place of the TPU kernel's remote copies
+(`_global_stat_sums`).
 """
 
 from __future__ import annotations
@@ -44,7 +53,8 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..layers import update_running_stats
+from ...parallel import dist
+from ..layers import batch_stats, update_running_stats
 from . import build
 
 BN_EPS = 1e-5  # ops/layers.py BatchNorm
@@ -108,10 +118,11 @@ def pack_point_decoder_train(decoder) -> Dict[str, torch.Tensor]:
 
 def film_ab_train(packed: Dict[str, torch.Tensor], g: torch.Tensor):
     """Train-mode FiLM affines for g (B, G): ab (K, B, C, 2, 2f) and the
-    FiLM BatchNorms' batch (mean, biased var), each (K, C, 4, f), over B."""
+    FiLM BatchNorms' batch (mean, biased var), each (K, C, 4, f), over B,
+    or inside a process group over the global batch of every rank's B
+    clouds."""
     h = torch.einsum("bg,kcjfg->kbcjf", g, packed["film_k0"])
-    mean = h.mean(dim=1)
-    var = torch.clamp(h.square().mean(dim=1) - mean.square(), min=0.0)
+    mean, var = batch_stats(h, (1,))
     n = (h - mean[:, None]) * torch.rsqrt(var[:, None] + BN_EPS)
     n = n * packed["film_scale"][:, None] + packed["film_bias"][:, None]
     y = torch.einsum("kbcjf,kcjef->kbcje", F.silu(n), packed["film_k1"])
@@ -155,28 +166,22 @@ def decoder_stats_update(decoder, stats: torch.Tensor, film_stats,
 # plain versions                                                        #
 # --------------------------------------------------------------------- #
 
-def _batch_stats(h):
-    """(mean, biased var) of h (K, B, 2, f, N) per (k, head, feature)."""
-    mean = h.mean(dim=(1, 4))
-    var = torch.clamp(h.square().mean(dim=(1, 4)) - mean.square(), min=0.0)
-    return mean, var
-
-
 def _coupling_train(x, w0, s0, b0, w1, w2, b2, fw, fb):
     """One train-mode inverse coupling of all K components.
 
     x (K, B, 3, N); w0 (K, 2, f, 3); s0, b0 (K, 2, f); w1 (K, 2, f, f);
     w2 (K, 2, 3, f); b2 (K, 2, 3); fw, fb (K, B, 2, f). Returns
-    (x_out, logvar, [mean0, var0, mean1, var1] each (K, 2, f))."""
+    (x_out, logvar, [mean0, var0, mean1, var1] each (K, 2, f)), each
+    statistic of h (K, B, 2, f, N) over its batch and points."""
     def col(t):  # (K, 2, f) -> broadcast over (K, B, 2, f, N)
         return t[:, None, :, :, None]
 
     h0 = torch.einsum("khfi,kbin->kbhfn", w0, x)
-    mean0, var0 = _batch_stats(h0)
+    mean0, var0 = batch_stats(h0, (1, 4))
     n0 = (h0 - col(mean0)) * torch.rsqrt(col(var0) + BN_EPS)
     a = F.relu(n0 * col(s0) + col(b0))
     h2 = torch.einsum("khoi,kbhin->kbhon", w1, a)
-    mean1, var1 = _batch_stats(h2)
+    mean1, var1 = batch_stats(h2, (1, 4))
     n1 = (h2 - col(mean1)) * torch.rsqrt(col(var1) + BN_EPS)
     fz = F.relu(fw[..., None] * n1 + fb[..., None])
     y = torch.einsum("khjf,kbhfn->kbhjn", w2, fz) + b2[:, None, :, :, None]
@@ -196,7 +201,8 @@ def train_decode_fwd_plain(packed, ab, p):
     """Plain PyTorch version of kernel 7: p (K, B, 3, N) through all C
     couplings in inverse order with train-mode BatchNorm. Returns
     (p0, logvar_sum, xsave (K, C, B, 3, N) = each coupling's input,
-    stats (K, C, 4, 2f))."""
+    stats (K, C, 4, 2f)). Inside a process group (parallel/dist.py), p is
+    this rank's shard and the statistics are over the global batch."""
     ws = [packed[k] for k in _KERNEL_KEYS]
     K, C = ws[3].shape[:2]
     f = ws[3].shape[-1]
@@ -219,7 +225,10 @@ def train_decode_bwd_plain(packed, ab, xsave, stats, dp0, dlv):
     `xsave[:, c]` under autograd, its batch statistics recomputed from
     that input (so the BatchNorm batch-statistic terms are exact), in
     direct order; `stats` is not read. Returns (dp, d_packed (the six
-    kernel arrays), dab)."""
+    kernel arrays), dab). Inside a process group, the statistics are over
+    the global batch (their cotangents summed over the ranks by
+    `dist.sum_over_ranks`'s backward) and d_packed holds this rank's share
+    of the gradients, which the optimizer sums over the ranks."""
     ws = [packed[k].detach() for k in _KERNEL_KEYS]
     ab = ab.detach()
     K, B, C = ab.shape[:3]
@@ -277,7 +286,11 @@ def _check(packed, ab, p, what):
 
 def train_decode_fwd(packed, ab, p):
     """Kernel 7 on a CUDA tensor, its plain version on a CPU tensor.
-    Returns (p0, logvar_sum, xsave, stats) as train_decode_fwd_plain."""
+    Returns (p0, logvar_sum, xsave, stats) as train_decode_fwd_plain.
+    Inside a process group of several ranks (parallel/dist.py), p is this
+    rank's shard and the statistics are over the global batch: the kernel
+    runs in its SPMD form, stage by stage (`_spmd_fwd`); in one process,
+    in one C call."""
     if p.device.type == "cpu":
         return train_decode_fwd_plain(packed, ab, p)
     K, B, C, N, f = _check(packed, ab, p, "train_decode_fwd")
@@ -289,21 +302,101 @@ def train_decode_fwd(packed, ab, p):
     work = p.new_empty(lib.gwtf_train_decode_workspace(0, K, B, C, N, f))
     args = [p] + [packed[k] for k in _KERNEL_KEYS] + [ab, p0, lv, xsave,
                                                      stats, work]
+    stream = build.stream_handle(p.device)
     with torch.cuda.device(p.device):
-        code = lib.gwtf_train_decode_fwd(
-            *(t.data_ptr() for t in args), K, B, C, N, f,
-            build.stream_handle(p.device))
+        if dist.active():
+            _drive(_spmd_fwd(lib, args, (K, B, C, N, f),
+                             dist.world_size() * B * N, stream))
+            train_decode_fwd.spmd_launches += 1
+        else:
+            code = lib.gwtf_train_decode_fwd(
+                *(t.data_ptr() for t in args), K, B, C, N, f, stream)
+            build.check(lib, code, "train_decode_fwd")
     train_decode_fwd.launches += 1
-    build.check(lib, code, "train_decode_fwd")
     return p0, lv, xsave, stats
 
 
+# launches, and of them those in the SPMD form
 train_decode_fwd.launches = 0
+train_decode_fwd.spmd_launches = 0
+
+
+def _drive(stages) -> None:
+    """Run an SPMD host loop (`_spmd_fwd`, `_spmd_bwd`): each partial-sum
+    tensor it yields is summed over the ranks, and the global sum goes
+    back to it."""
+    sums = next(stages)
+    try:
+        while True:
+            sums = stages.send(dist.sum_over_ranks(sums))
+    except StopIteration:
+        pass
+
+
+def _spmd_fwd(lib, args, dims, n, stream):
+    """Kernel 7's SPMD form as a generator over its exchange points:
+    `args` the tensors of gwtf_train_decode_fwd in order, `dims` (K, B, C,
+    N, f) of this rank's shard, `n` the points of a component over all
+    the ranks. It yields this rank's partial sums, (K, 9) moments or
+    (K, 4f) h2 sums in float64, and is sent back their sum over the ranks;
+    the stages are queued on `stream`."""
+    K, B, C, N, f = dims
+    ptrs = [t.data_ptr() for t in args]
+    device = args[0].device
+    mom = torch.empty(K, 9, dtype=torch.float64, device=device)
+    h2 = torch.empty(K, 4 * f, dtype=torch.float64, device=device)
+
+    def stage(which, c, sums_in, sums_out):
+        code = lib.gwtf_train_decode_fwd_stage(
+            which, c, float(n), *ptrs,
+            None if sums_in is None else sums_in.data_ptr(),
+            sums_out.data_ptr(), K, B, C, N, f, stream)
+        build.check(lib, code, f"train_decode_fwd stage {which}")
+
+    stage(0, 0, None, mom)
+    glob = yield mom
+    for c in reversed(range(C)):
+        stage(1, c, glob, h2)
+        glob = yield h2
+        stage(2, c, glob, mom)
+        if c:
+            glob = yield mom
+
+
+def _spmd_bwd(lib, args, dims, n, stream):
+    """Kernel 8's SPMD form as a generator over its exchange points, as
+    `_spmd_fwd`: `args` the tensors of gwtf_train_decode_bwd in order (its
+    workspace gwtf_train_decode_workspace(2, ...) floats). Per coupling it
+    yields the (K, 4f) sums [dn1 | dn1 n1] and then [db0 | ds0] of its
+    BatchNorms' cotangents. The weight gradients it writes, the bn0 bias
+    and scale ones included, are this rank's partial sums."""
+    K, B, C, N, f = dims
+    ptrs = [t.data_ptr() for t in args]
+    device = args[0].device
+    sums = [torch.empty(K, 4 * f, dtype=torch.float64, device=device)
+            for _ in range(2)]
+
+    def stage(which, c, sums_in, sums_out):
+        code = lib.gwtf_train_decode_bwd_stage(
+            which, c, float(n), *ptrs,
+            None if sums_in is None else sums_in.data_ptr(),
+            None if sums_out is None else sums_out.data_ptr(),
+            K, B, C, N, f, stream)
+        build.check(lib, code, f"train_decode_bwd stage {which}")
+
+    stage(0, 0, None, None)
+    for c in range(C):
+        stage(1, c, None, sums[0])
+        glob = yield sums[0]
+        stage(2, c, glob, sums[1])
+        glob = yield sums[1]
+        stage(3, c, glob, None)
 
 
 def train_decode_bwd(packed, ab, xsave, stats, dp0, dlv):
     """Kernel 8 on a CUDA tensor, its plain version on a CPU tensor.
-    Returns (dp, d_packed, dab) as train_decode_bwd_plain."""
+    Returns (dp, d_packed, dab) as train_decode_bwd_plain; inside a
+    process group of several ranks, in its SPMD form (`_spmd_bwd`)."""
     if dp0.device.type == "cpu":
         return train_decode_bwd_plain(packed, ab, xsave, stats, dp0, dlv)
     K, B, C, N, f = _check(packed, ab, dp0, "train_decode_bwd")
@@ -318,19 +411,27 @@ def train_decode_bwd(packed, ab, xsave, stats, dp0, dlv):
     grads = {k: torch.empty_like(w) for k, w in zip(_KERNEL_KEYS, ws)}
     dab = torch.empty_like(ab)
     lib = build.library()
-    work = dp0.new_empty(lib.gwtf_train_decode_workspace(1, K, B, C, N, f))
+    spmd = dist.active()
+    work = dp0.new_empty(lib.gwtf_train_decode_workspace(
+        2 if spmd else 1, K, B, C, N, f))
     args = ([xsave, stats] + ws + [ab, dp0, dlv, dp]
             + [grads[k] for k in _KERNEL_KEYS] + [dab, work])
+    stream = build.stream_handle(dp0.device)
     with torch.cuda.device(dp0.device):
-        code = lib.gwtf_train_decode_bwd(
-            *(t.data_ptr() for t in args), K, B, C, N, f,
-            build.stream_handle(dp0.device))
+        if spmd:
+            _drive(_spmd_bwd(lib, args, (K, B, C, N, f),
+                             dist.world_size() * B * N, stream))
+            train_decode_bwd.spmd_launches += 1
+        else:
+            code = lib.gwtf_train_decode_bwd(
+                *(t.data_ptr() for t in args), K, B, C, N, f, stream)
+            build.check(lib, code, "train_decode_bwd")
     train_decode_bwd.launches += 1
-    build.check(lib, code, "train_decode_bwd")
     return dp, grads, dab
 
 
 train_decode_bwd.launches = 0
+train_decode_bwd.spmd_launches = 0
 
 
 class _FusedTrainDecode(torch.autograd.Function):
@@ -359,7 +460,8 @@ def fused_train_decode(packed: Dict[str, torch.Tensor], ab: torch.Tensor,
     """Train-mode inverse decode of p (K, B, 3, N) through every coupling:
     (p0, logvar_sum, stats). Forward kernel 7, backward kernel 8 on CUDA
     tensors; the plain versions on CPU tensors. Differentiable in the
-    packed kernel arrays, ab and p; stats is not."""
+    packed kernel arrays, ab and p; stats is not. Inside a process group
+    (parallel/dist.py), p is this rank's shard of the global batch, whose
+    BatchNorm statistics both directions use."""
     return _FusedTrainDecode.apply(
         *(packed[k] for k in _KERNEL_KEYS), ab, p)
-

@@ -22,6 +22,7 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
+from ..parallel import dist
 from . import precision  # noqa: F401  (sets the fp32 switches)
 
 
@@ -111,7 +112,9 @@ class BatchNorm(nn.Module):
     max(E[x^2] - E[x]^2, 0), and blends them into the running statistics
     with `momentum` in the flax convention (0.9 here is torch's 0.1):
     running_var takes the Bessel-corrected variance var * n / (n - 1),
-    as torch does.
+    as torch does. Inside a process group of several ranks
+    (parallel/dist.py) the batch is the global one, each rank's input its
+    shard of it (SyncBatchNorm's semantics, the JAX mesh's).
     """
 
     def __init__(self, num_features: int, affine: bool = True,
@@ -149,10 +152,8 @@ class BatchNorm(nn.Module):
 
         if self.training:
             red = (s,) + tuple(range(s + 2, x.ndim))
-            mean = x.mean(dim=red)
-            var = torch.clamp(x.square().mean(dim=red) - mean.square(),
-                              min=0.0)
-            n = math.prod(x.shape[i] for i in red)
+            n = math.prod(x.shape[i] for i in red) * dist.world_size()
+            mean, var = batch_stats(x, red)
             update_running_stats([self], [mean.detach()], [var.detach()], n)
         else:
             mean, var = self.running_mean, self.running_var
@@ -160,6 +161,23 @@ class BatchNorm(nn.Module):
         if self.weight is not None:
             y = y * view(self.weight) + view(self.bias)
         return y
+
+
+def batch_stats(x: torch.Tensor, dims: Sequence[int]):
+    """(mean, biased var) of x over `dims`; inside a process group of
+    several ranks (parallel/dist.py) over every rank's x too: each rank's
+    sums of x and x^2 summed over the ranks (differentiably, the backward
+    summing the cotangents over the ranks too), over a count world_size()
+    times this rank's (the ranks hold equal shards)."""
+    if not dist.active():
+        mean = x.mean(dim=dims)
+        return mean, torch.clamp(x.square().mean(dim=dims) - mean.square(),
+                                 min=0.0)
+    n = math.prod(x.shape[d] for d in dims) * dist.world_size()
+    sums = dist.sum_over_ranks(
+        torch.stack([x.sum(dim=dims), x.square().sum(dim=dims)]))
+    mean = sums[0] / n
+    return mean, torch.clamp(sums[1] / n - mean.square(), min=0.0)
 
 
 @torch.no_grad()

@@ -8,10 +8,14 @@ own optimizer:
   * lr and b2 follow a cosine cycle of the global step, evaluated at the
     step before it is incremented.
 
-A parameter is stepped only when its `.grad` exists and has a non-zero
-entry; only then do its own count t and its moments advance (the JAX
-package gates each leaf on `any(g != 0)`, since it sees zeros where
-torch sees no gradient).
+Inside a process group of several ranks (parallel/dist.py) the step
+first averages the flat gradient over the ranks (one all_reduce), so
+that every rank takes the same step on the global batch's gradient; the
+step keeps that gradient as `flat_grad`. A parameter is stepped only
+when its `.grad` exists (on some rank) and has a non-zero entry; only
+then do its own count t and its moments advance (the JAX package gates
+each leaf on `any(g != 0)`, since it sees zeros where torch sees no
+gradient).
 
 The moments of all parameters live in flat buffers, and one step is a
 few dozen launches over them whatever the number of parameters: the
@@ -26,6 +30,8 @@ from dataclasses import dataclass
 from typing import Iterable
 
 import torch
+
+from .parallel import dist
 
 
 @dataclass(frozen=True)
@@ -82,6 +88,7 @@ class AmsgradWD(torch.optim.Optimizer):
         if len(self.param_groups) != 1:
             raise ValueError("AmsgradWD takes one parameter group")
         self.global_step = 0
+        self.flat_grad = None  # the last step's gradient, flat
         params = self.param_groups[0]["params"]
         if not params:
             raise ValueError("AmsgradWD got no parameters")
@@ -135,6 +142,10 @@ class AmsgradWD(torch.optim.Optimizer):
         g = torch.cat([
             (p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1)
             for p in params])
+        # data-parallel: the global batch's gradient, before the used
+        # flags, so every rank steps the same parameters the same way
+        dist.all_reduce_mean(g)
+        self.flat_grad = g
         p_flat = torch.cat([p.reshape(-1) for p in params])
         owner = self._owner
         # any(g != 0) per parameter (NaN counts as non-zero, as in JAX)

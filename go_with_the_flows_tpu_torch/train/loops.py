@@ -1,5 +1,5 @@
 """Training, validation and reconstruction loops (counterpart of
-go_with_the_flows_tpu/train/loops.py, one process).
+go_with_the_flows_tpu/train/loops.py).
 
   * train(): one epoch of train steps; stdout meter lines every
     `num_workers` steps; a NaN or infinite loss raises NaNLossError;
@@ -23,6 +23,15 @@ the batches go to the card through pinned memory, asynchronously.
 `writer`: a TensorBoard SummaryWriter (or anything with `add_scalar`)
 that takes the epoch's train and val means, or with `per_step_tb` the
 running train means at every global step, as the JAX loops write them.
+
+Data-parallel (inside a process group of several ranks,
+parallel/dist.py), every rank runs every loop over its loader's shard:
+the train step's metrics are already the global batch's means;
+evaluate_val reduces its sums and counts over the ranks, so every rank
+gets the same means and takes the same best-model decision; reconstruct
+gathers every rank's rows, so every rank returns the same arrays. The
+config's `logging` (stdout, TensorBoard) is for rank 0 alone, and
+`checkpointing` must be the same on every rank: saving is a collective.
 """
 
 from __future__ import annotations
@@ -36,6 +45,7 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
+from ..parallel import dist
 from ..utils import profiling
 from ..utils.meters import AverageMeter
 from .checkpoints import save_checkpoint
@@ -223,8 +233,9 @@ def evaluate_val(loader, eval_step: Callable, state: TrainState, epoch: int,
     `generator`, not from the state's training
     generator, so validating does not move the training draws. A short
     last batch is taken as it is and weighs its own size in the means,
-    as in the JAX package's single-process run. Config keys: logging,
-    checkpointing, logging_path, model_name.
+    as in the JAX package's single-process run. Data-parallel, the means
+    are over every rank's batches. Config keys: logging, checkpointing,
+    logging_path, model_name.
     """
     device = torch.device(device)
     logging = config.get("logging", False)
@@ -233,23 +244,37 @@ def evaluate_val(loader, eval_step: Callable, state: TrainState, epoch: int,
     model_name = config.get("model_name", "model.ckpt")
     meters = {k: AverageMeter() for k in _KEYS}
 
+    parallel = dist.active()
     for batch in loader:
         dev = _to_device(batch, device)
         g, p = dev["cloud"], dev["eval_cloud"]
         m = _fetch(eval_step(g, p, generator, warmup=warmup,
                              **_images(dev, svr)))
-        if not np.isfinite(m["loss"]):
+        # data-parallel: checked on the global means below, so that every
+        # rank raises together
+        if not parallel and not np.isfinite(m["loss"]):
             raise NaNLossError(f"Eval loss is {m['loss']} at epoch {epoch}")
         for k in meters:
             meters[k].update(m[k], g.shape[0])
 
+    means = {k: m.avg for k, m in meters.items()}
+    if parallel:
+        # every rank's batches, each weighed by its size
+        totals = dist.all_reduce_mean(torch.tensor(
+            [meters[k].sum for k in _KEYS] + [meters["loss"].count],
+            dtype=torch.float64))
+        means = {k: float(totals[i] / totals[-1])
+                 for i, k in enumerate(_KEYS)}
+        if not np.isfinite(means["loss"]):
+            raise NaNLossError(f"Eval loss is {means['loss']} at epoch "
+                               f"{epoch}")
     if logging:
-        print(f"[epoch {epoch}]: eval loss {meters['loss'].avg:f}")
-    state.val_metrics = {k: m.avg for k, m in meters.items()}
+        print(f"[epoch {epoch}]: eval loss {means['loss']:f}")
+    state.val_metrics = means
     if logging and writer is not None:
         _add_scalars(writer, "val", state.val_metrics, epoch)
-    if meters["loss"].avg < min_loss:
-        min_loss = meters["loss"].avg
+    if means["loss"] < min_loss:
+        min_loss = means["loss"]
         if ckpting:
             save_checkpoint(logging_path, "best_model_" + model_name, state,
                             epoch + 1, 0)
@@ -262,18 +287,23 @@ def reconstruct(loader, sample_step: Callable, generator: torch.Generator,
     """Labeled reconstructions of a loader's clouds (`sample_step` from
     make_sample_step, usually in autoencoding mode; with `svr`, in
     reconstruction mode, from the batch's images), batched. Returns
-    numpy (samples (S, 3, N), ground truths (S, 3, N'), labels (S, N))."""
+    numpy (samples (S, 3, N), ground truths (S, 3, N'), labels (S, N)).
+    Data-parallel, every rank's rows are gathered, batch by batch in rank
+    order, a rank's shorter last batch padded for the gather and trimmed
+    after it: every rank returns the same arrays."""
     device = torch.device(device)
     all_samples, all_gts, all_labels = [], [], []
     for b, batch in enumerate(loader):
         if max_batches is not None and b >= max_batches:
             break
-        dev = _to_device(batch, device)
+        host, trim = dist.place_batch_uneven(
+            {k: batch[k] for k in ("cloud", "image") if k in batch})
+        dev = _to_device(host, device)
         samples, labels, _ = sample_step(dev["cloud"], generator,
                                          **_images(dev, svr))
-        all_samples.append(samples.cpu().numpy())
-        all_gts.append(np.asarray(batch["cloud"]))
-        all_labels.append(labels.cpu().numpy())
+        all_samples.append(trim(dist.gather_global(samples)))
+        all_gts.append(trim(dist.gather_global(host["cloud"])))
+        all_labels.append(trim(dist.gather_global(labels)))
     return (np.concatenate(all_samples), np.concatenate(all_gts),
             np.concatenate(all_labels))
 
@@ -281,11 +311,16 @@ def reconstruct(loader, sample_step: Callable, generator: torch.Generator,
 def predict(loader, sample_step: Callable, generator: torch.Generator,
             out_dir: str, device="cuda", svr: bool = False):
     """Reconstruct the whole loader and write all_samples.npy,
-    all_gts.npy and all_labels.npy into out_dir."""
+    all_gts.npy and all_labels.npy into out_dir (data-parallel: rank 0
+    writes the gathered arrays)."""
     samples, gts, labels = reconstruct(loader, sample_step, generator,
                                        device, svr=svr)
-    os.makedirs(out_dir, exist_ok=True)
-    np.save(os.path.join(out_dir, "all_samples.npy"), samples)
-    np.save(os.path.join(out_dir, "all_gts.npy"), gts)
-    np.save(os.path.join(out_dir, "all_labels.npy"), labels)
+
+    def write():
+        os.makedirs(out_dir, exist_ok=True)
+        np.save(os.path.join(out_dir, "all_samples.npy"), samples)
+        np.save(os.path.join(out_dir, "all_gts.npy"), gts)
+        np.save(os.path.join(out_dir, "all_labels.npy"), labels)
+
+    dist.on_rank0(write)
     return samples, gts, labels

@@ -19,6 +19,7 @@ from typing import Callable, Dict, Iterator, Optional
 import torch
 
 from ..losses import flow_mixture_loss
+from ..parallel import dist
 
 
 @contextlib.contextmanager
@@ -43,6 +44,20 @@ def _posterior_eps(model, g_clouds, generator, posterior_eps):
         return posterior_eps
     return torch.randn(g_clouds.shape[0], model.g_latent_space_size,
                        generator=generator, device=g_clouds.device)
+
+
+def _global_posterior_eps(model, g_clouds, generator, posterior_eps):
+    """The train step's posterior noise: drawn for the global batch of
+    world_size() equal shards from `generator` (the same on every rank),
+    this rank's rows kept, so that a run's noise does not depend on how
+    many ranks share its batch."""
+    world = dist.world_size()
+    if posterior_eps is not None or world == 1:
+        return _posterior_eps(model, g_clouds, generator, posterior_eps)
+    B = g_clouds.shape[0]
+    eps = torch.randn(world * B, model.g_latent_space_size,
+                      generator=generator, device=g_clouds.device)
+    return eps[dist.rank() * B:(dist.rank() + 1) * B]
 
 
 def _encode_training(model, g_clouds, svr, images, posterior_eps):
@@ -74,6 +89,15 @@ def make_train_step(model, optimizer, pnll_weight: float = 1.0,
     decoder's modules under autograd (False); None takes the kernels on
     a CUDA tensor and the modules on a CPU tensor. True on a CPU tensor
     raises: the kernels run only on the card.
+
+    Data-parallel (inside a process group of several ranks,
+    parallel/dist.py): the clouds are this rank's shard of the global
+    batch, every rank calls the step with the same generator state, and
+    the step is the global batch's: BatchNorm statistics over it (the
+    kernels in their SPMD form), its posterior noise this rank's rows of
+    a draw for the whole batch (a handed-in `posterior_eps` is this
+    rank's rows), the gradient of its mean loss, the same optimizer step
+    on every rank, and the metrics its means.
     """
 
     def train_step(g_clouds: torch.Tensor, p_clouds: torch.Tensor,
@@ -87,8 +111,8 @@ def make_train_step(model, optimizer, pnll_weight: float = 1.0,
         if fused and not on_card:
             raise ValueError("fused_decoder=True needs CUDA tensors: the "
                              "train_decode kernels run only on the card")
-        posterior_eps = _posterior_eps(model, g_clouds, generator,
-                                       posterior_eps)
+        posterior_eps = _global_posterior_eps(model, g_clouds, generator,
+                                              posterior_eps)
         model.train()
         optimizer.zero_grad(set_to_none=True)
         out = _encode_training(model, g_clouds, svr, images, posterior_eps)
@@ -98,6 +122,10 @@ def make_train_step(model, optimizer, pnll_weight: float = 1.0,
                                           gent_weight)
         loss.backward()
         optimizer.step()
+        if dist.active():
+            values = dist.all_reduce_mean(
+                torch.stack([metrics[k].detach() for k in metrics]))
+            return dict(zip(metrics, values.unbind()))
         return {k: v.detach() for k, v in metrics.items()}
 
     return train_step
@@ -163,6 +191,13 @@ def make_sample_step(model, n_sampled_points: int,
     model's device. Each call runs under torch.inference_mode() in eval
     mode (BatchNorm running statistics, none of them written) on the
     model's weights of that moment, and gives the model its modes back.
+
+    Data-parallel (inside a process group of several ranks, every rank
+    calling with the same generator state), the noise is drawn for the
+    global batch of world_size() equal shards and each rank keeps its
+    rows, so that the ranks' clouds do not share their noise; the
+    component ids then come from uniforms by the inverse of each cloud's
+    weights' CDF, where one process calls torch.multinomial.
     """
     modes = ("reconstruction",) if svr else ("generating", "autoencoding")
     if mode not in modes:
@@ -178,19 +213,31 @@ def make_sample_step(model, n_sampled_points: int,
             packed = model.pack_decoder()
             B = g_clouds.shape[0]
             device = g_clouds.device
+            world, rank = dist.world_size(), dist.rank()
+
+            def draw(fn, *shape, dim=0):  # this rank's rows of a global draw
+                shape = list(shape)
+                shape[dim] *= world
+                return fn(*shape, generator=generator,
+                          device=device).narrow(dim, rank * B, B)
+
             if svr:
                 g = model.encode(g_clouds, mode, images=images)["g_sample"]
             else:
                 g0_eps = None
                 if mode == "generating":
-                    g0_eps = torch.randn(B, G, generator=generator,
-                                         device=device)
+                    g0_eps = draw(torch.randn, B, G)
                 g = model.encode(g_clouds, mode, g0_eps)["g_sample"]
             logits = model.get_weights(g)
-            ids = torch.multinomial(logits.softmax(-1), N, replacement=True,
-                                    generator=generator)
-            base_eps = torch.randn(K, B, 3, N, generator=generator,
-                                   device=device)
+            probs = logits.softmax(-1)
+            if world == 1:
+                ids = torch.multinomial(probs, N, replacement=True,
+                                        generator=generator)
+            else:
+                ids = torch.searchsorted(
+                    probs.cumsum(-1), draw(torch.rand, B, N),
+                    right=True).clamp_(max=K - 1)
+            base_eps = draw(torch.randn, K, B, 3, N, dim=1)
             samples, labels = model.decode_sampling(g, ids, base_eps, packed)
             return samples, labels, logits
 

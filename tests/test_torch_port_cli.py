@@ -245,9 +245,11 @@ def test_main_defaults_to_the_card(module, argv):
 
 @pytest.mark.parametrize("flags", [["--distributed"], ["-n", "2"]])
 def test_multi_process_is_refused(flags):
+    """train_svr refuses data-parallel training (train_ae runs it:
+    tests/test_torch_port_distributed.py)."""
     with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        train_ae.main(["c.yaml", "m", "1", "0.001", *flags, "--device",
-                       "cpu"])
+        train_svr.main(["c.yaml", "m", "1", "0.001", *flags, "--device",
+                        "cpu"])
 
 
 @pytest.mark.parametrize("key", ["matmul_precision",
