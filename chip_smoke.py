@@ -75,10 +75,18 @@ non-zero at the first failure:
      reps) and autoencoding (CD, EMD, F1) on its checkpoint, and
      reconstruct_ae's dump; config_SVR.yaml through train_svr for one
      epoch (4 steps at B=128) and evaluate_ae reconstruction (CD, EMD,
-     F1) over 2 batches. Each stage's kernel launches are read around
-     it; the restored models are bit-equal to the trained ones, every
-     metric is finite and the JSD in [0, 1], and sampled clouds lie on
-     their meshes. It prints the loader's ms/batch by part, the CLI
+     F1) over 2 batches; evaluate_ae interpolation on the flagship's
+     checkpoint (3 train batches of 64 shape pairs x 9 steps, the arrays
+     returned: kernel 1 launched exactly 27 times; the t=0 and t=1 codes
+     and their decodes bit-equal to the endpoints', every step of the
+     first batch within 1e-4 of the plain decode, labels in 1..K); and
+     both trained models written as the reference's .pkl, imported by
+     cli/import_torch_ckpt and evaluated again (the flagship in
+     autoencoding, SVR in reconstruction mode): the metrics equal the
+     original models' bit for bit. Each stage's kernel launches are read
+     around it; the restored models are bit-equal to the trained ones,
+     every metric is finite and the JSD in [0, 1], and sampled clouds
+     lie on their meshes. It prints the loader's ms/batch by part, the CLI
      loop's ms/step beside phases 5's and 6's, whether the loader keeps
      up with the step, and each evaluation's wall time;
   8. dist: data-parallel training of the flagship model on 2 ranks,
@@ -93,9 +101,17 @@ non-zero at the first failure:
      collectives (no scaling figure: the ranks share the card); (c) a
      rank-0 checkpoint restored on both ranks; (d) cli/train_ae's run
      over the 2 loader shards of phase 7's in-memory layout, then
-     reconstruct gathered and equal on both ranks. The ranks' launches
-     add to the kernels line, each kernel's as many as the steps and
-     batches give, every launch of kernels 7 and 8 in its SPMD form.
+     reconstruct gathered and equal on both ranks; then SVR at
+     config_SVR.yaml's width and a global B=128 (64 a rank, 224 x 224
+     images): (e) one step against one process (the loss within 1e-5
+     relative, the ResNet's and the decoder's running statistics within
+     atol 1e-5 + rtol 1e-5: the ResNet's BatchNorms over the global
+     batch), 2 timed steps with their collectives; (f) cli/train_svr's
+     run for one epoch over the 2 loader shards of phase 7's in-memory
+     ShapeNetAll layout, the ranks' models equal at its end. The ranks'
+     launches add to the kernels line, each kernel's as many as the
+     steps and batches give, every launch of kernels 7 and 8 in its SPMD
+     form.
 
 With `--cards N` it runs only phases 0 and 1 and then cli/train_ae's
 data-parallel launch on N cards of the host (cli.run_ranks, one rank a
@@ -2383,6 +2399,129 @@ def paired_turns(dataset, batch_size, num_workers, seed, step, state, svr,
     return out
 
 
+INTERP_BATCHES, INTERP_STEPS = 3, 9
+
+
+def reference_state_dict(model, prefix="module."):
+    """The port's model as the reference saves it (the inverse of
+    utils/torch_import.py): every key under DDP's `prefix`, the K
+    decoders as `pc_decoder.{k}.`, SharedDot tensors with their leading
+    1, the ResNet's blocks as `layer{l}.{b}` with `downsample.{0,1}`, and
+    a num_batches_tracked beside every BatchNorm; on the CPU."""
+    import torch
+
+    from go_with_the_flows_tpu_torch.ops.layers import SharedDot
+
+    dots = {f"{name}.{p}" for name, m in model.named_modules()
+            if isinstance(m, SharedDot) for p in ("weight", "bias")
+            if getattr(m, p) is not None}
+    out = {}
+
+    def put(key, value):
+        if key.startswith("img_encoder.layer"):
+            head, block, rest = key.split(".", 2)
+            stage, b = block[len("layer"):].split("_")
+            rest = rest.replace("downsample_conv.", "downsample.0.").replace(
+                "downsample_bn.", "downsample.1.")
+            key = f"{head}.layer{stage}.{b}.{rest}"
+        out[prefix + key] = value.detach().cpu().clone()
+        if key.endswith(".running_mean"):
+            out[prefix + key[:-len("running_mean")] + "num_batches_tracked"] \
+                = torch.tensor(0)
+
+    for key, value in model.state_dict().items():
+        if key.startswith("pc_decoder."):
+            for k in range(model.n_components):
+                put(f"pc_decoder.{k}.{key[len('pc_decoder.'):]}",
+                    value[k][None] if key in dots else value[k])
+        else:
+            put(key, value[None] if key in dots else value)
+    return out
+
+
+def import_reference(model, exp, out_dir, model_name, work):
+    """Write `model` as a reference .pkl (protocol 4, DDP's keys) and
+    import it with cli/import_torch_ckpt into out_dir beside exp's
+    config: the import's wall seconds."""
+    import torch
+
+    from go_with_the_flows_tpu_torch.cli import import_torch_ckpt
+
+    pkl = os.path.join(work, model_name.replace(".ckpt", ".pkl"))
+    torch.save({"epoch": 1, "iter": 0,
+                "model_state": reference_state_dict(model),
+                "optimizer_state": {}}, pkl, pickle_protocol=4)
+    t = time.perf_counter()
+    import_torch_ckpt.main([pkl, os.path.join(exp, "config.yaml"), out_dir,
+                            "--model_name", model_name])
+    return time.perf_counter() - t
+
+
+def check_interpolation(model, arrays, seed):
+    """evaluate_ae's interpolation arrays against the model: shapes,
+    labels in 1..K; on the first batch, the t=0 and t=1 codes equal the
+    endpoints' codes bit for bit, the endpoints' interpolants equal
+    kernel 1's decode of those codes bit for bit, and every step's
+    interpolants equal the plain decode (point_decode_plain) of the same
+    noise within 1e-4 (phase 2's tolerance). Returns that error."""
+    import numpy as np
+    import torch
+
+    from go_with_the_flows_tpu_torch.eval.interpolate import (
+        decode_codes, derived_seed, draw_noise, encode_codes, lerp_codes)
+    from go_with_the_flows_tpu_torch.ops.kernels.point_decode import (
+        film_alpha_beta, point_decode_plain)
+    from go_with_the_flows_tpu_torch.train.step import eval_mode
+
+    c1, c2 = arrays["clouds1"], arrays["clouds2"]
+    interps, labels = arrays["interpolations"], arrays["labels"]
+    S, _, N, steps = interps.shape
+    K = model.n_components
+    if (steps != INTERP_STEPS or S != INTERP_BATCHES * BATCH
+            or labels.shape != (S, N, steps) or c1.shape != (S, 3, N)
+            or c2.shape != (S, 3, N) or not np.isfinite(interps).all()
+            or labels.min() < 1 or labels.max() > K):
+        fail(f"interpolation: shapes {interps.shape}, {labels.shape}, "
+             f"labels {labels.min()}..{labels.max()}")
+
+    def gen(s):
+        return torch.Generator(device="cuda").manual_seed(
+            derived_seed(seed, 0, s))
+
+    want = torch.from_numpy(interps[:BATCH])
+    codes1 = encode_codes(model, torch.from_numpy(c1[:BATCH]).cuda())
+    codes2 = encode_codes(model, torch.from_numpy(c2[:BATCH]).cuda())
+    codes = lerp_codes(codes1, codes2, steps)
+    if not (torch.equal(codes[0], codes1) and torch.equal(codes[-1], codes2)):
+        fail("interpolation: the t=0 and t=1 codes differ from the "
+             "endpoints' encode")
+    for s, c in ((0, codes1), (steps - 1, codes2)):
+        if not torch.equal(decode_codes(model, c, N, gen(s))[0].cpu(),
+                           want[..., s]):
+            fail(f"interpolation: step {s}'s interpolants differ from the "
+                 "endpoint's decode")
+    worst = 0.0
+    with eval_mode(model), torch.inference_mode():
+        packed = model.pack_decoder()
+        for s in range(steps):
+            ids, base_eps = draw_noise(gen(s), model.get_weights(codes[s]), N)
+            mus, logvars = model.point_base(codes[s])
+            base = mus[None] + torch.exp(0.5 * logvars)[None] * base_eps
+            decoded, _ = point_decode_plain(
+                packed, film_alpha_beta(packed, codes[s]), base)
+            pick = ids[None, :, None, :].expand(1, BATCH, 3, N)
+            plain = torch.gather(decoded, 0, pick)[0].cpu()
+            worst = max(worst, (plain - want[..., s]).abs().max().item())
+            if not np.array_equal(ids.cpu().numpy() + 1,
+                                  labels[:BATCH, :, s]):
+                fail(f"interpolation: step {s}'s labels differ from the "
+                     "drawn components")
+    if worst > 1e-4:
+        fail(f"interpolation: kernel 1's interpolants {worst:.3g} off the "
+             "plain decode (atol 1e-4)")
+    return worst
+
+
 def phase_cli(card, loop_ms, svr_loop_ms):
     import importlib.util
     import tempfile
@@ -2485,10 +2624,10 @@ def phase_cli(card, loop_ms, svr_loop_ms):
             f"validation {epoch['val_s']:.2f} s [{card}]")
         finite_metrics("train_ae", [state.train_metrics, state.val_metrics])
 
-        def evaluate(mode, *flags):
+        def evaluate(mode, *flags, part="test", path=exp):
             n = str(config["cloud_size"])
             eargs = evaluate_ae.define_options_parser().parse_args([
-                exp, "airplane_gen_model.ckpt", "test", n, n, mode,
+                path, "airplane_gen_model.ckpt", part, n, n, mode,
                 "--weights_type", "learned_weights", "--batch_size",
                 str(config["batch_size"]), *flags])
             econfig = evaluate_ae.eval_config(eargs)
@@ -2512,6 +2651,43 @@ def phase_cli(card, loop_ms, svr_loop_ms):
             ["point_decode", "nn_distance", "emd_cost"])
         same_model("evaluate_ae autoencoding", model, state)
         finite_metrics("evaluate_ae autoencoding", ae_res)
+
+        # interpolation: 3 train batches of 64 shape pairs, 9 steps, the
+        # arrays returned (out_path None: the card's machine has no h5py)
+        steps = str(INTERP_STEPS)
+        (model, (arrays,)), interp_s = stage(
+            f"evaluate_ae interpolation ({INTERP_BATCHES} batches x "
+            f"{steps} steps)",
+            lambda: evaluate("interpolation", "--interpolation_steps", steps,
+                             "--interpolation_batches",
+                             str(INTERP_BATCHES), part="train"),
+            ["point_decode"], {"point_decode": INTERP_BATCHES * INTERP_STEPS})
+        same_model("evaluate_ae interpolation", model, state)
+        interp_err = check_interpolation(model, arrays, seed=1)
+        say(f"    interpolation: {arrays['interpolations'].shape} "
+            f"interpolants, labels 1..{int(arrays['labels'].max())}; the "
+            f"endpoints' codes and decodes bit-equal; kernel 1 against the "
+            f"plain decode on batch 0, all steps: {interp_err:.3g} (atol "
+            f"1e-4)")
+        del arrays
+
+        # the reference's checkpoint format: the trained model exported as
+        # a .pkl, imported by cli/import_torch_ckpt, evaluated again
+        imported = os.path.join(tmp, "imported_airplane")
+        import_s = import_reference(state.model, exp, imported,
+                                    "airplane_gen_model.ckpt", tmp)
+        (model, imp_res), imp_eval_s = stage(
+            "evaluate_ae autoencoding --cd --emd --f1 (imported)",
+            lambda: evaluate("autoencoding", "--cd", "--emd", "--f1",
+                             path=imported),
+            ["point_decode", "nn_distance", "emd_cost"])
+        same_model("the imported flagship model", model, state)
+        if imp_res != ae_res:
+            fail(f"the imported model's autoencoding metrics {imp_res} "
+                 f"differ from the original's {ae_res}")
+        say(f"    import: the trained model as a reference .pkl, imported "
+            f"in {import_s:.2f} s; its autoencoding metrics equal the "
+            f"original's bit for bit [{card}]")
 
         def reconstruct():
             rconfig = load_config(os.path.join(exp, "config.yaml"))
@@ -2584,11 +2760,11 @@ def phase_cli(card, loop_ms, svr_loop_ms):
         svr_cli_ms = 1000.0 * stimings[0]["train_s"] / stimings[0]["steps"]
         finite_metrics("train_svr", [sstate.train_metrics])
 
-        def evaluate_svr():
+        def evaluate_svr(path=sconfig["logging_path"]):
             # scripts/run_evaluate_svr.sh, at the training batch
             n = str(sconfig["cloud_size"])
             eargs = evaluate_ae.define_options_parser().parse_args([
-                sconfig["logging_path"], "all_svr_model.ckpt", "test", n, n,
+                path, "all_svr_model.ckpt", "test", n, n,
                 "reconstruction", "--weights_type",
                 "learned_weights", "--reps", "1", "--f1_threshold_lst",
                 "0.001", "--cd", "--f1", "--emd", "--unit_scale_evaluation",
@@ -2609,6 +2785,22 @@ def phase_cli(card, loop_ms, svr_loop_ms):
         say("    SVR reconstruction: " + ", ".join(
             f"{k} {v:.6f}" for k, v in rec_res[0].items())
             + "; the restored model bit-equal to the trained one")
+        # the SVR model through the reference's format; an SVR model has
+        # no autoencoding sampler, so it is scored in reconstruction mode
+        imported = os.path.join(tmp, "imported_svr")
+        svr_import_s = import_reference(sstate.model, sconfig["logging_path"],
+                                        imported, "all_svr_model.ckpt", tmp)
+        (model, imp_res), svr_imp_eval_s = stage(
+            "evaluate_ae reconstruction (SVR, imported)",
+            lambda: evaluate_svr(imported),
+            ["point_decode", "nn_distance", "emd_cost"], {"point_decode": 2})
+        same_model("the imported SVR model", model, sstate)
+        if imp_res != rec_res:
+            fail(f"the imported SVR model's metrics {imp_res} differ from "
+                 f"the original's {rec_res}")
+        say(f"    import (SVR): imported in {svr_import_s:.2f} s; its "
+            f"reconstruction metrics equal the original's bit for bit "
+            f"[{card}]")
         svr_turns = paired_turns(
             svr_ds, sconfig["batch_size"], sconfig["num_workers"], sargs.seed,
             make_train_step(sstate.model, sstate.optimizer, svr=True),
@@ -2616,8 +2808,11 @@ def phase_cli(card, loop_ms, svr_loop_ms):
         del sstate, model
 
     say(f"    evaluate_ae wall s: generating (2 reps) {gen_s:.2f}, "
-        f"autoencoding {ae_s:.2f}, SVR reconstruction {svr_eval_s:.2f}; "
-        f"reconstruct_ae {rec_s:.2f} [{card}]")
+        f"autoencoding {ae_s:.2f}, interpolation {interp_s:.2f}, "
+        f"autoencoding imported {imp_eval_s:.2f}, SVR reconstruction "
+        f"{svr_eval_s:.2f}, SVR imported {svr_imp_eval_s:.2f}; "
+        f"reconstruct_ae {rec_s:.2f}; imports {import_s:.2f} and "
+        f"{svr_import_s:.2f} [{card}]")
     from go_with_the_flows_tpu_torch.data.native import sampler_threads
 
     say(f"    host: {os.cpu_count()} CPUs, {sampler_threads()} in this "
@@ -2727,6 +2922,48 @@ def dist_steps(step, opt, model, clouds, eps):
     return losses, grad, states
 
 
+DIST_SVR_TIMED = 2  # SVR steps timed after the compared one
+
+
+def dist_svr_setup(rows):
+    """config_SVR.yaml's model (seed 0, jiggled decoder statistics) on the
+    card with its optimizer and kernel-path SVR train step, and `rows` of
+    seeded clouds, images (224 x 224) and posterior noise (B=128 in
+    all)."""
+    import numpy as np
+    import torch
+
+    from go_with_the_flows_tpu_torch.models.mixture import (
+        FlowMixtureSVRModel)
+    from go_with_the_flows_tpu_torch.optim import make_optimizer
+    from go_with_the_flows_tpu_torch.train.step import make_train_step
+    from go_with_the_flows_tpu_torch.utils.config import (
+        SVR_RUN, SVR_SHAPENETALL13, svr_model_config_kwargs)
+
+    model = FlowMixtureSVRModel(**svr_model_config_kwargs(SVR_SHAPENETALL13),
+                                generator=torch.Generator().manual_seed(0))
+    jiggle_batch_norms(model, 1000)
+    model.cuda()
+    hp = {k: SVR_RUN[k] for k in ("cycle_length", "min_lr", "max_lr",
+                                  "beta1", "min_beta2", "max_beta2", "wd")}
+    opt = make_optimizer(list(model.parameters()), epoch_length=4, **hp)
+    step = make_train_step(model, opt, svr=True)
+    rng = np.random.default_rng(DIST_SEED + 1)
+    items = svr_batches(rng, SVR_RUN["batch_size"])[rows]
+    clouds = torch.from_numpy(np.stack([d["cloud"] for d in items])).cuda()
+    images = torch.from_numpy(np.stack([d["image"] for d in items])).cuda()
+    eps = torch.from_numpy(rng.standard_normal(
+        (SVR_RUN["batch_size"], model.g_latent_space_size)).astype(
+            np.float32)[rows]).cuda()
+    return model, step, clouds, images, eps
+
+
+def svr_buffers(model):
+    """The SVR model's running statistics on the host."""
+    return {k: v.cpu().clone() for k, v in model.state_dict().items()
+            if k.endswith(("running_mean", "running_var"))}
+
+
 def dist_cli_setup(work, jobid, extra=()):
     """cli/train_ae's command line for one epoch of the flagship config
     (lr 0.000256, learned weights, warmup 5 epochs, results under
@@ -2755,14 +2992,43 @@ def dist_cli_setup(work, jobid, extra=()):
     return args, config
 
 
-def dist_rank(rank, work, config):
+def dist_svr_cli_setup(work):
+    """cli/train_svr's command line for one epoch of config_SVR.yaml (lr
+    0.000256, learned weights, warmup 1 epoch, results under `work`),
+    configured, and phase 7's in-memory ShapeNetAll layout in
+    work/svr_store.npz: the config."""
+    import numpy as np
+
+    from go_with_the_flows_tpu_torch.cli import train_svr
+    from go_with_the_flows_tpu_torch.data.synthetic import (
+        synthetic_images, synthetic_meshes)
+    from go_with_the_flows_tpu_torch.utils.config import (load_config,
+                                                          write_config)
+
+    yaml_path = os.path.join(work, "svr.yaml")
+    raw = load_config(os.path.join(ROOT, "configs", "config_SVR.yaml"))
+    write_config(dict(raw, path2save=os.path.join(work, "results")),
+                 yaml_path)
+    args = train_svr.define_options_parser().parse_args([
+        yaml_path, "all_svr_dist", "1", "0.000256", "--weights_type",
+        "learned_weights", "--warmup_epoch", "1", "--jobid", "dist"])
+    np.savez(os.path.join(work, "svr_store.npz"),
+             **synthetic_meshes(n_shapes=SVR_SHAPES, parts=tuple(SVR_SHAPES),
+                                seed=71, sphere_level=SPHERE_LEVEL),
+             **synthetic_images(n_shapes=SVR_SHAPES, parts=tuple(SVR_SHAPES),
+                                hw=137, seed=72))
+    return train_svr.configure(args)
+
+
+def dist_rank(rank, work, config, svr_config):
     """One rank of phase 8 (spawned): kernels 7 and 8 in their SPMD form,
     the train steps, the checkpoint and the CLI's loops on this rank's
-    half of every batch; the results go to work/rank<r>.pt."""
+    half of every batch, then the same for SVR (a step, cli/train_svr's
+    run); the results go to work/rank<r>.pt."""
     import numpy as np
     import torch
 
-    from go_with_the_flows_tpu_torch.cli import train_ae
+    from go_with_the_flows_tpu_torch.cli import train_ae, train_svr
     from go_with_the_flows_tpu_torch.data.loader import DataLoader
     from go_with_the_flows_tpu_torch.models.mixture import FlowMixtureModel
     from go_with_the_flows_tpu_torch.ops.kernels.chamfer import nn_distance
@@ -2887,13 +3153,6 @@ def dist_rank(rank, work, config):
             val, sample, torch.Generator(device="cuda").manual_seed(8),
             "cuda", max_batches=2)
         recon_s = time.perf_counter() - t
-        out["launches"] = read(wrappers)
-        out["spmd_launches"] = {w.__name__: w.spmd_launches for w in spmd}
-        steps = 2 * DIST_STEPS + 1 + train_steps  # (b) and run's epoch
-        out["expect"] = dict(
-            {w.__name__: 0 for w in wrappers}, train_decode_fwd=steps,
-            train_decode_bwd=steps,
-            point_decode=val_batches + min(2, len(val)))  # reconstruct's 2
         out["run"] = {"timings": timings, "run_s": run_s,
                       "recon_s": recon_s, "recon": recon,
                       "train_metrics": trained.train_metrics,
@@ -2903,6 +3162,60 @@ def dist_rank(rank, work, config):
         val.close()
         train_ds.close()
         val_ds.close()
+        recon_points = min(2, len(val))
+        del trained, sample, recon
+        torch.cuda.empty_cache()
+
+        # (e) SVR at config_SVR.yaml's width, a global B=128: one step
+        # against one process (the ResNet's BatchNorms over the global
+        # batch), then DIST_SVR_TIMED timed steps
+        svr_rows = slice(rank * 64, (rank + 1) * 64)
+        model, step, clouds, images, eps = dist_svr_setup(svr_rows)
+        before = dict(dist.counts)
+        loss = float(step(clouds, clouds, None, posterior_eps=eps,
+                          images=images)["loss"])
+        out["svr_step"] = {
+            "loss": loss, "buffers": svr_buffers(model),
+            "collectives": {k: dist.counts[k] - before[k] for k in before}}
+        torch.cuda.synchronize()
+        dist.barrier()
+        t = time.perf_counter()
+        for _ in range(DIST_SVR_TIMED):
+            step(clouds, clouds, None, posterior_eps=eps, images=images)
+        torch.cuda.synchronize()
+        dist.barrier()
+        out["svr_step"]["ms"] = (1e3 * (time.perf_counter() - t)
+                                 / DIST_SVR_TIMED)
+        out["svr_step"]["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        del model, step, clouds, images, eps
+        torch.cuda.empty_cache()
+
+        # (f) cli/train_svr's run over this rank's loader shard of phase
+        # 7's in-memory ShapeNetAll layout (its 64 images a batch
+        # transformed on this rank)
+        svr_store = dict(np.load(os.path.join(work, "svr_store.npz")))
+        svr_ds = train_svr.build_dataset(svr_config, seed=0, store=svr_store)
+        svr_steps = len(DataLoader(svr_ds, svr_config["batch_size"]
+                                   // DIST_WORLD, **shard))
+        t = time.perf_counter()
+        strained, stimings = train_svr.run(svr_config, svr_ds, "cuda",
+                                           seed=0, warmup_epoch=1)
+        out["svr_run"] = {"timings": stimings,
+                          "run_s": time.perf_counter() - t,
+                          "train_metrics": strained.train_metrics,
+                          "state": {k: v.cpu() for k, v in
+                                    strained.model.state_dict().items()}}
+        svr_ds.close()
+
+        out["launches"] = read(wrappers)
+        out["spmd_launches"] = {w.__name__: w.spmd_launches for w in spmd}
+        # (b), run's epoch, (e) and train_svr's epoch
+        steps = (2 * DIST_STEPS + 1 + train_steps + 1 + DIST_SVR_TIMED
+                 + svr_steps)
+        out["expect"] = dict(
+            {w.__name__: 0 for w in wrappers}, train_decode_fwd=steps,
+            train_decode_bwd=steps,
+            point_decode=val_batches + recon_points)  # reconstruct's 2
     finally:
         torch.save(out, os.path.join(work, f"rank{rank}.pt"))
         dist.shutdown()
@@ -2952,12 +3265,21 @@ def phase_dist(card):
         one_steps = dist_steps(step, opt, model, clouds, eps)
         del model, opt, step, clouds, eps
         torch.cuda.empty_cache()
+        # ... and one one-process SVR step at B=128
+        model, step, clouds, images, eps = dist_svr_setup(slice(None))
+        one_svr = {"loss": float(step(clouds, clouds, None,
+                                      posterior_eps=eps,
+                                      images=images)["loss"])}
+        one_svr["buffers"] = svr_buffers(model)
+        del model, step, clouds, images, eps
+        torch.cuda.empty_cache()
 
-        # the CLI's config and in-memory meshes (phase 7's layout)
+        # the CLIs' configs and in-memory layouts (phase 7's)
         _, config = dist_cli_setup(work, "dist")
+        svr_config = dist_svr_cli_setup(work)
 
         t = time.perf_counter()
-        ctx = mp.start_processes(dist_rank, args=(work, config),
+        ctx = mp.start_processes(dist_rank, args=(work, config, svr_config),
                                  nprocs=DIST_WORLD, join=False,
                                  start_method="spawn")
         try:
@@ -3097,6 +3419,51 @@ def phase_dist(card):
         f"{runs[0]['run_s']:.2f} s in all; reconstruct of 2 global batches "
         f"gathered on both ranks in {runs[0]['recon_s']:.2f} s, equal there "
         f"[{card}]")
+
+    # (e) the SVR step: 2 ranks against one process
+    ranks = [g["svr_step"] for g in got]
+    if ranks[0]["loss"] != ranks[1]["loss"] or not all(
+            torch.equal(ranks[0]["buffers"][k], ranks[1]["buffers"][k])
+            for k in ranks[0]["buffers"]):
+        fail("(e) the ranks' SVR losses or running statistics differ")
+    svr_loss_rel = abs(ranks[0]["loss"] - one_svr["loss"]) / abs(
+        one_svr["loss"])
+    used = {}
+    for part, pick in (("ResNet", lambda k: k.startswith("img_encoder.")),
+                       ("rest", lambda k: not k.startswith("img_encoder."))):
+        used[part] = max(
+            ((ranks[0]["buffers"][k] - v).abs()
+             / (1e-5 + 1e-5 * v.abs())).max().item()
+            for k, v in one_svr["buffers"].items() if pick(k))
+    coll = ranks[0]["collectives"]
+    say(f"    (e) SVR step at B=128 (64 a rank, 224 x 224 images), "
+        f"{DIST_WORLD} ranks against one process: loss {ranks[0]['loss']:.6f} "
+        f"({one_svr['loss']:.6f}), relative diff {svr_loss_rel:.3g} (1e-5); "
+        f"running statistics after the step: the ResNet's "
+        f"{used['ResNet']:.3g}, the others' {used['rest']:.3g} of the "
+        f"allowance atol 1e-5 + rtol 1e-5; the ranks bit-equal")
+    if not (svr_loss_rel <= 1e-5 and max(used.values()) <= 1.0):
+        fail("(e) the 2-rank SVR step disagrees with the one-process step")
+    say(f"    (e) the 2-rank SVR step: {ranks[0]['ms']:.2f} ms/step (rank 1 "
+        f"{ranks[1]['ms']:.2f}), {DIST_SVR_TIMED} steps; per step "
+        f"{coll['all_reduce']} all_reduces, {coll['broadcast']} broadcasts, "
+        f"{coll['all_gather']} all_gathers; peak {ranks[0]['peak_gb']:.2f} "
+        f"GB a rank. Both ranks share one card through gloo, so the time is "
+        f"no scaling figure [{card}]")
+
+    # (f) train_svr's run
+    sruns = [g["svr_run"] for g in got]
+    if not all(torch.equal(sruns[0]["state"][k], sruns[1]["state"][k])
+               for k in sruns[0]["state"]):
+        fail("(f) the ranks' SVR models differ after train_svr.run")
+    finite_metrics("(f) train_svr.run", [sruns[0]["train_metrics"]])
+    sepoch = sruns[0]["timings"][0]
+    say(f"    (f) train_svr.run on {DIST_WORLD} ranks: {sepoch['steps']} steps "
+        f"of B=128 (64 images transformed a rank) in "
+        f"{sepoch['train_s']:.2f} s, "
+        f"{1e3 * sepoch['train_s'] / max(sepoch['steps'], 1):.2f} ms/step, "
+        f"{sruns[0]['run_s']:.2f} s in all; the ranks' models equal [{card}]")
+
     def summed(key):
         return {name: sum(g[key][name] for g in got) for name in got[0][key]}
 
@@ -3108,7 +3475,8 @@ def phase_dist(card):
     # inside the group every launch of kernels 7 and 8 is in SPMD form
     expect_launches("phase 8's main path in SPMD form", spmd, list(spmd),
                     exact={name: launches[name] for name in spmd})
-    say(f"    the ranks' main path (b, d), launches summed over the ranks: "
+    say(f"    the ranks' main path (b, d, e, f), launches summed over the "
+        f"ranks: "
         + ", ".join(f"{k} {n}" for k, n in launches.items() if n)
         + " (each as expected from the steps and batches), of them in SPMD "
         "form " + ", ".join(f"{k} {n}" for k, n in spmd.items())

@@ -17,14 +17,14 @@ unless it is given `--device cpu`. Each module splits into `main(argv)`
 datasets, or in-memory arrays handed in as `store`) and `run(config,
 datasets, device)`, which chip_smoke.py calls on the card.
 
-train_ae trains data-parallel as the reference's DDP launch does:
+train_ae and train_svr train data-parallel as the reference's DDP
+launch does:
 `--distributed -n NODES -g PROCESSES_A_NODE -nr NODE --coordinator
 HOST:PORT` spawns -g processes on this node, rank nr * g + local of
 n * g, each on the card cuda:<local> (NCCL between them; gloo when
 ranks share a card) or, under `--device cpu`, on the CPU (gloo); the
 coordinator may also be a `file://` URL. The config's batch_size is the
-global batch. train_svr refuses `--distributed` (ROADMAP.md, queue 1
-item 5). The port runs at fp32 'highest': a config whose
+global batch. The port runs at fp32 'highest': a config whose
 `matmul_precision` or `eval_matmul_precision` names another precision is
 refused.
 """
@@ -61,14 +61,6 @@ def check_precision(config: Dict) -> None:
                 f"{key}: {value!r}: the port runs fp32 'highest' only "
                 "(TF32 and bf16 modes wait for an end-metric A/B on the "
                 "card)")
-
-
-def refuse_distributed(args) -> None:
-    """train_svr's refusal of --distributed."""
-    if args.distributed or args.nodes > 1:
-        raise NotImplementedError(
-            "data-parallel SVR training is not ported yet (ROADMAP.md, "
-            "queue 1 item 5): run one process")
 
 
 # seconds a rank waits at the rendezvous or in a collective for the others
@@ -112,6 +104,20 @@ def _rank_main(local: int, args, target: Callable, target_args) -> None:
         target(device, *target_args)
     finally:
         dist.shutdown()
+
+
+def rank_config(config: Dict) -> Tuple[Dict, int, int]:
+    """(config, world size, rank) for a training run on this rank: the
+    global batch_size must divide by the ranks; rank 0 alone logs and
+    profiles, and every rank checkpoints (saving is a collective)."""
+    world, rank = dist.world_size(), dist.rank()
+    if config["batch_size"] % world:
+        raise ValueError(f"batch_size {config['batch_size']} not divisible "
+                         f"by the {world} ranks")
+    config = dict(config, logging=rank == 0, checkpointing=True,
+                  profile_dir=config.get("profile_dir") if rank == 0
+                  else None)
+    return config, world, rank
 
 
 def derived_seed(seed: int, *tags: int) -> int:
@@ -167,7 +173,7 @@ def add_common_train_options(parser) -> None:
     parser.add_argument("--resume_optimizer", action="store_true")
     parser.add_argument("--distributed", action="store_true",
                         help="Data-parallel training over -n nodes of -g "
-                             "processes (train_ae; train_svr refuses it).")
+                             "processes.")
     parser.add_argument("-n", "--nodes", default=1, type=int, metavar="N",
                         help="Nodes of the run.")
     parser.add_argument("-g", "--gpus", default=0, type=int,

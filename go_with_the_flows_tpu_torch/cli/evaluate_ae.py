@@ -12,9 +12,13 @@ and 1-NNA over CD, EMD and F1, and the voxel JSD x1e2; repeated --reps
 times with one shared cache of the reference-vs-reference matrices,
 then mean ± std) or `reconstruction` (per-batch meters; the SVR model's
 image-conditioned samples when the config's train_mode is
-p_rnvp_mc_g_rnvp_vae_ic). `--save` writes the clouds into an h5 file in
-EXPERIMENT_PATH. `interpolation` is not ported (ROADMAP.md queue 1
-item 6) and raises.
+p_rnvp_mc_g_rnvp_vae_ic) or `interpolation` (posterior-mean codes of
+--interpolation_batches batches and of their shuffled partners,
+interpolated over --interpolation_steps and decoded with labels through
+kernel 1; written to EXPERIMENT_PATH/interpolations_PART.h5, keys
+clouds1, clouds2, interpolations (B, 3, N, S) and labels (B, N, S)
+uint8; eval/interpolate.py). `--save` writes the clouds of the other
+modes into an h5 file in EXPERIMENT_PATH.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ from ..data.datasets import ShapeNetAllDataset, ShapeNetCoreDataset
 from ..data.image_transforms import ComposeImageTransformation
 from ..data.loader import DataLoader
 from ..eval.evaluating import evaluate
+from ..eval.interpolate import interpolate
 from ..models.mixture import FlowMixtureModel, FlowMixtureSVRModel
 from ..optim import make_optimizer
 from ..train.checkpoints import restore_checkpoint
@@ -53,8 +58,8 @@ def define_options_parser() -> argparse.ArgumentParser:
     p.add_argument("cloud_size", type=int, help="GT cloud size.")
     p.add_argument("sampled_cloud_size", type=int, help="Sampled size.")
     p.add_argument("mode", type=str,
-                   help="autoencoding | generating | reconstruction "
-                        "(interpolation is not ported).")
+                   help="autoencoding | generating | reconstruction | "
+                        "interpolation.")
     p.add_argument("--batch_size", type=int, default=1)
     p.add_argument("--weights_type", type=str, default="global_weights")
     p.add_argument("--reps", type=int, default=10,
@@ -72,9 +77,11 @@ def define_options_parser() -> argparse.ArgumentParser:
     p.add_argument("--N_sets", type=int, default=1)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--interpolation_steps", type=int, default=9,
-                   help="Interpolation mode, not ported.")
+                   help="Latent interpolation steps between each shape "
+                        "pair (interpolation mode).")
     p.add_argument("--interpolation_batches", type=int, default=3,
-                   help="Interpolation mode, not ported.")
+                   help="Loader batches to interpolate "
+                        "(interpolation mode).")
     add_device_option(p)
     return p
 
@@ -96,6 +103,8 @@ def eval_config(args) -> Dict:
         unit_scale_evaluation=args.unit_scale_evaluation,
         f1_threshold_lst=args.f1_threshold_lst,
         jsd=args.jsd, cd=args.cd, emd=args.emd, f1=args.f1,
+        interpolation_steps=args.interpolation_steps,
+        interpolation_batches=args.interpolation_batches,
     )
     return config
 
@@ -128,20 +137,23 @@ def build_dataset(config: Dict, part: str, seed: int = 0, store=None):
     return ShapeNetCoreDataset(**common)
 
 
-def run(config: Dict, dataset, device="cuda", reps: int = 10, seed: int = 0
-        ) -> Tuple[torch.nn.Module, List[Dict[str, float]]]:
+def run(config: Dict, dataset, device="cuda", reps: int = 10, seed: int = 0,
+        out_path: Optional[str] = None
+        ) -> Tuple[torch.nn.Module, List[Dict]]:
     """Restore the checkpoint config["model_name"] from
     config["logging_path"] and evaluate `dataset` in config["util_mode"].
     Returns the restored model and the metric dicts (one a rep in
-    generating mode, else one)."""
+    generating mode, else one). In interpolation mode the one dict holds
+    the arrays {"clouds1", "clouds2", "interpolations", "labels"}, also
+    written to the h5 file `out_path` unless it is None."""
     check_precision(config)
     mode = config["util_mode"]
-    if mode == "interpolation":
-        raise NotImplementedError(
-            "interpolation mode is not ported yet (ROADMAP.md, queue 1 "
-            "item 6)")
-    if mode not in ("autoencoding", "generating", "reconstruction"):
+    if mode not in ("autoencoding", "generating", "reconstruction",
+                    "interpolation"):
         raise ValueError(f"Unknown mode {mode}")
+    if mode == "interpolation" and config["interpolation_steps"] < 2:
+        raise SystemExit("--interpolation_steps must be >= 2 (the endpoints "
+                         "themselves)")
     device = torch.device(device)
     svr = is_svr(config)
     loader = DataLoader(dataset, batch_size=config["batch_size"],
@@ -163,6 +175,21 @@ def run(config: Dict, dataset, device="cuda", reps: int = 10, seed: int = 0
             config["logging_path"], config["model_name"], state,
             restore_optimizer=False)
         print(f"Model loaded (epoch {epoch}).")
+
+        if mode == "interpolation":
+            arrays = interpolate(
+                loader, model, seed=seed + 1,
+                n_steps=config["interpolation_steps"],
+                n_batches=config["interpolation_batches"],
+                out_path=out_path, device=device)
+            c1, _, interps, labels = arrays
+            print(f"Interpolated {c1.shape[0]} shape pairs x "
+                  f"{interps.shape[-1]} steps (labels "
+                  f"1..{int(labels.max())}).")
+            if out_path is not None:
+                print(f"Saved interpolations to {out_path}.")
+            return model, [dict(zip(("clouds1", "clouds2", "interpolations",
+                                     "labels"), arrays))]
 
         # without SVR, reconstruction samples in autoencoding mode and
         # keeps the per-batch meters
@@ -197,8 +224,11 @@ def main(argv: Optional[List[str]] = None):
     device = resolve_device(args.device)
     config = eval_config(args)
     dataset = build_dataset(config, args.part, seed=args.seed)
+    out_path = os.path.join(args.experiment_path,
+                            f"interpolations_{args.part}.h5")
     try:
-        return run(config, dataset, device, reps=args.reps, seed=args.seed)
+        return run(config, dataset, device, reps=args.reps, seed=args.seed,
+                   out_path=out_path)
     finally:
         dataset.close()
 

@@ -36,9 +36,9 @@ from ..train.state import TrainState, create_train_state
 from ..train.step import make_eval_step, make_train_step
 from ..utils.config import (count_params, load_config, model_config_kwargs,
                             resolve_config)
-from ..parallel import dist
 from . import (add_common_train_options, check_precision, derived_seed,
-               maybe_resume, resolve_device, run_ranks, start_logging)
+               maybe_resume, rank_config, resolve_device, run_ranks,
+               start_logging)
 
 
 def define_options_parser() -> argparse.ArgumentParser:
@@ -86,13 +86,7 @@ def run(config: Dict, train_dataset, val_dataset, device="cuda",
     take its shard of the datasets, batch_size / world clouds a batch."""
     check_precision(config)
     device = torch.device(device)
-    world, rank = dist.world_size(), dist.rank()
-    if config["batch_size"] % world:
-        raise ValueError(f"batch_size {config['batch_size']} not divisible "
-                         f"by the {world} ranks")
-    config = dict(config, logging=rank == 0, checkpointing=True,
-                  profile_dir=config.get("profile_dir") if rank == 0
-                  else None)
+    config, world, rank = rank_config(config)
     writer = start_logging(config)
     batch_size = config["batch_size"] // world
     workers = dict(num_workers=config.get("num_workers", 0),

@@ -3,14 +3,20 @@ package's train_svr.py, with the same arguments):
 
     python -m go_with_the_flows_tpu_torch.cli.train_svr CONFIG NAME \\
         N_EPOCHS LR [--weights_type ...] [--warmup_epoch ...] \\
-        [--resume [--resume_optimizer]] [--device cpu]
+        [--resume [--resume_optimizer]] [--device cpu] \\
+        [--distributed -n NODES -g CARDS [-nr NODE] [--coordinator ...]]
 
 ShapeNetAll13 clouds and renderings (the image transforms of the
 config), FlowMixtureSVRModel and the `svr=True` train step; training
 only, as in the reference (no SVR validation loop). TensorBoard scalars
-at every step when tensorboard is installed. The TensorBoard SVR
-reconstruction figures (the JAX script's `svr_recon_fn`) are not ported
-(ROADMAP.md queue 1 item 6): nothing takes their place.
+at every step when tensorboard is installed. With --distributed every
+rank trains on its shard of each global batch of the config's
+batch_size, its loader transforming only its own images (cli/__init__.py
+says how the ranks start); the ResNet's BatchNorms, like every other,
+take the global batch's statistics; rank 0 logs and writes the
+checkpoints. The TensorBoard SVR reconstruction figures (the JAX
+script's `svr_recon_fn`) are not ported (ROADMAP.md queue 1 item 6):
+nothing takes their place.
 """
 
 from __future__ import annotations
@@ -33,7 +39,7 @@ from ..train.step import make_train_step
 from ..utils.config import (count_params, load_config, resolve_config,
                             svr_model_config_kwargs)
 from . import (add_common_train_options, check_precision, maybe_resume,
-               refuse_distributed, resolve_device, start_logging)
+               rank_config, resolve_device, run_ranks, start_logging)
 
 
 def define_options_parser() -> argparse.ArgumentParser:
@@ -67,17 +73,21 @@ def run(config: Dict, train_dataset, device="cuda", seed: int = 0,
         warmup_epoch: int = 5
         ) -> Tuple[TrainState, List[Dict[str, float]]]:
     """Train a resolved SVR config's model to n_epochs. Returns the state
-    and, per epoch run, {"epoch", "steps", "train_s"}."""
+    and, per epoch run, {"epoch", "steps", "train_s"}. Inside a process
+    group every rank calls it: its loader takes its shard of the dataset,
+    batch_size / world views a batch."""
     check_precision(config)
     device = torch.device(device)
-    config = dict(config, logging=True, checkpointing=True)
+    config, world, rank = rank_config(config)
     writer = start_logging(config)
     train_loader = DataLoader(
-        train_dataset, config["batch_size"],
+        train_dataset, config["batch_size"] // world,
         shuffle=config.get("shuffle", True), seed=seed,
         num_workers=config.get("num_workers", 0),
-        worker_type=config.get("worker_type", "thread"))
-    print(f"Size of training data: {len(train_dataset)}")
+        worker_type=config.get("worker_type", "thread"),
+        num_replicas=world, rank=rank)
+    if config["logging"]:
+        print(f"Size of training data: {len(train_dataset)}")
     try:
         model = FlowMixtureSVRModel(
             **svr_model_config_kwargs(config),
@@ -85,7 +95,8 @@ def run(config: Dict, train_dataset, device="cuda", seed: int = 0,
         optimizer = make_optimizer(list(model.parameters()),
                                    epoch_length=len(train_loader), **config)
         state = create_train_state(model, optimizer, seed=seed)
-        print("Total number of parameters:", count_params(model))
+        if config["logging"]:
+            print("Total number of parameters:", count_params(model))
         state, cur_epoch, cur_iter = maybe_resume(config, state)
         train_step = make_train_step(
             model, state.optimizer, svr=True,
@@ -103,8 +114,9 @@ def run(config: Dict, train_dataset, device="cuda", seed: int = 0,
             t1 = time.perf_counter()
             timings.append({"epoch": epoch, "steps": state.step - steps,
                             "train_s": t1 - t0})
-            print(f"epoch {epoch}: train {t1 - t0:.2f} s "
-                  f"({timings[-1]['steps']} steps)")
+            if config["logging"]:
+                print(f"epoch {epoch}: train {t1 - t0:.2f} s "
+                      f"({timings[-1]['steps']} steps)")
             cur_iter = 0
         return state, timings
     finally:
@@ -126,14 +138,19 @@ def configure(args) -> Dict:
 
 
 def main(argv: Optional[List[str]] = None):
+    """Run the command line `argv`: (state, timings) of `run`, or None
+    with --distributed (the ranks are other processes)."""
     args = define_options_parser().parse_args(argv)
-    refuse_distributed(args)
-    device = resolve_device(args.device)
+    resolve_device(args.device)  # before the config file is written
     config = configure(args)
-    dataset = build_dataset(config, seed=args.seed)
+    return run_ranks(args, _train, config, args.seed, args.warmup_epoch)
+
+
+def _train(device, config: Dict, seed: int, warmup_epoch: int):
+    dataset = build_dataset(config, seed=seed)
     try:
-        return run(config, dataset, device, seed=args.seed,
-                   warmup_epoch=args.warmup_epoch)
+        return run(config, dataset, device, seed=seed,
+                   warmup_epoch=warmup_epoch)
     finally:
         dataset.close()
 

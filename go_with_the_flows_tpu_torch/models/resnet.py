@@ -8,8 +8,10 @@ layout (the JAX package takes NHWC).
 
 The convolutions are `nn.Conv2d` (cuDNN on the card, at fp32: the TF32
 switches are off, ops/precision.py) and the BatchNorms torch's fused
-`batch_norm`: the JAX package computes both with XLA, outside any
-Pallas kernel. Module names follow the JAX package's (`conv1`, `bn1`,
+`batch_norm` in one process; inside a process group of several ranks
+the training-mode BatchNorms take their statistics over the global
+batch (`ops/layers.batch_stats`). The JAX package computes both with
+XLA, outside any Pallas kernel. Module names follow the JAX package's (`conv1`, `bn1`,
 `layer{s}_{b}.{conv1,bn1,conv2,bn2,downsample_conv,downsample_bn}`,
 `fc`, `fc_bn`).
 
@@ -27,7 +29,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.layers import Linear, reset_parameters
+from ..ops.layers import (Linear, batch_stats, reset_parameters,
+                          update_running_stats)
+from ..parallel import dist
 
 
 class Conv2d(nn.Conv2d):
@@ -57,7 +61,15 @@ class FusedBatchNorm(nn.Module):
     settings: eps 1e-5, running statistics blended with momentum 0.9 in
     the flax convention (torch's 0.1), the running var Bessel-corrected.
     Training mode (`self.training`) normalises with the batch statistics
-    and updates the running ones in place."""
+    and updates the running ones in place.
+
+    Inside a process group of several ranks (parallel/dist.py) each
+    rank's input is its shard of the global batch, and training mode
+    takes the global batch's statistics, as the JAX package's
+    TorchBatchNorm does under a sharded batch: (mean, biased var) from
+    `batch_stats` (E[x^2] - E[x]^2 over every rank's sums, differentiable
+    across the ranks), the running var Bessel-corrected with the global
+    count. One process keeps torch's fused kernel."""
 
     def __init__(self, num_features: int):
         super().__init__()
@@ -76,9 +88,18 @@ class FusedBatchNorm(nn.Module):
         self.running_var.fill_(1.0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.batch_norm(x, self.running_mean, self.running_var,
-                            self.weight, self.bias, self.training,
-                            1.0 - self.momentum, self.eps)
+        if not (self.training and dist.active()):
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.weight, self.bias, self.training,
+                                1.0 - self.momentum, self.eps)
+        red = (0,) + tuple(range(2, x.ndim))
+        mean, var = batch_stats(x, red)
+        n = math.prod(x.shape[d] for d in red) * dist.world_size()
+        update_running_stats([self], [mean.detach()], [var.detach()], n)
+        shape = (1, -1) + (1,) * (x.ndim - 2)
+        y = (x - mean.reshape(shape)) * torch.rsqrt(var.reshape(shape)
+                                                    + self.eps)
+        return y * self.weight.reshape(shape) + self.bias.reshape(shape)
 
 
 class Dense(Linear):

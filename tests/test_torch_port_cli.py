@@ -3,8 +3,8 @@ called in process through `main(argv)` with `--device cpu` on tiny
 widths and synthetic h5 data (cubes from the JAX package's
 data/synthetic.py, renderings of 20 x 20 pixels): train_ae for two
 epochs and a resume, evaluate_ae in generating, autoencoding (with the
-h5 dump read back), reconstruction and interpolation (which raises),
-reconstruct_ae's .npy dump, and train_svr. Without `--device`, every
+h5 dump read back), reconstruction and interpolation (its h5 dump read
+back), reconstruct_ae's .npy dump, and train_svr. Without `--device`, every
 command asks for the card and fails here.
 
 Tolerance: none; the checks are on shapes, files, keys, ranges and
@@ -24,6 +24,7 @@ from go_with_the_flows_tpu.data.synthetic import (
 )
 from go_with_the_flows_tpu_torch.cli import (
     evaluate_ae,
+    import_torch_ckpt,
     reconstruct_ae,
     train_ae,
     train_svr,
@@ -190,8 +191,27 @@ def test_evaluate_restores_the_saved_model(workdir):
 
 
 def test_evaluate_interpolation_raises(workdir):
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        _evaluate(workdir, "interpolation")
+    """Interpolation mode writes interpolations_<part>.h5 into the
+    experiment (3 batches of 4 pairs, 5 steps); fewer than 2 steps exit
+    as the JAX script does."""
+    model, (arrays,) = _evaluate(workdir, "interpolation",
+                                 "--interpolation_steps", "5")
+    path = os.path.join(workdir["exp"], "interpolations_test.h5")
+    with h5py.File(path, "r") as f:
+        assert sorted(f) == ["clouds1", "clouds2", "interpolations",
+                             "labels"]
+        got = {k: f[k][()] for k in f}
+    assert got["clouds1"].shape == got["clouds2"].shape == (N_SHAPES, 3, 32)
+    assert got["interpolations"].shape == (N_SHAPES, 3, 32, 5)
+    assert got["labels"].shape == (N_SHAPES, 32, 5)
+    assert got["interpolations"].dtype == np.float32
+    assert got["labels"].dtype == np.uint8
+    assert got["labels"].min() >= 1 and got["labels"].max() <= 2
+    assert np.isfinite(got["interpolations"]).all()
+    for key, value in arrays.items():
+        np.testing.assert_array_equal(got[key], value.astype(got[key].dtype))
+    with pytest.raises(SystemExit, match="interpolation_steps"):
+        _evaluate(workdir, "interpolation", "--interpolation_steps", "1")
 
 
 def test_reconstruct_ae_dump(workdir):
@@ -234,6 +254,7 @@ def test_train_svr_and_evaluate_reconstruction(workdir):
     (train_svr, ["c.yaml", "m", "1", "0.001"]),
     (evaluate_ae, ["exp", "m.ckpt", "test", "32", "32", "generating"]),
     (reconstruct_ae, ["exp", "m.ckpt"]),
+    (import_torch_ckpt, ["ref.pkl", "c.yaml", "out"]),
 ])
 def test_main_defaults_to_the_card(module, argv):
     """Without --device each command asks for the card: with none, it
@@ -243,12 +264,15 @@ def test_main_defaults_to_the_card(module, argv):
         module.main(argv)
 
 
-@pytest.mark.parametrize("flags", [["--distributed"], ["-n", "2"]])
-def test_multi_process_is_refused(flags):
-    """train_svr refuses data-parallel training (train_ae runs it:
-    tests/test_torch_port_distributed.py)."""
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        train_svr.main(["c.yaml", "m", "1", "0.001", *flags, "--device",
+@pytest.mark.parametrize("flags", [["-n", "2"], ["--nodes", "2"]])
+def test_multi_process_is_refused(tmp_path, flags):
+    """train_svr refuses several nodes without --distributed, as train_ae
+    does (the data-parallel run: tests/test_torch_port_distributed_svr.py)."""
+    config = str(tmp_path / "svr.yaml")
+    write_config(dict(SVR_CONFIG, path2data=str(tmp_path),
+                      path2save=str(tmp_path / "results")), config)
+    with pytest.raises(ValueError, match="needs --distributed"):
+        train_svr.main([config, "m", "1", "0.001", *flags, "--device",
                         "cpu"])
 
 
