@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch + CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py              # phases 0-8, one card
+    python3 chip_smoke.py              # phases 0-9, one card
     python3 chip_smoke.py --cards 4    # the build, then the NCCL launch
 
 Runs from the root of a checkout, imports nothing of JAX, and exits
@@ -10,13 +10,16 @@ non-zero at the first failure:
   0. device: needs CUDA; prints the card's name and power limit;
   1. build: compiles every kernel of go_with_the_flows_tpu_torch/csrc;
      ptxas registers and spills of kernel 1 (`point_decode_kernel`, all
-     16 instantiations), kernel 2 (`nn_distance_kernel` and its chunk
-     fold), kernel 3 (`cd_stats_kernel`), kernel 6 (`emd_backward_kernel`
-     and its chunk sum), kernel 7's hidden and update passes, kernel 8's
+     48 instantiations: 8 widths, 2 directions, 3 precision modes),
+     kernel 2 (`nn_distance_kernel` and its chunk fold), kernel 3
+     (`cd_stats_kernel`), kernel 6 (`emd_backward_kernel` and its chunk
+     sum), kernel 7's hidden and update passes, kernel 8's
      B1/B2 and the EMD forward; all but kernel 8's must not spill, and
      kernels 1, 2, 3 and 6 keep no stack frame;
   2. kernels: each kernel against its plain PyTorch version at the main
-     path's shapes (jiggled BatchNorm statistics), with times; the EMD
+     path's shapes (jiggled BatchNorm statistics), with times, kernel 1
+     in each matmul precision mode against the plain version of that
+     mode (ops/precision.py: 'highest', 'high', 'fast'); the EMD
      kernels also at ragged and unequal sizes and at the SVR protocol's
      2500 points, the EMD backward through autograd, and the EMD grid
      against the paired EMD kernel bit for bit;
@@ -72,7 +75,9 @@ non-zero at the first failure:
      the flagship config (config_generative_modeling_airplane.yaml, read
      by the port's YAML reader) through train_ae for one epoch (4 steps,
      checkpoint, validation), evaluate_ae generating (CD, EMD, JSD, 2
-     reps) and autoencoding (CD, EMD, F1) on its checkpoint, and
+     reps) and autoencoding (CD, EMD, F1) on its checkpoint, the same
+     autoencoding with `eval_matmul_precision: fast` in its config
+     (kernel 1's 'fast' instantiation only), and
      reconstruct_ae's dump; config_SVR.yaml through train_svr for one
      epoch (4 steps at B=128) and evaluate_ae reconstruction (CD, EMD,
      F1) over 2 batches; evaluate_ae interpolation on the flagship's
@@ -111,7 +116,16 @@ non-zero at the first failure:
      ShapeNetAll layout, the ranks' models equal at its end. The ranks'
      launches add to the kernels line, each kernel's as many as the
      steps and batches give, every launch of kernels 7 and 8 in its SPMD
-     form.
+     form;
+  9. precision: the flagship's sample step, generating and autoencoding,
+     built under each matmul precision mode and called under 'highest':
+     kernel 1 launched in the step's mode once a call, no plain decode
+     on a CUDA tensor, the paired and pairwise metrics (kernels 2-5) bit
+     for bit the same in every mode, each mode's sample-step time and
+     drift from 'highest'; config_SVR.yaml's model reconstructing 8
+     images under 'high' (the ResNet's convolutions as three bf16
+     passes); tools/eval_precision_ab.run at 20 steps, B=64, S=64, one
+     rep, its table printed.
 
 With `--cards N` it runs only phases 0 and 1 and then cli/train_ae's
 data-parallel launch on N cards of the host (cli.run_ranks, one rank a
@@ -136,7 +150,8 @@ both kernels into their passes, fails if a pass took no time, and
 counts the forward's statistics launches (at most one a coupling and
 the seed).
 
-Its last two lines are a JSON object with one entry per kernel (its time
+Its last two lines are a JSON object with one entry per kernel, kernel 1
+once a precision mode (its time
 beside `bound_ms`, the least time the card could take for the same work
 at the published peaks, from the operations and bytes that the timed
 call's shapes need) and the JSON status line {"ok": true, "device": ...}.
@@ -146,6 +161,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -153,6 +169,11 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 N_POINTS = 2048
 BATCH = 64
+MODES = ("highest", "high", "fast")  # ops/precision.py
+# kernel 1 against its plain version at 'fast': the JAX package's own
+# bound for 'fast' (tests/test_coupling_kernel.py), as a bf16 rounding of
+# h can land the other way when the fp32 sums run in another order
+FAST_ATOL = 5e-2
 # optimizer keys of configs/config_generative_modeling_airplane.yaml
 # (epoch_length is the dataset's; the flagship's lr and beta2 are
 # constant, so it does not matter here)
@@ -178,6 +199,8 @@ def say(msg: str) -> None:
 # the special-function units (exp, rsqrt: 16 a clock per SM against 128
 # FP32 lanes, so 1/16 of the FP32 FLOP rate), HBM3
 FP32_FLOPS = 67e12
+# the tensor cores' dense bf16 rate: the products of 'high' and 'fast'
+BF16_FLOPS = 989e12
 SFU_OPS = FP32_FLOPS / 16
 HBM_BYTES = 3.35e12
 # an exp or a root can also run on the FP32 pipe as a polynomial: a range
@@ -202,12 +225,14 @@ EMD_BWD_SFU = 1 + 9
 CD_FLOP = 8 + 2
 
 
-def bound(flop: float = 0.0, sfu: float = 0.0, nbytes: float = 0.0):
+def bound(flop: float = 0.0, sfu: float = 0.0, nbytes: float = 0.0,
+          peak: float = FP32_FLOPS):
     """(bound_ms, bound_by): the larger of the operations' time and the
-    bytes' time at the HBM rate. The operations' time: the FP32 work at its
-    peak, the special-function operations split between their units and
-    the FP32 pipe (SFU_AS_FLOP each there) so that both finish soonest."""
-    ops_s = max(flop / FP32_FLOPS,
+    bytes' time at the HBM rate. The operations' time: the work `flop` at
+    `peak` (FP32 by default, BF16_FLOPS for bf16 products), the
+    special-function operations split between their units and the FP32
+    pipe (SFU_AS_FLOP each there) so that both finish soonest."""
+    ops_s = max(flop / peak,
                 min(sfu / SFU_OPS, (flop + SFU_AS_FLOP * sfu)
                     / (FP32_FLOPS + SFU_AS_FLOP * SFU_OPS)))
     ops_ms = 1e3 * ops_s
@@ -360,6 +385,21 @@ def phase_build():
             fail(f"{kernel} spills registers")
         if no_stack and max(m[2] for m in mine) > 0:
             fail(f"{kernel} keeps a stack frame in local memory")
+    # kernel 1 by precision mode: <FP, INVERSE, MODE>, MODE 0 'highest',
+    # 1 'high', 2 'fast'
+    by_mode = {}
+    for name, regs, _, _ in report:
+        m = re.search(r"point_decode_kernelILi(\d+)ELb([01])ELi(\d)E", name)
+        if m:
+            by_mode.setdefault(MODES[int(m.group(3))], []).append(
+                (int(m.group(1)), regs))
+    if sorted(len(v) for v in by_mode.values()) != [16, 16, 16]:
+        fail(f"point_decode_kernel: instantiations by mode "
+             f"{ {k: len(v) for k, v in by_mode.items()} }, 16 a mode "
+             "expected")
+    for mode, rows in by_mode.items():
+        say(f"    ptxas point_decode_kernel {mode}: registers by FP "
+            + ", ".join(f"{fp} {r}" for fp, r in sorted(set(rows))))
 
 
 def check_close(what, got, want, atol, rtol=0.0):
@@ -378,7 +418,13 @@ def check_close(what, got, want, atol, rtol=0.0):
     return err
 
 
-def check_point_decode(config, B, N, seed, timed):
+def check_point_decode(config, B, N, seed, timed, modes=("highest",)):
+    """Kernel 1 in each precision mode of `modes`, both directions,
+    against the plain version of that mode: atol 1e-4, at 'fast'
+    FAST_ATOL with the share of elements off by more than 1e-4 printed;
+    two launches bit-equal. Returns ({mode: max |diff|}, times): times
+    holds "dims" and, when `timed`, (mode, direction) -> (kernel ms,
+    plain ms), each the mean of one window of launches."""
     import torch
 
     from go_with_the_flows_tpu_torch.ops.kernels.point_decode import (
@@ -392,32 +438,45 @@ def check_point_decode(config, B, N, seed, timed):
                     generator=gen)
     ab = film_alpha_beta(packed, g).contiguous()
     p = 0.3 * torch.randn(K, B, 3, N, device="cuda", generator=gen)
-    errs, times = [], {}
-    for inverse in (False, True):
-        name = "inverse" if inverse else "direct"
-        out, lv = point_decode(packed, ab, p, inverse)
-        want_out, want_lv = point_decode_plain(packed, ab, p, inverse)
-        torch.cuda.synchronize()
-        C, f = packed["w1"].shape[1], packed["w1"].shape[-1]
-        times["dims"] = (K, B, N, C, f)
-        tag = f"point_decode {name} K={K} B={B} N={N} C={C} f={f}"
-        errs.append(check_close(f"{tag} points", out, want_out, 1e-4))
-        errs.append(check_close(f"{tag} logvar", lv, want_lv, 1e-4))
-        again = point_decode(packed, ab, p, inverse)
-        if not (torch.equal(out, again[0]) and torch.equal(lv, again[1])):
-            fail(f"{tag}: two launches differ")
-        if timed:
-            ms = cuda_ms(lambda: point_decode(packed, ab, p, inverse), 10)
-            plain = cuda_ms(
-                lambda: point_decode_plain(packed, ab, p, inverse), 3)
-            times[name] = (ms, plain)
-            say(f"    {tag}: kernel {ms:.3f} ms, plain {plain:.3f} ms")
+    C, f = packed["w1"].shape[1], packed["w1"].shape[-1]
+    errs, times = {}, {"dims": (K, B, N, C, f)}
+    for mode in modes:
+        atol = FAST_ATOL if mode == "fast" else 1e-4
+        errs[mode] = []
+        for inverse in (False, True):
+            name = "inverse" if inverse else "direct"
+            out, lv = point_decode(packed, ab, p, inverse, mode)
+            want_out, want_lv = point_decode_plain(packed, ab, p, inverse,
+                                                   mode)
+            torch.cuda.synchronize()
+            tag = (f"point_decode {mode} {name} K={K} B={B} N={N} C={C} "
+                   f"f={f}")
+            errs[mode].append(check_close(f"{tag} points", out, want_out,
+                                          atol))
+            errs[mode].append(check_close(f"{tag} logvar", lv, want_lv,
+                                          atol))
+            if mode == "fast":
+                off = [((a - b).abs() > 1e-4).float().mean().item()
+                       for a, b in ((out, want_out), (lv, want_lv))]
+                say(f"    {tag}: share off by more than 1e-4: points "
+                    f"{off[0]:.3g}, logvar {off[1]:.3g}")
+            again = point_decode(packed, ab, p, inverse, mode)
+            if not (torch.equal(out, again[0])
+                    and torch.equal(lv, again[1])):
+                fail(f"{tag}: two launches differ")
+            if timed:
+                ms = cuda_ms(
+                    lambda: point_decode(packed, ab, p, inverse, mode), 10)
+                plain = cuda_ms(lambda: point_decode_plain(
+                    packed, ab, p, inverse, mode), 3)
+                times[mode, name] = (ms, plain)
+                say(f"    {tag}: kernel {ms:.3f} ms, plain {plain:.3f} ms")
     if timed:
         w1 = w1_bmm_ms(K, B * N, f, C)
         say(f"    point_decode K={K} B={B} N={N} C={C} f={f}: its W1 "
             f"products alone as torch.bmm of (2K, f, f) W1 and (2K, f, BN) "
             f"h0, fp32 highest: {w1:.3f} ms for all {C} couplings")
-    return max(errs), times
+    return {m: max(e) for m, e in errs.items()}, times
 
 
 def step_sq_dist(q, r):
@@ -771,6 +830,12 @@ def path_bounds(K, B, N, C, f):
     pairs = B * N * N
     return {
         "point_decode": bound(**decode_work(K, B, N, C, f, fwd_flop, 24)),
+        # the same products as bf16 passes at the tensor cores' rate:
+        # one at 'fast', three at 'high'
+        "point_decode_fast": bound(
+            **decode_work(K, B, N, C, f, fwd_flop, 24), peak=BF16_FLOPS),
+        "point_decode_high": bound(
+            **decode_work(K, B, N, C, f, 3 * fwd_flop, 24), peak=BF16_FLOPS),
         # the Chamfer kernels need each point pair's distance once, 3
         # differences, 3 squares and 2 sums (8 FLOP), and its two minima,
         # the row's and the column's (2), as the TPU's CD grid takes both
@@ -798,13 +863,14 @@ def phase_kernels():
                  p_decoder_n_features=8)
     # ragged shapes and the narrow (f=8) instantiation go through the same
     # kernels as the flagship's
-    check_point_decode(small, 3, 50, 7, timed=False)
+    check_point_decode(small, 3, 50, 7, timed=False, modes=MODES)
     check_nn_distance(3, 50, 77, 8, timed=False)
     # three row chunks, the last partial, with ties in both directions
     check_nn_distance(2, 1100, 700, 20, timed=False, grid=True)
     check_pairwise(3, 5, 50, 77, 9, timed=False, thr=0.01)
-    pd_err, pd_times = check_point_decode(FLAGSHIP_AIRPLANE, BATCH, N_POINTS,
-                                          0, timed=True)
+    pd_errs, pd_times = check_point_decode(FLAGSHIP_AIRPLANE, BATCH,
+                                           N_POINTS, 0, timed=True,
+                                           modes=MODES)
     nn_err, nn_times = check_nn_distance(BATCH, N_POINTS, N_POINTS, 1,
                                          timed=True)
     S = R = 64  # the timed CD grid
@@ -859,8 +925,16 @@ def phase_kernels():
         f"exps and roots ({EMD_SFU_RECOMPUTED / EMD_SFU:.1f}x); the grid "
         f"{pe_times[0]:.3f} ms against its bound "
         f"{bounds['pairwise_emd'][0]:.3f} ms")
+    for mode in ("high", "fast"):
+        ms = pd_times[mode, "direct"][0]
+        base = pd_times["highest", "direct"][0]
+        say(f"    point_decode {mode}: {ms:.3f} ms direct, "
+            f"{ms / base:.2f} x 'highest'; bound "
+            f"{bounds['point_decode_' + mode][0]:.3f} ms at the bf16 peak")
     return {
-        "point_decode": (pd_err, pd_times["direct"]),
+        "point_decode": (pd_errs["highest"], pd_times["highest", "direct"]),
+        "point_decode_high": (pd_errs["high"], pd_times["high", "direct"]),
+        "point_decode_fast": (pd_errs["fast"], pd_times["fast", "direct"]),
         "nn_distance": (nn_err, nn_times),
         "pairwise_cd_stats": (max(pw_err, pw_main_err), pw_times),
         "emd_cost": (max(cost_errs + [c]), emd_times["emd_cost"]),
@@ -1831,7 +1905,7 @@ def check_svr_kernels():
 
     B, N = SVR_RUN["batch_size"], SVR_RUN["cloud_size"]
     decoder = model_config_kwargs(SVR_SHAPENETALL13)
-    pd_err, pd_times = check_point_decode(decoder, B, N, 30, timed=True)
+    pd_errs, pd_times = check_point_decode(decoder, B, N, 30, timed=True)
     nn_err, nn_times = check_nn_distance(B, N, N, 31, timed=True)
     f_err, b_err, td_times = check_train_decode(decoder, B, N, 32,
                                                 timed=True)
@@ -1845,7 +1919,8 @@ def check_svr_kernels():
     say(f"    emd B={B} N={N} M={N}: cost kernel {emd_ms:.3f} ms")
     bounds = path_bounds(*pd_times["dims"])
     measured = {
-        "point_decode": (pd_err, pd_times["direct"][0]),
+        "point_decode": (pd_errs["highest"],
+                         pd_times["highest", "direct"][0]),
         "nn_distance": (nn_err, nn_times[0]),
         "emd_cost": (emd_err, emd_ms),
         "train_decode_fwd": (f_err, td_times["train_decode_fwd"][0]),
@@ -2624,13 +2699,15 @@ def phase_cli(card, loop_ms, svr_loop_ms):
             f"validation {epoch['val_s']:.2f} s [{card}]")
         finite_metrics("train_ae", [state.train_metrics, state.val_metrics])
 
-        def evaluate(mode, *flags, part="test", path=exp):
+        def evaluate(mode, *flags, part="test", path=exp, precision=None):
             n = str(config["cloud_size"])
             eargs = evaluate_ae.define_options_parser().parse_args([
                 path, "airplane_gen_model.ckpt", part, n, n, mode,
                 "--weights_type", "learned_weights", "--batch_size",
                 str(config["batch_size"]), *flags])
             econfig = evaluate_ae.eval_config(eargs)
+            if precision is not None:  # as a key of the experiment's yaml
+                econfig["eval_matmul_precision"] = precision
             dataset = evaluate_ae.build_dataset(econfig, eargs.part,
                                                 seed=eargs.seed, store=store)
             return evaluate_ae.run(econfig, dataset, "cuda", reps=eargs.reps,
@@ -2651,6 +2728,28 @@ def phase_cli(card, loop_ms, svr_loop_ms):
             ["point_decode", "nn_distance", "emd_cost"])
         same_model("evaluate_ae autoencoding", model, state)
         finite_metrics("evaluate_ae autoencoding", ae_res)
+        # the same protocol with `eval_matmul_precision: fast`: kernel 1's
+        # 'fast' instantiation for every decode, the metrics fp32
+        by_mode = point_decode.launches_by_mode
+        by_mode.update(dict.fromkeys(by_mode, 0))
+        (model, fast_res), fast_s = stage(
+            "evaluate_ae autoencoding --cd --emd --f1 "
+            "(eval_matmul_precision: fast)",
+            lambda: evaluate("autoencoding", "--cd", "--emd", "--f1",
+                             precision="fast"),
+            ["point_decode", "nn_distance", "emd_cost"])
+        if by_mode["fast"] < 1 or by_mode["highest"] or by_mode["high"]:
+            fail(f"evaluate_ae with eval_matmul_precision fast launched "
+                 f"kernel 1 by mode {by_mode}")
+        # the kernels line counts kernel 1 by mode
+        total["point_decode"] -= by_mode["fast"]
+        total["point_decode_fast"] = by_mode["fast"]
+        same_model("evaluate_ae autoencoding (fast)", model, state)
+        finite_metrics("evaluate_ae autoencoding (fast)", fast_res)
+        say("    autoencoding at 'fast' against 'highest': " + ", ".join(
+            f"{k} {fast_res[0][k]:.6g} ({ae_res[0][k]:.6g})"
+            for k in ae_res[0]) + f"; {fast_s:.2f} s against {ae_s:.2f} s "
+            f"[{card}]")
 
         # interpolation: 3 train batches of 64 shape pairs, 9 steps, the
         # arrays returned (out_path None: the card's machine has no h5py)
@@ -3610,6 +3709,201 @@ def phase_nccl(card, cards):
         f"{got[0]['collectives']}; the ranks ran {ranks_s:.1f} s [{card}]")
 
 
+# --------------------------------------------------------------------- #
+# phase 9: the matmul precision modes on the sampling path              #
+# --------------------------------------------------------------------- #
+
+AB_STEPS, AB_S = 20, 64  # eval_precision_ab.run's size here
+SVR_IMAGES = 8
+
+
+def phase_precision(card):
+    """The flagship's sample steps built under each mode, SVR
+    reconstruction under 'high' and eval_precision_ab.run; returns the
+    launches of every kernel, kernel 1's by mode."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from go_with_the_flows_tpu_torch.metrics.evaluation import (
+        EMD_CD_F1, pairwise_EMD_CD_F1)
+    from go_with_the_flows_tpu_torch.models.mixture import (
+        FlowMixtureSVRModel)
+    from go_with_the_flows_tpu_torch.ops.kernels import (
+        point_decode as pd_module)
+    from go_with_the_flows_tpu_torch.ops.kernels.chamfer import nn_distance
+    from go_with_the_flows_tpu_torch.ops.kernels.emd import (
+        emd_backward, emd_cost)
+    from go_with_the_flows_tpu_torch.ops.kernels.pairwise import (
+        pairwise_cd_stats, pairwise_emd)
+    from go_with_the_flows_tpu_torch.ops.kernels.train_decode import (
+        train_decode_bwd, train_decode_fwd)
+    from go_with_the_flows_tpu_torch.ops.precision import (
+        get_matmul_precision, matmul_precision_scope)
+    from go_with_the_flows_tpu_torch.tools import eval_precision_ab
+    from go_with_the_flows_tpu_torch.train.step import make_sample_step
+    from go_with_the_flows_tpu_torch.utils.config import (
+        FLAGSHIP_AIRPLANE, SVR_RUN, SVR_SHAPENETALL13,
+        svr_model_config_kwargs)
+
+    say("[9] precision: the sampling path in each matmul precision mode")
+    point_decode = pd_module.point_decode
+    by_mode = point_decode.launches_by_mode
+    wrappers = (point_decode, nn_distance, pairwise_cd_stats, emd_cost,
+                emd_backward, pairwise_emd, train_decode_fwd,
+                train_decode_bwd)
+    launches = dict.fromkeys((w.__name__ for w in wrappers), 0)
+    launches.update(point_decode_high=0, point_decode_fast=0)
+
+    def count(fn):
+        """fn() with the kernels' counters set to 0 before and added into
+        `launches` after; kernel 1's by mode."""
+        zero(wrappers)
+        by_mode.update(dict.fromkeys(by_mode, 0))
+        out = fn()
+        torch.cuda.synchronize()
+        for k, n in read(wrappers).items():
+            launches[k] += n
+        launches["point_decode"] -= by_mode["high"] + by_mode["fast"]
+        for mode in ("high", "fast"):
+            launches["point_decode_" + mode] += by_mode[mode]
+        return out, dict(by_mode)
+
+    # a plain decode on a CUDA tensor would be a fallback: fail on one
+    plain = pd_module.point_decode_plain
+
+    def no_fallback(packed, ab, p, *args, **kwargs):
+        if p.is_cuda:
+            fail("point_decode ran its plain version on a CUDA tensor")
+        return plain(packed, ab, p, *args, **kwargs)
+
+    pd_module.point_decode_plain = no_fallback
+    try:
+        t0 = time.perf_counter()
+        model = make_model(FLAGSHIP_AIRPLANE, 0, "cuda")
+        rng = np.random.default_rng(90)
+        g_in = torch.from_numpy(reference_clouds(rng, BATCH)).cuda()
+        ref = reference_clouds(rng, BATCH).transpose(0, 2, 1).copy()
+        samples, paired = {}, {}
+        for mode in MODES:
+            with matmul_precision_scope(mode):
+                gen_step = make_sample_step(model, N_POINTS, "generating")
+                ae_step = make_sample_step(model, N_POINTS, "autoencoding")
+            if get_matmul_precision() != "highest":
+                fail("building a step changed the current mode")
+            for name, step in (("generating", gen_step),
+                               ("autoencoding", ae_step)):
+                gen = torch.Generator(device="cuda").manual_seed(91)
+                (out, _, _), got = count(lambda: step(g_in, gen))
+                want = {m: int(m == mode) for m in MODES}
+                if got != want:
+                    fail(f"{name} step built under {mode!r}, called under "
+                         f"'highest': kernel 1 launched by mode {got}")
+                if not bool(torch.isfinite(out).all()) \
+                        or tuple(out.shape) != (BATCH, 3, N_POINTS):
+                    fail(f"{name} step under {mode!r}: not finite or of "
+                         f"shape {tuple(out.shape)}")
+                samples[mode, name] = out.transpose(1, 2).cpu().numpy()
+            ms = cuda_ms(lambda: gen_step(g_in, gen), 5)
+            paired[mode] = EMD_CD_F1(
+                samples[mode, "autoencoding"],
+                g_in.transpose(1, 2).cpu().numpy(), BATCH, cd_option=True,
+                emd_option=True, f1_option=True, f1_threshold=1e-4,
+                device="cuda")
+            drift = {n: float(np.abs(samples[mode, n]
+                                     - samples["highest", n]).max())
+                     for n in ("generating", "autoencoding")}
+            say(f"    {mode}: generating step B={BATCH} {ms:.2f} ms; drift "
+                f"from 'highest' generating {drift['generating']:.3g}, "
+                f"autoencoding {drift['autoencoding']:.3g}; autoencoding "
+                f"CD x1e4 {1e4 * float(paired[mode]['CD']):.6g}, EMD x1e2 "
+                f"{1e2 * float(paired[mode]['EMD']):.6g}, F1@1e-4 "
+                f"{float(paired[mode]['F1']):.6g} [{card}]")
+        # the metric kernels (2-5) take fp32 in every mode: equal bits on
+        # the same clouds
+        a = samples["highest", "generating"]
+        metrics = {}
+        for mode in MODES:
+            with matmul_precision_scope(mode):
+                metrics[mode], _ = count(lambda: (
+                    EMD_CD_F1(a, ref, BATCH, cd_option=True, emd_option=True,
+                              f1_option=True, reduced=False, device="cuda"),
+                    pairwise_EMD_CD_F1(a[:16], ref[:16], 16, cd_option=True,
+                                       emd_option=True, f1_option=True,
+                                       device="cuda")))
+        for mode in ("high", "fast"):
+            for x, y in zip(
+                    [metrics[mode][0][k] for k in ("CD", "EMD", "F1")]
+                    + list(metrics[mode][1]),
+                    [metrics["highest"][0][k] for k in ("CD", "EMD", "F1")]
+                    + list(metrics["highest"][1])):
+                if not np.array_equal(np.asarray(x), np.asarray(y)):
+                    fail(f"a metric differs between {mode!r} and "
+                         "'highest'")
+        say("    paired CD/EMD/F1 of 64 pairs and the 16 x 16 CD/EMD/F1 "
+            "grids: equal bits in every mode")
+        flag_s = time.perf_counter() - t0
+
+        # SVR reconstruction under 'high': the ResNet's convolutions as
+        # three bf16 passes, kernel 1's 'high' instantiation
+        t0 = time.perf_counter()
+        svr = FlowMixtureSVRModel(
+            **svr_model_config_kwargs(SVR_SHAPENETALL13),
+            generator=torch.Generator().manual_seed(92))
+        jiggle_batch_norms(svr, 93)
+        svr = svr.cuda().eval()
+        n_svr = SVR_RUN["cloud_size"]
+        gen = torch.Generator(device="cuda").manual_seed(94)
+        images = torch.rand(SVR_IMAGES, 4, 224, 224, device="cuda",
+                            generator=gen)
+        g0 = torch.zeros(SVR_IMAGES, 3, n_svr, device="cuda")
+        recon = {}
+        for mode in ("highest", "high"):
+            with matmul_precision_scope(mode):
+                step = make_sample_step(svr, n_svr, "reconstruction",
+                                        svr=True)
+            gen = torch.Generator(device="cuda").manual_seed(95)
+            (out, _, _), got = count(lambda: step(g0, gen, images=images))
+            if got != {m: int(m == mode) for m in MODES}:
+                fail(f"SVR reconstruction under {mode!r}: kernel 1 by mode "
+                     f"{got}")
+            if not bool(torch.isfinite(out).all()):
+                fail(f"SVR reconstruction under {mode!r} is not finite")
+            recon[mode] = out
+            ms = cuda_ms(lambda: step(g0, gen, images=images), 3)
+            say(f"    SVR reconstruction of {SVR_IMAGES} images under "
+                f"{mode!r}: {ms:.2f} ms a batch [{card}]")
+        say(f"    SVR 'high' against 'highest': max |diff| "
+            f"{(recon['high'] - recon['highest']).abs().max().item():.3g}")
+        del svr
+        svr_s = time.perf_counter() - t0
+
+        # the A/B tool at a short size
+        t0 = time.perf_counter()
+        results, _ = count(lambda: eval_precision_ab.run(
+            FLAGSHIP_AIRPLANE, N_POINTS, AB_STEPS, BATCH, AB_S, 1, MODES,
+            "cuda"))
+        for mode, agg in results.items():
+            for k, (mu, _) in agg.items():
+                if not math.isfinite(mu):
+                    fail(f"eval_precision_ab: {mode} {k} = {mu}")
+        if results["highest"]["max_point_drift_vs_first_mode"][0] != 0.0:
+            fail("eval_precision_ab: 'highest' drifts from itself")
+        say("    eval_precision_ab (20 steps, S=64, 1 rep): "
+            + json.dumps(results))
+        ab_s = time.perf_counter() - t0
+    finally:
+        pd_module.point_decode_plain = plain
+    say(f"    phase 9 seconds: flagship steps and metrics {flag_s:.1f}, "
+        f"SVR {svr_s:.1f}, eval_precision_ab {ab_s:.1f}; launches "
+        + ", ".join(f"{k} {n}" for k, n in launches.items() if n))
+    for mode in ("high", "fast"):
+        if launches["point_decode_" + mode] < 1:
+            fail(f"kernel 1's {mode!r} instantiation was not launched")
+    return launches
+
+
 def main() -> None:
     import argparse
 
@@ -3658,20 +3952,29 @@ def main() -> None:
         launches[name] += n
     marks.append(time.perf_counter())
     for name, n in phase_cli(card, loop_ms, svr_loop_ms).items():
-        launches[name] += n
+        launches[name] = launches.get(name, 0) + n
     marks.append(time.perf_counter())
     for name, n in phase_dist(card).items():
         launches[name] += n
     marks.append(time.perf_counter())
+    for name, n in phase_precision(card).items():
+        launches[name] = launches.get(name, 0) + n
+    marks.append(time.perf_counter())
     say("phase seconds: " + ", ".join(
         f"{name} {b - a:.1f}" for name, a, b in
         zip(("build", "kernels", "slice", "train", "loop", "svr", "cli",
-             "dist"), marks, marks[1:])))
+             "dist", "precision"), marks, marks[1:])))
     if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
         fail("jax was imported")
 
     sources = {
         "point_decode": (
+            "go_with_the_flows_tpu_torch/csrc/point_decode.cu",
+            "go_with_the_flows_tpu/ops/pallas/coupling_kernel.py:453"),
+        "point_decode_high": (
+            "go_with_the_flows_tpu_torch/csrc/point_decode.cu",
+            "go_with_the_flows_tpu/ops/pallas/coupling_kernel.py:453"),
+        "point_decode_fast": (
             "go_with_the_flows_tpu_torch/csrc/point_decode.cu",
             "go_with_the_flows_tpu/ops/pallas/coupling_kernel.py:453"),
         "nn_distance": (

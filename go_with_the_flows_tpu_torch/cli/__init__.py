@@ -24,9 +24,16 @@ HOST:PORT` spawns -g processes on this node, rank nr * g + local of
 n * g, each on the card cuda:<local> (NCCL between them; gloo when
 ranks share a card) or, under `--device cpu`, on the CPU (gloo); the
 coordinator may also be a `file://` URL. The config's batch_size is the
-global batch. The port runs at fp32 'highest': a config whose
-`matmul_precision` or `eval_matmul_precision` names another precision is
-refused.
+global batch.
+
+Matmul precision (ops/precision.py): evaluate_ae and reconstruct_ae run
+in the config's `eval_matmul_precision`, else its `matmul_precision`,
+the JAX scripts' precedence, and at 'highest' when it has neither: the
+JAX scripts' defaults ('fast' for generating, 'high' for the paired
+modes) rest on A/Bs of the TPU, and on the card 'high' and 'fast' are no
+faster than 'highest' yet (the modes' A/B there:
+tools/eval_precision_ab.py). train_ae and train_svr train at 'highest'
+only, and refuse a config that names another mode under either key.
 """
 
 from __future__ import annotations
@@ -37,6 +44,7 @@ from typing import Callable, Dict, Tuple
 import numpy as np
 import torch
 
+from ..ops import precision
 from ..parallel import dist
 from ..train.checkpoints import checkpoint_exists, restore_checkpoint
 from ..train.state import TrainState
@@ -53,14 +61,26 @@ def resolve_device(name: str) -> torch.device:
     return device
 
 
-def check_precision(config: Dict) -> None:
+def check_training_precision(config: Dict) -> None:
+    """Refuse a training config whose `matmul_precision` or
+    `eval_matmul_precision` names a mode other than 'highest'."""
     for key in ("matmul_precision", "eval_matmul_precision"):
         value = config.get(key)
         if value is not None and value != "highest":
             raise ValueError(
-                f"{key}: {value!r}: the port runs fp32 'highest' only "
-                "(TF32 and bf16 modes wait for an end-metric A/B on the "
-                "card)")
+                f"{key}: {value!r}: training runs at 'highest' only; the "
+                "'high' and 'fast' training modes wait for kernels 7 and 8 "
+                "in those modes (csrc/train_decode.cu), the next slice of "
+                "the port")
+
+
+def eval_precision(config: Dict) -> str:
+    """The evaluation CLIs' matmul precision mode: the config's
+    `eval_matmul_precision`, else its `matmul_precision`, else
+    'highest'."""
+    mode = config.get("eval_matmul_precision",
+                      config.get("matmul_precision", "highest"))
+    return precision.resolve(mode)
 
 
 # seconds a rank waits at the rendezvous or in a collective for the others

@@ -19,6 +19,15 @@ kernel 1; written to EXPERIMENT_PATH/interpolations_PART.h5, keys
 clouds1, clouds2, interpolations (B, 3, N, S) and labels (B, N, S)
 uint8; eval/interpolate.py). `--save` writes the clouds of the other
 modes into an h5 file in EXPERIMENT_PATH.
+
+The model's products and kernel 1 run in the config's
+`eval_matmul_precision`, else its `matmul_precision` (the JAX script's
+precedence), else 'highest'. The JAX script defaults to 'fast' for
+generating and 'high' for the paired modes, from A/Bs on the TPU; here
+the default stays 'highest', because on the card those modes are not yet
+faster than 'highest' (kernel 1 runs them on the CUDA cores) and an A/B
+on the card comes first (tools/eval_precision_ab.py). The metrics are
+fp32 in every mode.
 """
 
 from __future__ import annotations
@@ -43,8 +52,8 @@ from ..train.state import create_train_state
 from ..train.step import make_sample_step
 from ..utils.config import (load_config, model_config_kwargs,
                             svr_model_config_kwargs)
-from . import (add_device_option, check_precision, derived_seed,
-               resolve_device)
+from ..ops.precision import matmul_precision_scope
+from . import add_device_option, derived_seed, eval_precision, resolve_device
 
 SVR_TRAIN_MODE = "p_rnvp_mc_g_rnvp_vae_ic"
 
@@ -145,8 +154,14 @@ def run(config: Dict, dataset, device="cuda", reps: int = 10, seed: int = 0,
     Returns the restored model and the metric dicts (one a rep in
     generating mode, else one). In interpolation mode the one dict holds
     the arrays {"clouds1", "clouds2", "interpolations", "labels"}, also
-    written to the h5 file `out_path` unless it is None."""
-    check_precision(config)
+    written to the h5 file `out_path` unless it is None. Runs in the
+    matmul precision mode `eval_precision(config)` and restores the mode
+    it found."""
+    with matmul_precision_scope(eval_precision(config)):
+        return _run(config, dataset, device, reps, seed, out_path)
+
+
+def _run(config, dataset, device, reps, seed, out_path):
     mode = config["util_mode"]
     if mode not in ("autoencoding", "generating", "reconstruction",
                     "interpolation"):

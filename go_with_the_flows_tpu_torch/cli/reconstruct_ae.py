@@ -9,6 +9,10 @@ writes all_samples.npy (S, 3, N), all_gts.npy (S, 3, N) and
 all_labels.npy (S, N) into EXPERIMENT_PATH. (The reference passes the
 (train, val) transform pair as one transform; here the val transform is
 used, as in the JAX package.)
+
+The matmul precision mode is evaluate_ae's: the config's
+`eval_matmul_precision`, else its `matmul_precision`, else 'highest' (the
+JAX script's default is 'high'; see cli/evaluate_ae.py).
 """
 
 from __future__ import annotations
@@ -29,7 +33,8 @@ from ..train.loops import predict
 from ..train.state import create_train_state
 from ..train.step import make_sample_step
 from ..utils.config import load_config, model_config_kwargs
-from . import add_device_option, check_precision, resolve_device
+from ..ops.precision import matmul_precision_scope
+from . import add_device_option, eval_precision, resolve_device
 
 
 def define_options_parser() -> argparse.ArgumentParser:
@@ -59,8 +64,13 @@ def run(config: Dict, dataset, device="cuda", batch_size: int = 16,
         seed: int = 0):
     """Restore config["model_name"] from config["logging_path"],
     reconstruct `dataset` and write the three .npy files there. Returns
-    (samples, gts, labels)."""
-    check_precision(config)
+    (samples, gts, labels). Runs in the matmul precision mode
+    `eval_precision(config)` and restores the mode it found."""
+    with matmul_precision_scope(eval_precision(config)):
+        return _run(config, dataset, device, batch_size, seed)
+
+
+def _run(config, dataset, device, batch_size, seed):
     device = torch.device(device)
     loader = DataLoader(dataset, batch_size=batch_size, shuffle=False,
                         drop_last=False)

@@ -36,9 +36,9 @@ from ..train.state import TrainState, create_train_state
 from ..train.step import make_eval_step, make_train_step
 from ..utils.config import (count_params, load_config, model_config_kwargs,
                             resolve_config)
-from . import (add_common_train_options, check_precision, derived_seed,
-               maybe_resume, rank_config, resolve_device, run_ranks,
-               start_logging)
+from . import (add_common_train_options, check_training_precision,
+               derived_seed, maybe_resume, rank_config, resolve_device,
+               run_ranks, start_logging)
 
 
 def define_options_parser() -> argparse.ArgumentParser:
@@ -84,7 +84,7 @@ def run(config: Dict, train_dataset, val_dataset, device="cuda",
     {"epoch", "steps", "train_s", "val_s"} (wall seconds, the card's work
     included). Inside a process group every rank calls it: its loaders
     take its shard of the datasets, batch_size / world clouds a batch."""
-    check_precision(config)
+    check_training_precision(config)
     device = torch.device(device)
     config, world, rank = rank_config(config)
     writer = start_logging(config)

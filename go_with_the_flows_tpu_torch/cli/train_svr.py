@@ -38,8 +38,9 @@ from ..train.state import TrainState, create_train_state
 from ..train.step import make_train_step
 from ..utils.config import (count_params, load_config, resolve_config,
                             svr_model_config_kwargs)
-from . import (add_common_train_options, check_precision, maybe_resume,
-               rank_config, resolve_device, run_ranks, start_logging)
+from . import (add_common_train_options, check_training_precision,
+               maybe_resume, rank_config, resolve_device, run_ranks,
+               start_logging)
 
 
 def define_options_parser() -> argparse.ArgumentParser:
@@ -76,7 +77,7 @@ def run(config: Dict, train_dataset, device="cuda", seed: int = 0,
     and, per epoch run, {"epoch", "steps", "train_s"}. Inside a process
     group every rank calls it: its loader takes its shard of the dataset,
     batch_size / world views a batch."""
-    check_precision(config)
+    check_training_precision(config)
     device = torch.device(device)
     config, world, rank = rank_config(config)
     writer = start_logging(config)

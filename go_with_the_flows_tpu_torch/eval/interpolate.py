@@ -13,7 +13,9 @@ version on the CPU. The noise of a decode (each point's component id and
 each component's base epsilon) comes from a generator on the model's
 device seeded per (batch, step) with `derived_seed`, or from `draw`,
 which a caller may hand in to decode from noise of its own (the tests
-hand in the JAX package's draws).
+hand in the JAX package's draws). The encodes and decodes run in the
+matmul precision mode current at the call (ops/precision.py), which
+evaluate_ae sets from the experiment's config.
 """
 
 from __future__ import annotations

@@ -7,7 +7,10 @@ names the CPU. On the card the paired metrics go through the
 `nn_distance` and `emd_cost` kernels and the (S, R) matrices through the
 `pairwise_cd_stats` and `pairwise_emd` kernels; on the CPU through their
 plain versions. The voxel JSD (`voxel_jsd`) is host numpy, as in the
-JAX package, its entropies written out instead of taken from scipy.
+JAX package, its entropies written out instead of taken from scipy; so
+is the occupancy-grid JSD (`jsd_between_point_cloud_sets`, which
+tools/eval_precision_ab.py reports), but for its nearest-centre search
+of points outside the grid's sphere, which runs on `device`.
 """
 
 from __future__ import annotations
@@ -323,3 +326,73 @@ def voxel_jsd(clouds1, clouds2, warn: bool = True) -> float:
     d1 = voxel_occupancy_dist(clouds1, warn=warn, flag="gen").ravel()
     d2 = voxel_occupancy_dist(clouds2, warn=warn, flag="ref").ravel()
     return _entropy2((d1 + d2) / 2.0) - 0.5 * (_entropy2(d1) + _entropy2(d2))
+
+
+# --------------------------------------------------------------------- #
+# The occupancy-grid JSD of latent_3d_points (JAX metrics/evaluation.py: #
+# 486-572, `jsd_between_point_cloud_sets`), the JSD that the JAX         #
+# package's tools/eval_precision_ab.py reports                           #
+# --------------------------------------------------------------------- #
+
+_GRID_CHUNK = 4096  # points a brute-force nearest-centre search takes
+
+
+def _sphere_grid(resolution: int):
+    """The centres of a resolution^3 grid in the unit cube that lie within
+    0.5 of the origin, (M, 3), and the grid's spacing."""
+    spacing = 1.0 / float(resolution - 1)
+    ax = np.arange(resolution, dtype=np.float32) * spacing - 0.5
+    grid = np.stack(np.meshgrid(ax, ax, ax, indexing="ij"),
+                    axis=-1).astype(np.float32).reshape(-1, 3)
+    return grid[np.linalg.norm(grid, axis=1) <= 0.5], spacing
+
+
+def occupancy_grid_counts(pclouds, resolution: int = 28,
+                          device="cuda") -> np.ndarray:
+    """Points (S, N, 3) per cell of the sphere-clipped unit-cube grid, each
+    point counted in its nearest cell centre, as the JAX package's
+    `entropy_of_occupancy_grid(..., in_sphere=True)` counts them with a
+    nearest-neighbour search (its second output). The nearest centre of
+    the whole lattice is the clamped point rounded per coordinate; where
+    that cell was clipped, the nearest kept centre is searched by brute
+    force on `device`. Only an exact tie between two centres can land
+    elsewhere."""
+    grid, spacing = _sphere_grid(resolution)
+    pts = np.asarray(pclouds, np.float32).reshape(-1, 3)
+    # each lattice cell's row in `grid`, -1 where it was clipped
+    lattice = -np.ones(resolution ** 3, np.int64)
+    ijk = np.rint((grid + 0.5) / spacing).astype(np.int64)
+    lattice[(ijk[:, 0] * resolution + ijk[:, 1]) * resolution
+            + ijk[:, 2]] = np.arange(len(grid))
+    q = np.clip(np.rint((pts + 0.5) / spacing), 0,
+                resolution - 1).astype(np.int64)
+    cell = lattice[(q[:, 0] * resolution + q[:, 1]) * resolution + q[:, 2]]
+    far = np.flatnonzero(cell < 0)
+    if far.size:
+        centres = torch.from_numpy(grid).to(device)
+        for s in range(0, far.size, _GRID_CHUNK):
+            rows = far[s:s + _GRID_CHUNK]
+            p = torch.from_numpy(pts[rows]).to(device)
+            d = ((p[:, None, :] - centres[None]) ** 2).sum(-1)
+            cell[rows] = d.argmin(1).cpu().numpy()
+    return np.bincount(cell, minlength=len(grid)).astype(np.float64)
+
+
+def jensen_shannon_divergence(P, Q) -> float:
+    """Base-2 JSD between two non-negative histograms of one length."""
+    P, Q = np.asarray(P, np.float64), np.asarray(Q, np.float64)
+    if np.any(P < 0) or np.any(Q < 0):
+        raise ValueError("Negative values.")
+    if len(P) != len(Q):
+        raise ValueError("Non equal size.")
+    P_, Q_ = P / P.sum(), Q / Q.sum()
+    return _entropy2((P_ + Q_) / 2.0) - (_entropy2(P_) + _entropy2(Q_)) / 2.0
+
+
+def jsd_between_point_cloud_sets(sample_pcs, ref_pcs, resolution: int = 28,
+                                 device="cuda") -> float:
+    """JSD between two sets of clouds (S, N, 3) through their counts on
+    the sphere-clipped resolution^3 grid."""
+    return jensen_shannon_divergence(
+        occupancy_grid_counts(sample_pcs, resolution, device),
+        occupancy_grid_counts(ref_pcs, resolution, device))

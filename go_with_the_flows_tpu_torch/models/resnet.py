@@ -7,7 +7,8 @@ pretrained weights. Images are NCHW, (B, 4, H, W), the reference's
 layout (the JAX package takes NHWC).
 
 The convolutions are `nn.Conv2d` (cuDNN on the card, at fp32: the TF32
-switches are off, ops/precision.py) and the BatchNorms torch's fused
+switches are off, ops/precision.py), in the current matmul precision
+mode as the fc layer (`Conv2d.forward`), and the BatchNorms torch's fused
 `batch_norm` in one process; inside a process group of several ranks
 the training-mode BatchNorms take their statistics over the global
 batch (`ops/layers.batch_stats`). The JAX package computes both with
@@ -31,6 +32,7 @@ from torch import nn
 
 from ..ops.layers import (Linear, batch_stats, reset_parameters,
                           update_running_stats)
+from ..ops.precision import bf16_round, bf16_split, get_matmul_precision
 from ..parallel import dist
 
 
@@ -53,6 +55,23 @@ class Conv2d(nn.Conv2d):
         std = math.sqrt(2.0 / (out * kh * kw))
         self.weight.copy_(
             torch.randn(self.weight.shape, generator=generator) * std)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """The convolution in the current matmul precision mode: fp32 at
+        'highest'; at 'fast' one convolution of the operands rounded to
+        bf16; at 'high' three, conv(x_hi, w_hi) + conv(x_hi, w_lo) +
+        conv(x_lo, w_hi), as ops/precision.mxdot forms a product."""
+        mode = get_matmul_precision()
+        if mode == "fast":
+            return self._conv_forward(bf16_round(x), bf16_round(self.weight),
+                                      None)
+        if mode == "high":
+            x_hi, x_lo = bf16_split(x)
+            w_hi, w_lo = bf16_split(self.weight)
+            return (self._conv_forward(x_hi, w_hi, None)
+                    + self._conv_forward(x_hi, w_lo, None)
+                    + self._conv_forward(x_lo, w_hi, None))
+        return self._conv_forward(x, self.weight, None)
 
 
 class FusedBatchNorm(nn.Module):

@@ -41,8 +41,8 @@ _I = ctypes.c_int
 _D = ctypes.c_double
 # name -> argtypes; every entry returns int (a cudaError_t)
 _SIGNATURES = {
-    # p, weights, film, out, lv, K, B, C, N, f, inverse, stream
-    "gwtf_point_decode": [_P] * 5 + [_I] * 6 + [_P],
+    # p, weights, film, out, lv, K, B, C, N, f, inverse, mode, stream
+    "gwtf_point_decode": [_P] * 5 + [_I] * 7 + [_P],
     # a, b, dist_a, idx_a, dist_b, idx_b, col_d, col_i, B, N, M, stream
     "gwtf_nn_distance": [_P] * 8 + [_I] * 3 + [_P],
     # samples, refs, cdl, cdr, prec, rec, S, R, N, M, thr, stream

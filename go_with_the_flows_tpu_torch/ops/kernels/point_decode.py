@@ -34,15 +34,25 @@ csrc/point_decode.cu.
 
 `pack_point_decoder` and `film_alpha_beta` are small products that stay
 plain PyTorch, as the JAX package leaves them to XLA.
+
+The three products (W0 x, W1 h0, W2 h1) follow the matmul precision mode
+(ops/precision.py), as the TPU kernel's `_mxdot` does: the plain version
+forms them with `mxdot`, the kernel in an instantiation of that mode,
+from a layout of the weights rounded ('fast') or split into hi and lo
+parts ('high') once per pack (`kernel_layout`). film_alpha_beta, the
+FiLM affines, the softsign, exp and sqrt and the affine update stay fp32
+in every mode, as on the TPU.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
 
+from .. import precision
+from ..precision import bf16_round, bf16_split, mxdot
 from . import build
 
 BN_EPS = 1e-5  # ops/layers.py BatchNorm
@@ -50,6 +60,8 @@ EPS = 1e-6     # coupling eps (models/flows.py)
 MAX_F = 64     # widest conditioner the kernel's shared-memory layout takes
 
 _HEADS = ("logvar", "mu")
+# the kernel's MODE template argument (csrc/point_decode.cu)
+KERNEL_MODES = {"highest": 0, "high": 1, "fast": 2}
 
 
 def _fold_head(coupling, head: str):
@@ -118,19 +130,51 @@ def padded_width(f: int) -> int:
     return (f + 7) // 8 * 8
 
 
-def kernel_weights(packed: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """The kernel's layout of the folded weights, (..., C, 2 FP^2 + 16 FP
-    + 8): per coupling W1 (2, FP, FP), then per head and row {w0, b0} and
-    {w2, 0} as 4 floats each, then b2 as (2, 4); zeros pad f to FP."""
-    f = packed["w1"].shape[-1]
+def _layout(w0, b0, w1, w2, b2) -> torch.Tensor:
+    f = w1.shape[-1]
     pad = padded_width(f) - f
-    w1 = F.pad(packed["w1"], (0, pad, 0, pad))
-    w0b0 = F.pad(torch.cat([packed["w0"], packed["b0"][..., None]], -1),
-                 (0, 0, 0, pad))
-    w2 = F.pad(packed["w2"].transpose(-1, -2), (0, 1, 0, pad))
-    b2 = F.pad(packed["b2"], (0, 1))
+    w1 = F.pad(w1, (0, pad, 0, pad))
+    w0b0 = F.pad(torch.cat([w0, b0[..., None]], -1), (0, 0, 0, pad))
+    w2 = F.pad(w2.transpose(-1, -2), (0, 1, 0, pad))
+    b2 = F.pad(b2, (0, 1))
     return torch.cat([t.flatten(-3) for t in (w1, w0b0, w2)]
-                     + [b2.flatten(-2)], -1).contiguous()
+                     + [b2.flatten(-2)], -1)
+
+
+def kernel_weights(packed: Dict[str, torch.Tensor],
+                   mode: str = "highest") -> torch.Tensor:
+    """The kernel's layout of the folded weights, (..., C, L) with L =
+    2 FP^2 + 16 FP + 8: per coupling W1 (2, FP, FP), then per head and row
+    {w0, b0} and {w2, 0} as 4 floats each, then b2 as (2, 4); zeros pad f
+    to FP. At 'fast' the weights (not the biases) are rounded to bf16; at
+    'high' the layout of their hi parts (with the biases) is followed by
+    that of their lo parts (biases 0), (..., C, 2 L)."""
+    w0, b0, w1, w2, b2 = (packed[k] for k in ("w0", "b0", "w1", "w2", "b2"))
+    if mode == "fast":
+        w0, w1, w2 = (bf16_round(t) for t in (w0, w1, w2))
+    elif mode == "high":
+        (w0, w0l), (w1, w1l), (w2, w2l) = (bf16_split(t)
+                                           for t in (w0, w1, w2))
+        return torch.cat([
+            _layout(w0, b0, w1, w2, b2),
+            _layout(w0l, torch.zeros_like(b0), w1l, w2l,
+                    torch.zeros_like(b2))], -1).contiguous()
+    elif mode != "highest":
+        raise ValueError(f"kernel_weights: unknown mode {mode!r}")
+    return _layout(w0, b0, w1, w2, b2).contiguous()
+
+
+def kernel_layout(packed: Dict[str, torch.Tensor],
+                  mode: str) -> torch.Tensor:
+    """The kernel layout of `mode` (kernel_weights), made once per pack and
+    kept in it: "kernel" for 'highest' (made by pack_point_decoder),
+    "kernel_<mode>" for the others. Never an inference tensor, so that a
+    pack made or extended under torch.inference_mode serves any caller."""
+    key = "kernel" if mode == "highest" else f"kernel_{mode}"
+    if key not in packed:
+        with torch.inference_mode(False), torch.no_grad():
+            packed[key] = kernel_weights(packed, mode)
+    return packed[key]
 
 
 def kernel_film(ab: torch.Tensor) -> torch.Tensor:
@@ -160,9 +204,12 @@ def film_alpha_beta(packed: Dict[str, torch.Tensor],
     return torch.stack([alpha.flatten(-2), beta.flatten(-2)], -2)
 
 
-def point_decode_plain(packed, ab, p, inverse: bool = False):
+def point_decode_plain(packed, ab, p, inverse: bool = False,
+                       mode: Optional[str] = None):
     """Plain PyTorch version of the kernel: p (K, B, 3, N) through all C
-    couplings of each component. Returns (p_out, logvar_sum)."""
+    couplings of each component, the products in the matmul precision
+    `mode` (the current one for None). Returns (p_out, logvar_sum)."""
+    mode = precision.resolve(mode)
     K, B, _, N = p.shape
     C, f = packed["w1"].shape[1], packed["w1"].shape[-1]
     ab = ab.reshape(K, B, C, 2, 2, f)
@@ -170,13 +217,14 @@ def point_decode_plain(packed, ab, p, inverse: bool = False):
     lv_sum = torch.zeros_like(p)
     for i in range(C):
         c = C - 1 - i if inverse else i
-        h = torch.einsum("khfi,kbin->kbhfn", packed["w0"][:, c], x)
+        # (K, 1, 2, f, 3) @ (K, B, 1, 3, N) -> (K, B, 2, f, N)
+        h = mxdot(packed["w0"][:, c, None], x[:, :, None], mode)
         h = F.relu(h + packed["b0"][:, c][:, None, :, :, None])
-        h = torch.einsum("khoi,kbhin->kbhon", packed["w1"][:, c], h)
+        h = mxdot(packed["w1"][:, c, None], h, mode)
         alpha = ab[:, :, c, 0, :, :, None]  # (K, B, 2, f, 1)
         beta = ab[:, :, c, 1, :, :, None]
         h = F.relu(alpha * h + beta)
-        y = torch.einsum("khjf,kbhfn->kbhjn", packed["w2"][:, c], h)
+        y = mxdot(packed["w2"][:, c, None], h, mode)
         y = y + packed["b2"][:, c][:, None, :, :, None]  # (K, B, 2, 3, N)
         logvar = F.softsign(y[:, :, 0])
         mu = y[:, :, 1]
@@ -186,16 +234,19 @@ def point_decode_plain(packed, ab, p, inverse: bool = False):
     return x, lv_sum
 
 
-def point_decode(packed, ab, p, inverse: bool = False):
-    """Eval pass of the coupling chain, direct or inverse.
+def point_decode(packed, ab, p, inverse: bool = False,
+                 mode: Optional[str] = None):
+    """Eval pass of the coupling chain, direct or inverse, in the matmul
+    precision `mode` (the current one for None).
 
     p: (K, B, 3, N); packed by pack_point_decoder from a K-stacked
     decoder; ab from film_alpha_beta. Returns (p_out, logvar_sum) with
     p's shape. A CPU tensor goes to the plain version; a CUDA tensor
-    launches the kernel.
+    launches the kernel of that mode, or raises.
     """
+    mode = precision.resolve(mode)
     if p.device.type == "cpu":
-        return point_decode_plain(packed, ab, p, inverse)
+        return point_decode_plain(packed, ab, p, inverse, mode)
 
     K, B, _, N = p.shape
     C, f = packed["w1"].shape[1], packed["w1"].shape[-1]
@@ -208,8 +259,9 @@ def point_decode(packed, ab, p, inverse: bool = False):
         raise ValueError(f"point_decode: ab shape {tuple(ab.shape)}, "
                          f"expected {(K, B, C, 2, 2 * f)}")
     FP = padded_width(f)
-    args = [p, packed["kernel"], kernel_film(ab)]
-    shapes = [(K, B, 3, N), (K, C, 2 * FP * FP + 16 * FP + 8),
+    layouts = 2 if mode == "high" else 1
+    args = [p, kernel_layout(packed, mode), kernel_film(ab)]
+    shapes = [(K, B, 3, N), (K, C, layouts * (2 * FP * FP + 16 * FP + 8)),
               (K, B, C, 4 * FP)]
     for t, shape in zip(args, shapes):
         if tuple(t.shape) != shape:
@@ -222,11 +274,15 @@ def point_decode(packed, ab, p, inverse: bool = False):
     with torch.cuda.device(p.device):
         code = lib.gwtf_point_decode(
             *(t.data_ptr() for t in args), out.data_ptr(), lv.data_ptr(),
-            K, B, C, N, f, int(inverse), build.stream_handle(p.device))
+            K, B, C, N, f, int(inverse), KERNEL_MODES[mode],
+            build.stream_handle(p.device))
     point_decode.launches += 1
+    point_decode.launches_by_mode[mode] += 1
     build.check(lib, code, "point_decode")
     return out, lv
 
 
 point_decode.launches = 0
+# the same launches by precision mode
+point_decode.launches_by_mode = dict.fromkeys(KERNEL_MODES, 0)
 

@@ -54,6 +54,7 @@ import torch
 import torch.nn.functional as F
 
 from ...parallel import dist
+from .. import precision
 from ..layers import batch_stats, update_running_stats
 from . import build
 
@@ -462,6 +463,8 @@ def fused_train_decode(packed: Dict[str, torch.Tensor], ab: torch.Tensor,
     tensors; the plain versions on CPU tensors. Differentiable in the
     packed kernel arrays, ab and p; stats is not. Inside a process group
     (parallel/dist.py), p is this rank's shard of the global batch, whose
-    BatchNorm statistics both directions use."""
+    BatchNorm statistics both directions use. Runs at matmul precision
+    'highest' only (ops/precision.py), and raises under another mode."""
+    precision.require_highest("fused_train_decode")
     return _FusedTrainDecode.apply(
         *(packed[k] for k in _KERNEL_KEYS), ab, p)

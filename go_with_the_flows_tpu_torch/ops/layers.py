@@ -6,8 +6,10 @@ it maps inputs with the same leading shape (or none, then they are
 broadcast). The mixture uses `stack=(K,)` to hold its K point decoders
 as one module with K-stacked weights.
 
-Products are matmuls, never `conv1d`: cuDNN convolutions default to TF32,
-and the port keeps full fp32 (ops/precision.py).
+Products are matmuls, never `conv1d` (cuDNN convolutions default to
+TF32), formed by `precision.mxdot` in the current matmul precision mode
+(ops/precision.py): fp32 at 'highest', bf16 partial products at 'high'
+and 'fast'.
 
 Parameters are drawn by `reset_parameters(generator)` with the JAX
 package's initialisers (torch-style uniform for plain layers, normal for
@@ -23,7 +25,7 @@ import torch
 from torch import nn
 
 from ..parallel import dist
-from . import precision  # noqa: F401  (sets the fp32 switches)
+from .precision import mxdot
 
 
 class SharedDot(nn.Module):
@@ -59,7 +61,7 @@ class SharedDot(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # (..., 1, out, in) @ (..., B, in, N) -> (..., B, out, N)
-        y = torch.matmul(self.weight.unsqueeze(-3), x)
+        y = mxdot(self.weight.unsqueeze(-3), x)
         if self.bias is not None:
             y = y + self.bias[..., None, :, None]
         return y
@@ -95,7 +97,7 @@ class Linear(nn.Module):
             self.bias.fill_(self.bias_value)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = torch.matmul(x, self.weight.transpose(-1, -2))
+        y = mxdot(x, self.weight.transpose(-1, -2))
         if self.bias is not None:
             y = y + self.bias[..., None, :]
         return y

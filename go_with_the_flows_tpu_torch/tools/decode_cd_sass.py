@@ -5,12 +5,15 @@ compiler builds them: a measurement, run by hand on a machine with
 `nvcc`, not part of any path.
 
     python -m go_with_the_flows_tpu_torch.tools.decode_cd_sass [--lib SO]
-        [--points P] [--f F] [--distance-kernels NAME ...] [--out DIR]
+        [--points P] [--f F] [--mode MODE] [--distance-kernels NAME ...]
+        [--out DIR]
 
 It disassembles the kernel library (`cuobjdump -sass`; by default this
 checkout's, built first) and prints:
 
-  * kernel 1 at FP = 40 (f = 37), both directions: issue slots, FFMA and
+  * kernel 1 at FP = 40 (f = 37) in the precision mode --mode (default
+    'highest'; a build without modes is read as 'highest'), both
+    directions: issue slots, FFMA and
     shared-memory loads (LDS) a point and coupling, from the coupling
     loop's own instructions and f times each head's W1 row loop, divided
     by the points a thread carries (P, as the source sets it unless
@@ -39,6 +42,7 @@ import subprocess
 from ..ops.kernels import build
 
 OPS = ("FFMA", "FMUL", "FMNMX", "LDS", "SHFL", "BAR", "LDGSTS")
+MODES = ("highest", "high", "fast")  # kernel 1's MODE template argument
 
 
 def functions(lib_path: str):
@@ -93,10 +97,11 @@ def body(instr, loop, holes=()):
             and not any(h[0] <= a <= h[1] for h in holes)]
 
 
-def point_decode_report(instr, P, f, FP, tag):
+def point_decode_report(instr, P, f, FP, tag, mode="highest"):
     every = loops(instr)
     innermost = [lp for lp in every if not any(inside(lp, o) for o in every)]
-    per_row = P * (FP + 4)  # a W1 row's FMAs a thread: dot, FiLM, W2
+    # a W1 row's FMAs a thread: dot, FiLM, W2; at 'high' two a product
+    per_row = P * (2 * FP + 7 if mode == "high" else FP + 4)
     rows = {lp: round(counts(body(instr, lp))["FFMA"] / per_row)
             for lp in innermost}
     row_loops = [lp for lp in innermost if rows[lp] >= 1
@@ -166,14 +171,16 @@ def cd_stats_report(instr, tag):
           "pass over all pairs)")
 
 
-def points_a_thread(FP: int) -> int:
-    """Kernel 1's points a thread at width FP, as the source sets them."""
+def points_a_thread(FP: int, mode: str = "highest") -> int:
+    """Kernel 1's points a thread at width FP in `mode`, as the source
+    sets them (half at 'high')."""
     with open(os.path.join(build.CSRC, "point_decode.cu")) as f:
         text = f.read()
     const = {name: int(value) for name, value in
              re.findall(r"constexpr int (k\w+) = (\d+);", text)}
-    return (const["kNarrowPoints"] if FP <= const["kNarrowFP"]
-            else const["kWidePoints"])
+    P = (const["kNarrowPoints"] if FP <= const["kNarrowFP"]
+         else const["kWidePoints"])
+    return P // 2 if mode == "high" and P > 1 else P
 
 
 def main() -> None:
@@ -181,6 +188,8 @@ def main() -> None:
     parser.add_argument("--lib", default=None)
     parser.add_argument("--points", type=int, default=None)
     parser.add_argument("--f", type=int, default=37)
+    parser.add_argument("--mode", default="highest",
+                        choices=["highest", "high", "fast"])
     parser.add_argument("--distance-kernels", nargs="+",
                         default=["nn_distance_kernel", "cd_stats_kernel"])
     parser.add_argument("--out", default=build.BUILD_DIR)
@@ -190,7 +199,7 @@ def main() -> None:
         build.build()
         lib = build.LIB_PATH
     FP = (args.f + 7) // 8 * 8
-    P = args.points or points_a_thread(FP)
+    P = args.points or points_a_thread(FP, args.mode)
     funcs = functions(lib)
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, "decode_cd.sass"), "w") as f:
@@ -200,11 +209,14 @@ def main() -> None:
                 f.write(f"Function : {name}\n" + "".join(
                     f"/*{a:04x}*/ {t};\n" for a, t in instr))
     for name, instr in sorted(funcs.items()):
-        m = re.search(r"point_decode_kernelILi(\d+)ELb([01])E", name)
-        if m and int(m.group(1)) == FP:
-            tag = (f"point_decode FP={FP} "
-                   f"{'inverse' if m.group(2) == '1' else 'direct'}")
-            point_decode_report(instr, P, args.f, FP, tag)
+        m = re.search(r"point_decode_kernelILi(\d+)ELb([01])E(?:Li(\d)E)?",
+                      name)
+        if m:
+            if int(m.group(1)) == FP and MODES[int(m.group(3) or 0)] \
+                    == args.mode:
+                tag = (f"point_decode {args.mode} FP={FP} "
+                       f"{'inverse' if m.group(2) == '1' else 'direct'}")
+                point_decode_report(instr, P, args.f, FP, tag, args.mode)
             continue
         for kernel in args.distance_kernels:
             if kernel in name:

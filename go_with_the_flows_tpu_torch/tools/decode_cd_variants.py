@@ -15,7 +15,8 @@ constants (threads a block, points or rows a thread), built alone by
 shapes: the flagship decoder (K=4, C=33, f=37; random weights from seed
 0) at B=64, N=2048, direct and inverse; a 64 x 64 grid of 2,048-point
 clouds; kernel 2 without and with the indices and kernel 6 on kernel 5's
-residuals, each on 64 pairs of 2,048-point clouds. `--sources` takes
+residuals, each on 64 pairs of 2,048-point clouds; kernel 1 in its
+'highest' mode. `--sources` takes
 some of the sources (default: all). It prints each variant's ptxas
 registers, spills and stack frame, its mean time over 10 launches (5 for
 the grid; CUDA events) and whether its outputs equal the checkout's
@@ -185,13 +186,13 @@ def time_point_decode(built, stream) -> None:
                 check_code(label, lib.gwtf_point_decode(
                     p.data_ptr(), packed["kernel"].data_ptr(),
                     film.data_ptr(), out.data_ptr(), lv.data_ptr(), K, B, C,
-                    N, f, int(inverse), stream))
+                    N, f, int(inverse), 0, stream))  # mode 0: 'highest'
 
             ms = cuda_ms(run)
             same = torch.equal(out, want[0]) and torch.equal(lv, want[1])
             fp = (f + 7) // 8 * 8
             at = ptxas(log, "point_decode_kernel",
-                       f"ILi{fp}ELb{int(inverse)}E")
+                       f"ILi{fp}ELb{int(inverse)}ELi0E")
             most = ptxas(log, "point_decode_kernel")
             print(f"  point_decode {label}: {ms:.3f} ms; at FP={fp} {at[0]} "
                   f"registers, {at[1]} B spilled, {at[2]} B stack; at most "

@@ -9,6 +9,12 @@ state they are handed: each call enters eval mode and gives every module
 its own mode back on exit, and the packed decoder the `point_decode`
 kernel reads is rebuilt whenever the decoder's weights or running
 statistics have changed (`FlowMixtureModel.pack_decoder`).
+
+PyTorch has no trace, so each step reads the matmul precision mode
+(ops/precision.py) when it is built and runs every call inside
+`matmul_precision_scope` of that mode: a step keeps the mode it was built
+under, whatever the mode is when it is called, as a JAX step keeps the
+mode it was traced with. The training step takes 'highest' only.
 """
 
 from __future__ import annotations
@@ -19,6 +25,8 @@ from typing import Callable, Dict, Iterator, Optional
 import torch
 
 from ..losses import flow_mixture_loss
+from ..ops.precision import (get_matmul_precision, matmul_precision_scope,
+                             require_highest)
 from ..parallel import dist
 
 
@@ -98,7 +106,12 @@ def make_train_step(model, optimizer, pnll_weight: float = 1.0,
     a draw for the whole batch (a handed-in `posterior_eps` is this
     rank's rows), the gradient of its mean loss, the same optimizer step
     on every rank, and the metrics its means.
+
+    Built at matmul precision 'highest' only (ValueError under another
+    mode: the training modes wait for kernels 7 and 8 in them); each call
+    runs at 'highest'.
     """
+    require_highest("make_train_step")
 
     def train_step(g_clouds: torch.Tensor, p_clouds: torch.Tensor,
                    generator: Optional[torch.Generator] = None,
@@ -115,12 +128,14 @@ def make_train_step(model, optimizer, pnll_weight: float = 1.0,
                                               posterior_eps)
         model.train()
         optimizer.zero_grad(set_to_none=True)
-        out = _encode_training(model, g_clouds, svr, images, posterior_eps)
-        out.update(model.decode_training(p_clouds, out["g_sample"], warmup,
-                                         fused))
-        loss, metrics = flow_mixture_loss(out, pnll_weight, gnll_weight,
-                                          gent_weight)
-        loss.backward()
+        with matmul_precision_scope("highest"):
+            out = _encode_training(model, g_clouds, svr, images,
+                                   posterior_eps)
+            out.update(model.decode_training(p_clouds, out["g_sample"],
+                                             warmup, fused))
+            loss, metrics = flow_mixture_loss(out, pnll_weight, gnll_weight,
+                                              gent_weight)
+            loss.backward()
         optimizer.step()
         if dist.active():
             values = dist.all_reduce_mean(
@@ -150,9 +165,12 @@ def make_eval_step(model, pnll_weight: float = 1.0, gnll_weight: float = 1.0,
     on a CUDA tensor, its plain version on a CPU tensor), as the JAX
     package sends it through its eval decode kernel; False runs the
     decoder's modules, the plain path the kernel is held against.
+
+    The matmul precision mode current at build time holds for every call.
     """
 
     modules = list(model.modules())
+    precision_mode = get_matmul_precision()
 
     def eval_step(g_clouds: torch.Tensor, p_clouds: torch.Tensor,
                   generator: Optional[torch.Generator] = None,
@@ -160,7 +178,8 @@ def make_eval_step(model, pnll_weight: float = 1.0, gnll_weight: float = 1.0,
                   posterior_eps: Optional[torch.Tensor] = None,
                   images: Optional[torch.Tensor] = None
                   ) -> Dict[str, torch.Tensor]:
-        with eval_mode(model, modules), torch.inference_mode():
+        with eval_mode(model, modules), torch.inference_mode(), \
+                matmul_precision_scope(precision_mode):
             posterior_eps = _posterior_eps(model, g_clouds, generator,
                                            posterior_eps)
             out = _encode_training(model, g_clouds, svr, images,
@@ -198,6 +217,9 @@ def make_sample_step(model, n_sampled_points: int,
     rows, so that the ranks' clouds do not share their noise; the
     component ids then come from uniforms by the inverse of each cloud's
     weights' CDF, where one process calls torch.multinomial.
+
+    The matmul precision mode current at build time holds for every call
+    (the encoder's and latent flows' products and kernel 1).
     """
     modes = ("reconstruction",) if svr else ("generating", "autoencoding")
     if mode not in modes:
@@ -206,10 +228,12 @@ def make_sample_step(model, n_sampled_points: int,
     K, G = model.n_components, model.g_latent_space_size
     N = n_sampled_points
     modules = list(model.modules())
+    precision_mode = get_matmul_precision()
 
     def sample_step(g_clouds: torch.Tensor, generator: torch.Generator,
                     images: Optional[torch.Tensor] = None):
-        with eval_mode(model, modules), torch.inference_mode():
+        with eval_mode(model, modules), torch.inference_mode(), \
+                matmul_precision_scope(precision_mode):
             packed = model.pack_decoder()
             B = g_clouds.shape[0]
             device = g_clouds.device

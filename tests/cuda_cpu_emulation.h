@@ -76,6 +76,16 @@ inline float2 make_float2(float x, float y) { return {x, y}; }
 inline float4 make_float4(float x, float y, float z, float w) {
   return {x, y, z, w};
 }
+inline unsigned __float_as_uint(float v) {
+  unsigned u;
+  memcpy(&u, &v, sizeof u);
+  return u;
+}
+inline float __uint_as_float(unsigned u) {
+  float v;
+  memcpy(&v, &u, sizeof v);
+  return v;
+}
 // x86-64 without -mfma rounds each float operation once, as these do
 inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __fsub_rn(float a, float b) { return a - b; }

@@ -1,7 +1,7 @@
 """Properties of the port that are not about numbers: it (and
 chip_smoke.py) loads no jax and no module of the JAX package, its
-flagship dict is the airplane YAML's model keys, its precision is
-fp32 'highest', CPU tensors never launch a kernel (the EMD gradient
+flagship dict is the airplane YAML's model keys, its precision modes
+keep PyTorch's fp32 switches at fp32, CPU tensors never launch a kernel (the EMD gradient
 included), and its weight converter is the inverse of the JAX package's
 torch importer."""
 
@@ -153,12 +153,20 @@ def test_flagship_decoder_widths():
     assert model.pc_decoder.stack == (4,)
 
 
-def test_precision_is_highest_only():
+@pytest.mark.parametrize("mode", ["highest", "high", "fast", "default"])
+def test_precision_modes_keep_the_fp32_switches(mode):
+    """Every mode keeps PyTorch's three fp32 switches at fp32 (none of
+    the modes is TF32); an unknown name raises."""
     assert precision.get_matmul_precision() == "highest"
-    assert not torch.backends.cuda.matmul.allow_tf32
-    assert not torch.backends.cudnn.allow_tf32
+    with precision.matmul_precision_scope(mode):
+        assert precision.get_matmul_precision() == (
+            "fast" if mode == "default" else mode)
+        assert not torch.backends.cuda.matmul.allow_tf32
+        assert not torch.backends.cudnn.allow_tf32
+        assert torch.get_float32_matmul_precision() == "highest"
+    assert precision.get_matmul_precision() == "highest"
     with pytest.raises(ValueError):
-        precision.set_matmul_precision("fast")
+        precision.set_matmul_precision("tf32")
 
 
 def test_cpu_tensors_never_launch_a_kernel():
