@@ -19,7 +19,9 @@ non-zero at the first failure:
   2. kernels: each kernel against its plain PyTorch version at the main
      path's shapes (jiggled BatchNorm statistics), with times, kernel 1
      in each matmul precision mode against the plain version of that
-     mode (ops/precision.py: 'highest', 'high', 'fast'); the EMD
+     mode (ops/precision.py: 'highest', 'high', 'fast'), and the
+     mode in force (its effect on the output as the plain version's,
+     check_mode_in_force); the EMD
      kernels also at ragged and unequal sizes and at the SVR protocol's
      2500 points, the EMD backward through autograd, and the EMD grid
      against the paired EMD kernel bit for bit;
@@ -170,10 +172,24 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 N_POINTS = 2048
 BATCH = 64
 MODES = ("highest", "high", "fast")  # ops/precision.py
-# kernel 1 against its plain version at 'fast': the JAX package's own
-# bound for 'fast' (tests/test_coupling_kernel.py), as a bf16 rounding of
-# h can land the other way when the fp32 sums run in another order
-FAST_ATOL = 5e-2
+# kernel 1 against the plain version of its mode, on decoder weights
+# moved off their init: atol by mode, a few times the largest gaps
+# measured at the flagship shapes (1.2e-6 'highest', 3.3e-6 'high',
+# 1.2e-3 'fast'). At 'fast' a bf16 rounding of h can land the other way
+# when the fp32 sums run in another order, which moves that point by a
+# bf16 step and, down the chain, by up to a share of what the mode moves
+# it: no more than FAST_OFF_SHARE of the elements may be off by more
+# than 1e-4 (measured 2.4e-4).
+DECODE_ATOL = {"highest": 1e-4, "high": 1e-5, "fast": 5e-3}
+FAST_OFF_SHARE = 2e-3
+# the mode in force: the kernel's effect of its mode (its output less its
+# 'highest' output) within MODE_EFFECT_GAP of the plain version's effect,
+# in rms over the effect's rms (measured at most 0.33 'high', 5e-3
+# 'fast'; a kernel computing fp32, or dropping a term, is 1 or more
+# away). A largest gap is no such test: two sum orders can round lo(h)
+# ('high') or h ('fast') a bf16 step apart, which moves a few points as
+# far as the mode moves them.
+MODE_EFFECT_GAP = {"high": 0.5, "fast": 0.05}
 # optimizer keys of configs/config_generative_modeling_airplane.yaml
 # (epoch_length is the dataset's; the flagship's lr and beta2 are
 # constant, so it does not matter here)
@@ -418,57 +434,72 @@ def check_close(what, got, want, atol, rtol=0.0):
     return err
 
 
+def mode_effect_gap(got, got_highest, want, want_highest) -> float:
+    """rms of the gap between two effects of a precision mode, the
+    kernel's (got less got_highest) and the plain version's (want less
+    want_highest), over the rms of the latter."""
+    effect = want - want_highest
+    return ((got - got_highest - effect).square().mean()
+            / effect.square().mean()).sqrt().item()
+
+
 def check_point_decode(config, B, N, seed, timed, modes=("highest",)):
-    """Kernel 1 in each precision mode of `modes`, both directions,
-    against the plain version of that mode: atol 1e-4, at 'fast'
-    FAST_ATOL with the share of elements off by more than 1e-4 printed;
-    two launches bit-equal. Returns ({mode: max |diff|}, times): times
+    """Kernel 1 at 'highest' and in each other precision mode of `modes`,
+    both directions, against the plain version of that mode: DECODE_ATOL,
+    at 'fast' also FAST_OFF_SHARE; away from 'highest' the mode in force
+    (MODE_EFFECT_GAP); two launches bit-equal. Returns ({mode: max |diff|}, times): times
     holds "dims" and, when `timed`, (mode, direction) -> (kernel ms,
     plain ms), each the mean of one window of launches."""
     import torch
 
     from go_with_the_flows_tpu_torch.ops.kernels.point_decode import (
         film_alpha_beta, point_decode, point_decode_plain)
+    from go_with_the_flows_tpu_torch.ops.precision import (
+        matmul_precision_scope)
 
     model = make_model(config, seed, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    # the decoder's weights off their init, as the emulated test moves
+    # them: at init the chain is near identity and the modes' effects
+    # barely clear the fp32 rounding
+    with torch.no_grad():
+        for q in model.pc_decoder.parameters():
+            q.add_(0.05 * torch.randn(q.shape, device="cuda", generator=gen))
     packed = model.pack_decoder()
     K = model.n_components
-    gen = torch.Generator(device="cuda").manual_seed(seed)
     g = torch.randn(B, model.g_latent_space_size, device="cuda",
                     generator=gen)
     ab = film_alpha_beta(packed, g).contiguous()
     p = 0.3 * torch.randn(K, B, 3, N, device="cuda", generator=gen)
     C, f = packed["w1"].shape[1], packed["w1"].shape[-1]
     errs, times = {}, {"dims": (K, B, N, C, f)}
-    for mode in modes:
-        atol = FAST_ATOL if mode == "fast" else 1e-4
+    highest = {}  # direction -> (kernel, plain) at 'highest'
+    for mode in ("highest",) + tuple(m for m in modes if m != "highest"):
+        atol = DECODE_ATOL[mode]
         errs[mode] = []
         for inverse in (False, True):
             name = "inverse" if inverse else "direct"
-            out, lv = point_decode(packed, ab, p, inverse, mode)
-            want_out, want_lv = point_decode_plain(packed, ab, p, inverse,
-                                                   mode)
-            torch.cuda.synchronize()
             tag = (f"point_decode {mode} {name} K={K} B={B} N={N} C={C} "
                    f"f={f}")
-            errs[mode].append(check_close(f"{tag} points", out, want_out,
-                                          atol))
-            errs[mode].append(check_close(f"{tag} logvar", lv, want_lv,
-                                          atol))
-            if mode == "fast":
-                off = [((a - b).abs() > 1e-4).float().mean().item()
-                       for a, b in ((out, want_out), (lv, want_lv))]
-                say(f"    {tag}: share off by more than 1e-4: points "
-                    f"{off[0]:.3g}, logvar {off[1]:.3g}")
-            again = point_decode(packed, ab, p, inverse, mode)
-            if not (torch.equal(out, again[0])
-                    and torch.equal(lv, again[1])):
+            with matmul_precision_scope(mode):
+                got = point_decode(packed, ab, p, inverse)
+                want = point_decode_plain(packed, ab, p, inverse)
+                again = point_decode(packed, ab, p, inverse)
+            torch.cuda.synchronize()
+            for what, a, b in zip(("points", "logvar"), got, want):
+                errs[mode].append(check_close(f"{tag} {what}", a, b, atol))
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
                 fail(f"{tag}: two launches differ")
+            if mode == "highest":
+                highest[inverse] = (got, want)
+            else:
+                check_mode_in_force(tag, mode, got, want, *highest[inverse])
             if timed:
-                ms = cuda_ms(
-                    lambda: point_decode(packed, ab, p, inverse, mode), 10)
-                plain = cuda_ms(lambda: point_decode_plain(
-                    packed, ab, p, inverse, mode), 3)
+                with matmul_precision_scope(mode):
+                    ms = cuda_ms(
+                        lambda: point_decode(packed, ab, p, inverse), 10)
+                    plain = cuda_ms(lambda: point_decode_plain(
+                        packed, ab, p, inverse), 3)
                 times[mode, name] = (ms, plain)
                 say(f"    {tag}: kernel {ms:.3f} ms, plain {plain:.3f} ms")
     if timed:
@@ -477,6 +508,30 @@ def check_point_decode(config, B, N, seed, timed, modes=("highest",)):
             f"products alone as torch.bmm of (2K, f, f) W1 and (2K, f, BN) "
             f"h0, fp32 highest: {w1:.3f} ms for all {C} couplings")
     return {m: max(e) for m, e in errs.items()}, times
+
+
+def check_mode_in_force(tag, mode, got, want, got_highest, want_highest):
+    """Kernel 1's outputs `got` in `mode` against the plain version's
+    `want`, each beside its 'highest' outputs on the same inputs: the
+    effect of the mode within MODE_EFFECT_GAP, and at 'fast' at most
+    FAST_OFF_SHARE of the elements off by more than 1e-4."""
+    for what, a, b, ah, bh in zip(("points", "logvar"), got, want,
+                                  got_highest, want_highest):
+        gap = mode_effect_gap(a, ah, b, bh)
+        line = (f"    {tag} {what}: the mode's effect within {gap:.3g} of "
+                f"the plain version's in rms ({MODE_EFFECT_GAP[mode]:g})")
+        off = ((a - b).abs() > 1e-4).float().mean().item()
+        if mode == "fast":
+            line += (f"; share off by more than 1e-4 {off:.3g} "
+                     f"({FAST_OFF_SHARE:g})")
+        say(line)
+        if not gap <= MODE_EFFECT_GAP[mode]:
+            fail(f"{tag} {what}: the kernel's effect of '{mode}' is "
+                 f"{gap:.3g} away from the plain version's in rms, above "
+                 f"{MODE_EFFECT_GAP[mode]:g}: the mode is not in force")
+        if mode == "fast" and off > FAST_OFF_SHARE:
+            fail(f"{tag} {what}: {off:.3g} of the elements off by more "
+                 f"than 1e-4, above {FAST_OFF_SHARE:g}")
 
 
 def step_sq_dist(q, r):

@@ -65,13 +65,8 @@ def check_training_precision(config: Dict) -> None:
     """Refuse a training config whose `matmul_precision` or
     `eval_matmul_precision` names a mode other than 'highest'."""
     for key in ("matmul_precision", "eval_matmul_precision"):
-        value = config.get(key)
-        if value is not None and value != "highest":
-            raise ValueError(
-                f"{key}: {value!r}: training runs at 'highest' only; the "
-                "'high' and 'fast' training modes wait for kernels 7 and 8 "
-                "in those modes (csrc/train_decode.cu), the next slice of "
-                "the port")
+        if config.get(key) is not None:
+            precision.require_highest(key, config[key])
 
 
 def eval_precision(config: Dict) -> str:

@@ -9,8 +9,8 @@ names the CPU. On the card the paired metrics go through the
 plain versions. The voxel JSD (`voxel_jsd`) is host numpy, as in the
 JAX package, its entropies written out instead of taken from scipy; so
 is the occupancy-grid JSD (`jsd_between_point_cloud_sets`, which
-tools/eval_precision_ab.py reports), but for its nearest-centre search
-of points outside the grid's sphere, which runs on `device`.
+tools/eval_precision_ab.py reports), but for its nearest-centre search,
+which runs on `device`.
 """
 
 from __future__ import annotations
@@ -334,48 +334,35 @@ def voxel_jsd(clouds1, clouds2, warn: bool = True) -> float:
 # package's tools/eval_precision_ab.py reports                           #
 # --------------------------------------------------------------------- #
 
-_GRID_CHUNK = 4096  # points a brute-force nearest-centre search takes
+_GRID_CHUNK = 1024  # points a nearest-centre search takes at a time
 
 
 def _sphere_grid(resolution: int):
     """The centres of a resolution^3 grid in the unit cube that lie within
-    0.5 of the origin, (M, 3), and the grid's spacing."""
-    spacing = 1.0 / float(resolution - 1)
-    ax = np.arange(resolution, dtype=np.float32) * spacing - 0.5
+    0.5 of the origin, (M, 3)."""
+    ax = (np.arange(resolution, dtype=np.float32)
+          * (1.0 / float(resolution - 1)) - 0.5)
     grid = np.stack(np.meshgrid(ax, ax, ax, indexing="ij"),
                     axis=-1).astype(np.float32).reshape(-1, 3)
-    return grid[np.linalg.norm(grid, axis=1) <= 0.5], spacing
+    return grid[np.linalg.norm(grid, axis=1) <= 0.5]
 
 
 def occupancy_grid_counts(pclouds, resolution: int = 28,
                           device="cuda") -> np.ndarray:
     """Points (S, N, 3) per cell of the sphere-clipped unit-cube grid, each
-    point counted in its nearest cell centre, as the JAX package's
-    `entropy_of_occupancy_grid(..., in_sphere=True)` counts them with a
-    nearest-neighbour search (its second output). The nearest centre of
-    the whole lattice is the clamped point rounded per coordinate; where
-    that cell was clipped, the nearest kept centre is searched by brute
-    force on `device`. Only an exact tie between two centres can land
-    elsewhere."""
-    grid, spacing = _sphere_grid(resolution)
-    pts = np.asarray(pclouds, np.float32).reshape(-1, 3)
-    # each lattice cell's row in `grid`, -1 where it was clipped
-    lattice = -np.ones(resolution ** 3, np.int64)
-    ijk = np.rint((grid + 0.5) / spacing).astype(np.int64)
-    lattice[(ijk[:, 0] * resolution + ijk[:, 1]) * resolution
-            + ijk[:, 2]] = np.arange(len(grid))
-    q = np.clip(np.rint((pts + 0.5) / spacing), 0,
-                resolution - 1).astype(np.int64)
-    cell = lattice[(q[:, 0] * resolution + q[:, 1]) * resolution + q[:, 2]]
-    far = np.flatnonzero(cell < 0)
-    if far.size:
-        centres = torch.from_numpy(grid).to(device)
-        for s in range(0, far.size, _GRID_CHUNK):
-            rows = far[s:s + _GRID_CHUNK]
-            p = torch.from_numpy(pts[rows]).to(device)
-            d = ((p[:, None, :] - centres[None]) ** 2).sum(-1)
-            cell[rows] = d.argmin(1).cpu().numpy()
-    return np.bincount(cell, minlength=len(grid)).astype(np.float64)
+    point counted in its nearest cell centre (the first on a tie), as the
+    JAX package's `entropy_of_occupancy_grid(..., in_sphere=True)` counts
+    them with a nearest-neighbour search (its second output). The search
+    is brute force on `device`, _GRID_CHUNK points at a time."""
+    grid = _sphere_grid(resolution)
+    centres = torch.from_numpy(grid).to(device)
+    pts = torch.from_numpy(
+        np.asarray(pclouds, np.float32).reshape(-1, 3)).to(device)
+    cell = torch.cat([
+        ((pts[s:s + _GRID_CHUNK, None, :] - centres[None]) ** 2).sum(-1)
+        .argmin(1) for s in range(0, len(pts), _GRID_CHUNK)])
+    return np.bincount(cell.cpu().numpy(),
+                       minlength=len(grid)).astype(np.float64)
 
 
 def jensen_shannon_divergence(P, Q) -> float:

@@ -29,7 +29,8 @@ where ab[..., 0, :] is alpha and ab[..., 1, :] beta, heads stacked as
 The kernel reads its own layout of the same numbers, padded to FP (f
 rounded up to a multiple of 8) so that it stages them by plain 16-byte
 copies: `kernel_weights` (made once by `pack_point_decoder`, under the
-key "kernel") and `kernel_film` (made per call from ab); see
+key "kernel", through `kernel_layout`, which also keeps the other modes'
+layouts) and `kernel_film` (made per call from ab); see
 csrc/point_decode.cu.
 
 `pack_point_decoder` and `film_alpha_beta` are small products that stay
@@ -46,7 +47,7 @@ in every mode, as on the TPU.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict
 
 import torch
 import torch.nn.functional as F
@@ -121,7 +122,7 @@ def pack_point_decoder(decoder) -> Dict[str, torch.Tensor]:
                                   "film_k1", "film_b1")):
             acc[name].append(torch.stack([fm[i] for fm in films], axis))
     packed = {k: torch.stack(v, axis).contiguous() for k, v in acc.items()}
-    packed["kernel"] = kernel_weights(packed)
+    kernel_layout(packed, "highest")
     return packed
 
 
@@ -142,7 +143,7 @@ def _layout(w0, b0, w1, w2, b2) -> torch.Tensor:
 
 
 def kernel_weights(packed: Dict[str, torch.Tensor],
-                   mode: str = "highest") -> torch.Tensor:
+                   mode: str) -> torch.Tensor:
     """The kernel's layout of the folded weights, (..., C, L) with L =
     2 FP^2 + 16 FP + 8: per coupling W1 (2, FP, FP), then per head and row
     {w0, b0} and {w2, 0} as 4 floats each, then b2 as (2, 4); zeros pad f
@@ -167,8 +168,8 @@ def kernel_weights(packed: Dict[str, torch.Tensor],
 def kernel_layout(packed: Dict[str, torch.Tensor],
                   mode: str) -> torch.Tensor:
     """The kernel layout of `mode` (kernel_weights), made once per pack and
-    kept in it: "kernel" for 'highest' (made by pack_point_decoder),
-    "kernel_<mode>" for the others. Never an inference tensor, so that a
+    kept in it: "kernel" for 'highest' (which pack_point_decoder makes),
+    "kernel_<mode>" for the others (made at their first launch). Never an inference tensor, so that a
     pack made or extended under torch.inference_mode serves any caller."""
     key = "kernel" if mode == "highest" else f"kernel_{mode}"
     if key not in packed:
@@ -204,12 +205,11 @@ def film_alpha_beta(packed: Dict[str, torch.Tensor],
     return torch.stack([alpha.flatten(-2), beta.flatten(-2)], -2)
 
 
-def point_decode_plain(packed, ab, p, inverse: bool = False,
-                       mode: Optional[str] = None):
+def point_decode_plain(packed, ab, p, inverse: bool = False):
     """Plain PyTorch version of the kernel: p (K, B, 3, N) through all C
-    couplings of each component, the products in the matmul precision
-    `mode` (the current one for None). Returns (p_out, logvar_sum)."""
-    mode = precision.resolve(mode)
+    couplings of each component, the products in the current matmul
+    precision mode. Returns (p_out, logvar_sum)."""
+    mode = precision.get_matmul_precision()
     K, B, _, N = p.shape
     C, f = packed["w1"].shape[1], packed["w1"].shape[-1]
     ab = ab.reshape(K, B, C, 2, 2, f)
@@ -234,19 +234,18 @@ def point_decode_plain(packed, ab, p, inverse: bool = False,
     return x, lv_sum
 
 
-def point_decode(packed, ab, p, inverse: bool = False,
-                 mode: Optional[str] = None):
-    """Eval pass of the coupling chain, direct or inverse, in the matmul
-    precision `mode` (the current one for None).
+def point_decode(packed, ab, p, inverse: bool = False):
+    """Eval pass of the coupling chain, direct or inverse, in the current
+    matmul precision mode.
 
     p: (K, B, 3, N); packed by pack_point_decoder from a K-stacked
     decoder; ab from film_alpha_beta. Returns (p_out, logvar_sum) with
     p's shape. A CPU tensor goes to the plain version; a CUDA tensor
     launches the kernel of that mode, or raises.
     """
-    mode = precision.resolve(mode)
     if p.device.type == "cpu":
-        return point_decode_plain(packed, ab, p, inverse, mode)
+        return point_decode_plain(packed, ab, p, inverse)
+    mode = precision.get_matmul_precision()
 
     K, B, _, N = p.shape
     C, f = packed["w1"].shape[1], packed["w1"].shape[-1]

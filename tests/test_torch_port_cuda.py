@@ -43,6 +43,7 @@ from go_with_the_flows_tpu_torch.ops.kernels.train_decode import (
     train_decode_fwd,
     train_decode_fwd_plain,
 )
+from go_with_the_flows_tpu_torch.ops.precision import matmul_precision_scope
 from go_with_the_flows_tpu_torch.optim import make_optimizer
 from go_with_the_flows_tpu_torch.train.step import (
     make_sample_step,
@@ -63,27 +64,55 @@ def device():
                                               (64, False), (64, True)])
 @pytest.mark.parametrize("mode", ["highest", "high", "fast"])
 def test_point_decode_kernel(device, features, inverse, mode):
-    """Each precision mode against the plain version of that mode: atol
-    1e-4, and at 'fast' the JAX package's 'fast' bound 5e-2 (a bf16
-    rounding can land the other way in the other sum order); two launches
+    """Each precision mode against the plain version of that mode, with
+    chip_smoke.py's bounds (DECODE_ATOL, FAST_OFF_SHARE, MODE_EFFECT_GAP):
+    atol 1e-4 at 'highest', 1e-5 at 'high', 5e-3 at 'fast' with at most
+    2e-3 of the elements off by more than 1e-4 (a bf16 rounding of h can
+    land the other way in the other sum order). Away from 'highest' the
+    mode is in force: its effect (the output less the 'highest' output on
+    the same inputs) within 0.5 ('high') or 0.05 ('fast') of the plain
+    version's, in rms over the effect's rms, and at 'fast' the largest
+    gap to plain 'fast' 10x below that to plain 'highest'. Two launches
     give equal bits."""
     model = FlowMixtureModel(n_components=2, g_latent_space_size=12,
                              g_prior_n_flows=1, p_decoder_n_flows=3,
                              p_decoder_n_features=features,
                              params_reduce_mode="none")
     model = model.to(device).eval()
-    packed = model.pack_decoder()
     gen = torch.Generator(device=device).manual_seed(0)
+    # the decoder's weights off their init, as in the emulated test: at
+    # init the chain is near identity and the modes' effects barely clear
+    # the fp32 rounding
+    with torch.no_grad():
+        for q in model.pc_decoder.parameters():
+            q.add_(0.05 * torch.randn(q.shape, device=device, generator=gen))
+    packed = model.pack_decoder()
     g = torch.randn(3, 12, device=device, generator=gen)
     ab = film_alpha_beta(packed, g)
     p = torch.randn(2, 3, 3, 333, device=device, generator=gen)
-    got = point_decode(packed, ab, p, inverse, mode)
-    want = point_decode_plain(packed, ab, p, inverse, mode)
+
+    def run(m):
+        with matmul_precision_scope(m):
+            return (point_decode(packed, ab, p, inverse),
+                    point_decode_plain(packed, ab, p, inverse),
+                    point_decode(packed, ab, p, inverse))
+
+    got, want, again = run(mode)
+    atol = {"highest": 1e-4, "high": 1e-5, "fast": 5e-3}[mode]
     for a, b in zip(got, want):
-        torch.testing.assert_close(a, b, rtol=0,
-                                   atol=5e-2 if mode == "fast" else 1e-4)
-    for a, b in zip(got, point_decode(packed, ab, p, inverse, mode)):
+        torch.testing.assert_close(a, b, rtol=0, atol=atol)
+    for a, b in zip(got, again):
         assert torch.equal(a, b)
+    if mode == "highest":
+        return
+    got_h, want_h, _ = run("highest")
+    for a, b, ah, bh in zip(got, want, got_h, want_h):
+        effect = b - bh
+        gap = (a - ah - effect).square().mean() / effect.square().mean()
+        assert gap.sqrt().item() <= {"high": 0.5, "fast": 0.05}[mode]
+        if mode == "fast":
+            assert ((a - b).abs() > 1e-4).float().mean().item() <= 2e-3
+            assert 10 * (a - b).abs().max() <= (a - bh).abs().max()
 
 
 def test_nn_distance_kernel(device):

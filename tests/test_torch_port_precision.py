@@ -11,11 +11,16 @@ accumulated in fp32) and 'fast' (one product of bf16-rounded operands).
   directions, against the JAX package's `fused_point_decode` in
   interpret mode under `matmul_precision_scope` of that mode (K=2, B=2,
   N=256, f=8, 2 flows; weights moved off their init so that the modes
-  differ). Tolerance rtol 1e-4, atol 1e-5 at 'highest' and 'high', as
-  tests/test_torch_port_point_decode.py; at 'fast' atol 1e-4: a sum that
-  lands on the other side of a bf16 rounding in the other order moves h
-  by a bf16 step. The mode must be in force: the port's 'fast' is at
-  least 10x closer to JAX's 'fast' than to JAX's 'highest';
+  differ). Tolerance atol 2e-6 at 'highest', 5e-6 at 'high' and 2e-5
+  at 'fast' (a few times the largest gaps, 3.6e-7, 1.2e-6 and 2.2e-6),
+  rtol 0. The mode must be in force: the port's effect of the mode (its
+  output less its 'highest' output) within 0.5 ('high') or 0.05 ('fast')
+  of JAX's, in rms over the effect's rms (measured at most 0.17 and
+  1.8e-4; chip_smoke.py's bounds), and the port's 'fast' at least 10x
+  closer to JAX's 'fast' than to JAX's 'highest' at its largest gap. (At
+  'high' a largest gap is no such test: two sum orders can round lo(h) a
+  bf16 step apart, as far as 'high' is from 'highest' at those few
+  points.);
 - SharedDot, Linear and the ResNet's Conv2d in each mode against a
   float64 numpy emulation of the TPU's passes on ml_dtypes bf16 operands
   (XLA:CPU ignores the precision of a plain dot, so the JAX modules are
@@ -62,6 +67,7 @@ from go_with_the_flows_tpu_torch.models.resnet import Conv2d
 from go_with_the_flows_tpu_torch.ops.kernels.point_decode import (
     film_alpha_beta,
     pack_point_decoder,
+    point_decode,
     point_decode_plain,
 )
 from go_with_the_flows_tpu_torch.ops.kernels.train_decode import (
@@ -186,27 +192,47 @@ def test_point_decode_plain_matches_jax_kernel(decoders, mode, inverse):
     port, p, g, jax_out = decoders
     packed = pack_point_decoder(port)
     ab = film_alpha_beta(packed, torch.from_numpy(g))
-    got = point_decode_plain(packed, ab, torch.from_numpy(p), inverse, mode)
-    atol = 1e-4 if mode == "fast" else 1e-5
+    x = torch.from_numpy(p)
+    with matmul_precision_scope(mode):
+        got = [o.numpy() for o in point_decode_plain(packed, ab, x, inverse)]
+    atol = {"highest": 2e-6, "high": 5e-6, "fast": 2e-5}[mode]
     for a, b in zip(got, jax_out[mode, inverse]):
-        np.testing.assert_allclose(a.numpy(), b, rtol=1e-4, atol=atol)
+        np.testing.assert_allclose(a, b, rtol=0, atol=atol)
+    if mode == "highest":
+        return
+    with matmul_precision_scope("highest"):
+        base = [o.numpy()
+                for o in point_decode_plain(packed, ab, x, inverse)]
+    for a, b, ah, bh in zip(got, jax_out[mode, inverse], base,
+                            jax_out["highest", inverse]):
+        effect = b - bh
+        assert np.sqrt(np.mean((a - ah - effect) ** 2)
+                       / np.mean(effect ** 2)) <= {"high": 0.5,
+                                                   "fast": 0.05}[mode]
     if mode == "fast":
-        to_fast = np.abs(got[0].numpy() - jax_out["fast", inverse][0]).max()
-        to_highest = np.abs(got[0].numpy()
-                            - jax_out["highest", inverse][0]).max()
+        to_fast = np.abs(got[0] - jax_out["fast", inverse][0]).max()
+        to_highest = np.abs(got[0] - jax_out["highest", inverse][0]).max()
         assert 10 * to_fast <= to_highest
 
 
 def test_point_decode_plain_reads_the_current_mode(decoders):
+    """The plain decode (and point_decode of a CPU tensor, which is it)
+    follows matmul_precision_scope: 'default' is 'fast' bit for bit, and
+    'high' and 'fast' each move the clouds off 'highest'."""
     port, p, g, _ = decoders
     packed = pack_point_decoder(port)
     ab = film_alpha_beta(packed, torch.from_numpy(g))
     x = torch.from_numpy(p)
-    for mode in MODES:
+    outs = {}
+    for mode in MODES + ("default",):
         with matmul_precision_scope(mode):
-            current = point_decode_plain(packed, ab, x)
-        named = point_decode_plain(packed, ab, x, mode=mode)
-        assert all(torch.equal(a, b) for a, b in zip(current, named))
+            outs[mode] = point_decode_plain(packed, ab, x)
+            via = point_decode(packed, ab, x)
+        assert all(torch.equal(a, b) for a, b in zip(outs[mode], via))
+    assert all(torch.equal(a, b)
+               for a, b in zip(outs["default"], outs["fast"]))
+    for mode in ("high", "fast"):
+        assert not torch.equal(outs[mode][0], outs["highest"][0])
 
 
 # ------------------------------------------------------------------ #
