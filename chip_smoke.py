@@ -15,13 +15,19 @@ non-zero at the first failure:
      (`cd_stats_kernel`), kernel 6 (`emd_backward_kernel` and its chunk
      sum), kernel 7's hidden and update passes, kernel 8's
      B1/B2 and the EMD forward; all but kernel 8's must not spill, and
-     kernels 1, 2, 3 and 6 keep no stack frame;
+     kernels 1, 2, 3 and 6 keep no stack frame; kernels 7 and 8 by
+     precision mode ('highest' and 'fast', each pass at FP 8-64): the
+     hidden and update passes and B1, B2 at most 128 registers with no
+     spill in both modes;
   2. kernels: each kernel against its plain PyTorch version at the main
      path's shapes (jiggled BatchNorm statistics), with times, kernel 1
      in each matmul precision mode against the plain version of that
      mode (ops/precision.py: 'highest', 'high', 'fast'), and the
      mode in force (its effect on the output as the plain version's,
-     check_mode_in_force); the EMD
+     check_mode_in_force); kernels 7 and 8 also at 'fast' against their
+     'fast' plain versions (check_train_decode_fast: a ragged N, a small
+     batch and the flagship shape, timed beside 'highest' in one window,
+     the mode in force on p0 and dW1); the EMD
      kernels also at ragged and unequal sizes and at the SVR protocol's
      2500 points, the EMD backward through autograd, and the EMD grid
      against the paired EMD kernel bit for bit;
@@ -37,7 +43,11 @@ non-zero at the first failure:
      through the decoder's modules (the plain path), compared; twenty
      kernel-path steps on seeded clouds with the two train-decode launch
      counters read around them; ms/step, clouds/s and peak memory of both
-     paths; a torch.profiler pass over one warm kernel-path step;
+     paths; a torch.profiler pass over one warm kernel-path step; then
+     at 'fast': one step kernels against modules (the loss and the
+     gradient in norm: not one function at 'fast'), twenty kernel-path
+     steps built under 'fast' whose losses fall, their launches counted
+     by mode, and their ms/step;
   5. loop: the flagship model through the train-and-validate path at
      B=64 on seeded in-memory clouds served by the port's DataLoader:
      `train` for one epoch of 4 steps (kernels 7 and 8) with its
@@ -67,7 +77,8 @@ non-zero at the first failure:
      plain versions; the samples against the plain decode; the eval loss
      through kernel 1 against the modules; the loop's and bare steps'
      ms/step in turns, peak memory, and a profiled step's busy time, the
-     ResNet's share of it and kernels 7 and 8;
+     ResNet's share of it and kernels 7 and 8; kernels 7 and 8 at 'fast'
+     at the SVR shapes and two SVR train steps built under 'fast';
   7. cli: the four command-line entry points' `run` functions (cli/
      train_ae, evaluate_ae, reconstruct_ae, train_svr), their arguments
      parsed as scripts/*.sh give them, on in-memory ShapeNet layouts
@@ -115,7 +126,9 @@ non-zero at the first failure:
      atol 1e-5 + rtol 1e-5: the ResNet's BatchNorms over the global
      batch), 2 timed steps with their collectives; (f) cli/train_svr's
      run for one epoch over the 2 loader shards of phase 7's in-memory
-     ShapeNetAll layout, the ranks' models equal at its end. The ranks'
+     ShapeNetAll layout, the ranks' models equal at its end; (g) at
+     'fast', kernels 7 and 8 in their SPMD form and one step against one
+     process. The ranks'
      launches add to the kernels line, each kernel's as many as the
      steps and batches give, every launch of kernels 7 and 8 in its SPMD
      form;
@@ -153,7 +166,9 @@ counts the forward's statistics launches (at most one a coupling and
 the seed).
 
 Its last two lines are a JSON object with one entry per kernel, kernel 1
-once a precision mode (its time
+once a precision mode and kernels 7 and 8 once for 'highest' and once
+for 'fast' (train_decode_*_fast: their launches those of phases 4, 6
+and 8's 'fast' steps; each time
 beside `bound_ms`, the least time the card could take for the same work
 at the published peaks, from the operations and bytes that the timed
 call's shapes need) and the JSON status line {"ok": true, "device": ...}.
@@ -416,6 +431,50 @@ def phase_build():
     for mode, rows in by_mode.items():
         say(f"    ptxas point_decode_kernel {mode}: registers by FP "
             + ", ".join(f"{fp} {r}" for fp, r in sorted(set(rows))))
+    check_train_decode_ptxas(report)
+
+
+# kernels 7 and 8's passes templated on <FP, MODE>
+TRAIN_DECODE_PASS_KERNELS = ("fwd_hidden", "fwd_update", "bwd_head",
+                             "bwd_hidden", "bwd_dw1", "bwd_input")
+
+
+def check_train_decode_ptxas(report):
+    """Kernels 7 and 8 by precision mode (MODE 0 'highest', 2 'fast'):
+    each pass instantiated at the 8 widths FP 8-64 in both modes (the
+    seed pass once a mode); the forward's hidden and update passes spill
+    in neither mode; B1 and B2 (bwd_hidden, bwd_dw1) at most 128
+    registers with no spill in both."""
+    rows, seeds = {}, set()
+    for name, regs, spill, _ in report:
+        m = re.search("(" + "|".join(TRAIN_DECODE_PASS_KERNELS)
+                      + r")_kernelILi(\d+)ELi(\d)EE", name)
+        if m:
+            rows.setdefault((m.group(1), MODES[int(m.group(3))]), {})[
+                int(m.group(2))] = (regs, spill)
+        m = re.search(r"seed_moments_kernelILi(\d)EE", name)
+        if m:
+            seeds.add(MODES[int(m.group(1))])
+    if seeds != {"highest", "fast"}:
+        fail(f"seed_moments_kernel instantiated for {sorted(seeds)}, "
+             "'highest' and 'fast' expected")
+    for kernel in TRAIN_DECODE_PASS_KERNELS:
+        for mode in ("highest", "fast"):
+            got = rows.get((kernel, mode), {})
+            if sorted(got) != list(range(8, 72, 8)):
+                fail(f"{kernel}_kernel {mode}: instantiations at FP "
+                     f"{sorted(got)}, 8-64 expected")
+            say(f"    ptxas {kernel}_kernel {mode}: registers (B spilled) by "
+                "FP " + ", ".join(f"{fp} {r} ({s})"
+                                  for fp, (r, s) in sorted(got.items())))
+            if kernel in ("fwd_hidden", "fwd_update") and any(
+                    s for _, s in got.values()):
+                fail(f"{kernel}_kernel {mode} spills registers")
+            if kernel in ("bwd_hidden", "bwd_dw1") and (
+                    max(r for r, _ in got.values()) > 128
+                    or any(s for _, s in got.values())):
+                fail(f"{kernel}_kernel {mode}: above 128 registers or "
+                     "spilling")
 
 
 def check_close(what, got, want, atol, rtol=0.0):
@@ -843,6 +902,148 @@ def check_train_decode(config, B, N, seed, timed):
     return fwd_err, bwd_err, times
 
 
+# kernels 7 and 8 at 'fast' against their 'fast' plain versions: two sum
+# orders can put an operand on either side of a bf16 rounding boundary,
+# where it moves a bf16 step (0.4 %), and 33 train-mode couplings carry
+# that on and widen it (on an H100 at 700 W: p0 off by at most
+# 8.6e-3 and 1.1e-3 in norm at 33 couplings, 6e-7 at 9 narrow ones); so
+# p0, the logvar sum and the saved states are held by their largest
+# difference and in norm (relative), the backward, on kernel 7's
+# residuals, in norm and by each gradient's largest entry (read at most
+# 1.4e-3 and 4.6e-3), and the mode in force by its effect within
+# TRAIN_MODE_EFFECT_GAP at the 33-coupling shapes (read 0.067-0.284; a
+# kernel that left out every rounding would be near 1) and
+# MODE_EFFECT_GAP's 0.05 at the 9-coupling one (read 1.9e-4)
+TRAIN_FAST_ATOL = 5e-2
+TRAIN_FAST_NORM = 1e-2
+TRAIN_FAST_DP_NORM = 1e-2
+TRAIN_FAST_GRAD = 3e-2
+TRAIN_MODE_EFFECT_GAP = 0.5
+
+
+def rel_norm(a, b) -> float:
+    return ((a.double() - b.double()).norm()
+            / b.double().norm().clamp_min(1e-30)).item()
+
+
+def check_train_decode_fast(config, B, N, seed, timed,
+                            gap_bound=TRAIN_MODE_EFFECT_GAP):
+    """Kernels 7 and 8 at 'fast' against their 'fast' plain versions:
+    p0, the logvar sum and the saved states within TRAIN_FAST_ATOL and
+    TRAIN_FAST_NORM, the batch statistics rtol 1e-3 (atol 1e-4); kernel 8
+    and its plain version on kernel 7's 'fast' residuals: dp within
+    TRAIN_FAST_DP_NORM in norm, every packed array's and ab's gradient
+    within TRAIN_FAST_GRAD of its own largest entry; the mode in force
+    (`gap_bound`) on p0 and dW1, each version against its own 'highest'
+    on its own residuals; two launches of each bit-equal. Prints every
+    measure before it fails on one. Returns (fwd max |diff|, bwd max
+    |diff|, times), times (kernel ms, plain ms) by wrapper name and mode
+    when `timed`."""
+    import torch
+
+    from go_with_the_flows_tpu_torch.ops.kernels.train_decode import (
+        train_decode_bwd, train_decode_bwd_plain, train_decode_fwd,
+        train_decode_fwd_plain)
+
+    packed, ab, p = train_decode_inputs(config, B, N, seed)
+    K, C, _, f = packed["w1"].shape[:4]
+    tag = f"train_decode fast K={K} B={B} N={N} C={C} f={f}"
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    dp0 = torch.randn(p.shape, device="cuda", generator=gen)
+    dlv = torch.randn(p.shape, device="cuda", generator=gen)
+    bad = []
+    # the mode's effect: each version at both modes on its own residuals
+    eff = {}
+    for mode in ("highest", "fast"):
+        got = train_decode_fwd(packed, ab, p, mode)
+        want = train_decode_fwd_plain(packed, ab, p, mode)
+        eff[mode] = (got[0], want[0],
+                     train_decode_bwd(packed, ab, *got[2:], dp0, dlv,
+                                      mode)[1]["w1"],
+                     train_decode_bwd_plain(packed, ab, *want[2:], dp0, dlv,
+                                            mode)[1]["w1"])
+    for i, what in ((0, "p0"), (2, "dW1")):
+        gap = mode_effect_gap(eff["fast"][i], eff["highest"][i],
+                              eff["fast"][i + 1], eff["highest"][i + 1])
+        say(f"    {tag} {what}: the mode's effect within {gap:.3g} of the "
+            f"plain version's in rms ({gap_bound:g})")
+        if not gap <= gap_bound:
+            bad.append(f"the kernel's effect of 'fast' on {what} is "
+                       f"{gap:.3g} away from the plain version's")
+    del eff
+    errs = []
+    for what, a, b in zip(("p0", "logvar", "saved states"), got, want):
+        err = (a - b).abs().max().item()
+        norm = rel_norm(a, b)
+        off = ((a - b).abs() > 1e-4).float().mean().item()
+        say(f"    {tag} {what}: max |diff| {err:.3g} ({TRAIN_FAST_ATOL:g}), "
+            f"in norm {norm:.3g} ({TRAIN_FAST_NORM:g}), share beyond 1e-4 "
+            f"{off:.3g}")
+        if err > TRAIN_FAST_ATOL or norm > TRAIN_FAST_NORM:
+            bad.append(f"{what} disagrees with the plain version")
+        errs.append(err)
+    st = ((got[3] - want[3]).abs() / (1e-4 + 1e-3 * want[3].abs())).max()
+    say(f"    {tag} batch stats: max |diff| "
+        f"{(got[3] - want[3]).abs().max().item():.3g}, {st.item():.3g} of "
+        "the allowance atol 1e-4 + rtol 1e-3")
+    if st.item() > 1.0:
+        bad.append("the batch statistics disagree with the plain version")
+
+    def rel(a, b):
+        return ((a.double() - b.double()).abs().max()
+                / b.double().abs().max().clamp_min(1e-30)).item()
+
+    _, _, xsave, stats = got
+    kb = train_decode_bwd(packed, ab, xsave, stats, dp0, dlv, "fast")
+    pb = train_decode_bwd_plain(packed, ab, xsave, stats, dp0, dlv, "fast")
+    pairs = [(f"d{k}", kb[1][k], v) for k, v in pb[1].items()] + [
+        ("dab", kb[2], pb[2])]
+    dp_norm = rel_norm(kb[0], pb[0])
+    bwd_err = max((a - b).abs().max().item() for _, a, b in
+                  [("dp", kb[0], pb[0])] + pairs)
+    say(f"    {tag} backward on kernel 7's residuals, |diff| / max |plain|: "
+        f"dp {rel(kb[0], pb[0]):.2g}"
+        + "".join(f", {n} {rel(a, b):.2g}" for n, a, b in pairs)
+        + f" ({TRAIN_FAST_GRAD:g}); dp in norm {dp_norm:.2g} "
+        f"({TRAIN_FAST_DP_NORM:g}); max |diff| {bwd_err:.3g}")
+    if dp_norm > TRAIN_FAST_DP_NORM:
+        bad.append(f"backward dp {dp_norm:.3g} in norm")
+    for name, a, b in pairs:
+        if not rel(a, b) <= TRAIN_FAST_GRAD:
+            bad.append(f"backward {name}: {rel(a, b):.3g} of its largest "
+                       "entry")
+    if not all(torch.equal(a, b) for a, b in
+               zip(got, train_decode_fwd(packed, ab, p, "fast"))):
+        bad.append("two forward launches differ")
+    again = train_decode_bwd(packed, ab, xsave, stats, dp0, dlv, "fast")
+    if not (torch.equal(kb[0], again[0]) and torch.equal(kb[2], again[2])
+            and all(torch.equal(kb[1][k], again[1][k]) for k in kb[1])):
+        bad.append("two backward launches differ")
+    del again, want, pb
+    if bad:
+        fail(f"{tag}: " + "; ".join(bad))
+    times = None
+    if timed:
+        times = {}
+        for mode in ("highest", "fast"):
+            times[f"train_decode_fwd_{mode}"] = (
+                cuda_ms(lambda: train_decode_fwd(packed, ab, p, mode), 5),
+                cuda_ms(lambda: train_decode_fwd_plain(packed, ab, p, mode),
+                        2))
+        for mode in ("highest", "fast"):
+            times[f"train_decode_bwd_{mode}"] = (
+                cuda_ms(lambda: train_decode_bwd(packed, ab, xsave, stats,
+                                                 dp0, dlv, mode), 3),
+                cuda_ms(lambda: train_decode_bwd_plain(
+                    packed, ab, xsave, stats, dp0, dlv, mode), 1))
+        say(f"    {tag}: " + "; ".join(
+            f"{name} kernel {ms:.3f} ms, plain {plain:.3f} ms"
+            for name, (ms, plain) in times.items())
+            + " (the backward on the 'fast' forward's residuals in both "
+            "modes, timed in the same window)")
+    return max(errs), bwd_err, times
+
+
 def w1_bmm_ms(K, n, f, C):
     """C times one torch.bmm of one coupling's hidden W1 product, (2K, f,
     f) by (2K, f, n) (random values), at fp32 'highest': the library
@@ -906,6 +1107,13 @@ def path_bounds(K, B, N, C, f):
         # dp0 and dlv, writes dp
         "train_decode_bwd": bound(**decode_work(
             K, B, N, C, f, 12 * f * f + 96 * f, 24 + 12 * C)),
+        # the same products at 'fast' as bf16 passes at the tensor cores'
+        # rate
+        "train_decode_fwd_fast": bound(**decode_work(
+            K, B, N, C, f, fwd_flop, 24 + 12 * C), peak=BF16_FLOPS),
+        "train_decode_bwd_fast": bound(**decode_work(
+            K, B, N, C, f, 12 * f * f + 96 * f, 24 + 12 * C),
+            peak=BF16_FLOPS),
     }
 
 
@@ -919,6 +1127,10 @@ def phase_kernels():
     # ragged shapes and the narrow (f=8) instantiation go through the same
     # kernels as the flagship's
     check_point_decode(small, 3, 50, 7, timed=False, modes=MODES)
+    # kernels 7 and 8 at 'fast', 9 narrow couplings: the mode's effect
+    # held as kernel 1's
+    check_train_decode_fast(small, 3, 50, 7, timed=False,
+                            gap_bound=MODE_EFFECT_GAP["fast"])
     check_nn_distance(3, 50, 77, 8, timed=False)
     # three row chunks, the last partial, with ties in both directions
     check_nn_distance(2, 1100, 700, 20, timed=False, grid=True)
@@ -960,6 +1172,16 @@ def phase_kernels():
         td_bwd.append(b_err)
     f_err, b_err, td_times = check_train_decode(
         FLAGSHIP_AIRPLANE, BATCH, N_POINTS, 19, timed=True)
+    # 'fast': a ragged N and a small batch, then the flagship shape, timed
+    # beside 'highest' in one window
+    tf_fwd, tf_bwd = [], []
+    for B, N, seed in ((16, 2000, 20), (2, N_POINTS, 21)):
+        fe, be, _ = check_train_decode_fast(FLAGSHIP_AIRPLANE, B, N, seed,
+                                            timed=False)
+        tf_fwd.append(fe)
+        tf_bwd.append(be)
+    fe, be, tf_times = check_train_decode_fast(FLAGSHIP_AIRPLANE, BATCH,
+                                               N_POINTS, 22, timed=True)
 
     B, N = BATCH, N_POINTS
     pairs = B * N * N
@@ -986,6 +1208,12 @@ def phase_kernels():
         say(f"    point_decode {mode}: {ms:.3f} ms direct, "
             f"{ms / base:.2f} x 'highest'; bound "
             f"{bounds['point_decode_' + mode][0]:.3f} ms at the bf16 peak")
+    for name in ("train_decode_fwd", "train_decode_bwd"):
+        ms = tf_times[name + "_fast"][0]
+        base = tf_times[name + "_highest"][0]
+        say(f"    {name} fast: {ms:.3f} ms, {ms / base:.3f} x 'highest' in "
+            f"the same window; bound {bounds[name + '_fast'][0]:.3f} ms at "
+            "the bf16 peak")
     return {
         "point_decode": (pd_errs["highest"], pd_times["highest", "direct"]),
         "point_decode_high": (pd_errs["high"], pd_times["high", "direct"]),
@@ -999,6 +1227,10 @@ def phase_kernels():
                              td_times["train_decode_fwd"]),
         "train_decode_bwd": (max(td_bwd + [b_err]),
                              td_times["train_decode_bwd"]),
+        "train_decode_fwd_fast": (max(tf_fwd + [fe]),
+                                  tf_times["train_decode_fwd_fast"]),
+        "train_decode_bwd_fast": (max(tf_bwd + [be]),
+                                  tf_times["train_decode_bwd_fast"]),
     }, bounds
 
 
@@ -1371,6 +1603,76 @@ def check_train_steps(base, clouds, eps, images=None):
             f"{k} |diff| {v:.3g}" for k, v in walk.items()) + " (bound 2 lr)")
 
 
+# one 'fast' step through kernels 7 and 8 against one through the modules:
+# not one function at 'fast' (the kernels' sd0 statistics come from the
+# x-moments with the fp32 W0, off-centre on the rounded h0, and their
+# backward takes them as h0's, as the JAX kernel does), so the loss is held
+# relative and the gradient over all parameters in norm (read 5.3e-6 and
+# 3.0e-3 at B=64 on an H100 at 700 W)
+FAST_STEP_LOSS = 1e-4
+FAST_STEP_GRAD_NORM = 3e-2
+
+
+def check_train_steps_fast(base, clouds, eps, images=None):
+    """One 'fast' step from one state through the kernels and through the
+    decoder's modules (FAST_STEP_LOSS, FAST_STEP_GRAD_NORM); prints the
+    leaves whose gradients differ most. `images`: an SVR model's step."""
+    import copy
+
+    import torch
+
+    from go_with_the_flows_tpu_torch.ops.precision import (
+        matmul_precision_scope)
+    from go_with_the_flows_tpu_torch.optim import make_optimizer
+    from go_with_the_flows_tpu_torch.train.step import make_train_step
+
+    hp = dict(TRAIN_HP, min_lr=2e-4, max_lr=2e-4)
+    svr = {} if images is None else {"images": images}
+    out = {}
+    for fused in (False, True):
+        model = copy.deepcopy(base).cuda()
+        with matmul_precision_scope("fast"):
+            step = make_train_step(model, make_optimizer(
+                list(model.parameters()), **hp), svr=bool(svr),
+                fused_decoder=fused)
+        metrics = step(clouds, clouds, posterior_eps=eps, **svr)
+        out[fused] = ({k: float(v) for k, v in metrics.items()},
+                      {n: q.grad for n, q in model.named_parameters()
+                       if q.grad is not None})
+        del model, step
+    (mp, gp), (mk, gk) = out[False], out[True]
+    loss_rel = abs(mk["loss"] - mp["loss"]) / abs(mp["loss"])
+    flat_p = torch.cat([g.flatten() for g in gp.values()])
+    flat_k = torch.cat([gk[n].flatten() for n in gp])
+    grad_norm = rel_norm(flat_k, flat_p)
+    worst = sorted(((gk[n] - g).norm() / g.norm().clamp_min(1e-30)).item()
+                   for n, g in gp.items())
+    say(f"    one 'fast' step at B={clouds.shape[0]}, kernel path vs module "
+        f"path: loss {mk['loss']:.6g} vs {mp['loss']:.6g}, relative "
+        f"{loss_rel:.3g} ({FAST_STEP_LOSS:g}); all gradients in norm "
+        f"{grad_norm:.3g} ({FAST_STEP_GRAD_NORM:g}); the leaves' own "
+        f"relative norms, median {worst[len(worst) // 2]:.3g}, largest "
+        f"{worst[-1]:.3g}")
+    if loss_rel > FAST_STEP_LOSS or grad_norm > FAST_STEP_GRAD_NORM:
+        fail("the 'fast' kernel-path step disagrees with the module path")
+
+
+def fast_launches(wrappers, fn):
+    """fn() with kernels 7 and 8's counters, their 'fast' ones too, set to
+    0 before: (fn's result, {name: all launches}, {name + "_fast": the
+    'fast' launches})."""
+    import torch
+
+    zero(wrappers)
+    for w in wrappers:
+        w.launches_by_mode.update(dict.fromkeys(w.launches_by_mode, 0))
+    out = fn()
+    torch.cuda.synchronize()
+    return out, read(wrappers), {w.__name__ + "_fast":
+                                 w.launches_by_mode["fast"]
+                                 for w in wrappers}
+
+
 def phase_train(card):
     import copy
     import math
@@ -1481,6 +1783,60 @@ def phase_train(card):
     for t, n, name in hosts[:8]:
         say(f"      {t:9.3f} ms {n:6d}x {name[:70]}")
     del step_k
+    torch.cuda.empty_cache()
+
+    # 'fast': one step kernels vs modules, then the 'fast' main path,
+    # twenty kernel-path steps built under 'fast' (called under 'highest')
+    from go_with_the_flows_tpu_torch.ops.precision import (
+        matmul_precision_scope)
+    for B in (BATCH, BATCH // 2, BATCH // 4):
+        try:
+            check_train_steps_fast(base, batches[0][:B].contiguous(), eps[:B])
+            break
+        except torch.cuda.OutOfMemoryError:
+            torch.cuda.empty_cache()
+            say(f"    'fast' one-step comparison: the plain path is out of "
+                f"memory at B={B}")
+    else:
+        fail("the plain 'fast' training path does not fit at any batch tried")
+    torch.cuda.empty_cache()
+    with matmul_precision_scope("fast"):
+        step_f = trainer(None)
+
+    def fast_steps():
+        return [float(step_f(c, c)["loss"])
+                for c in (batches[i % len(batches)] for i in range(20))]
+
+    fast_losses, all_n, fast_n = fast_launches(wrappers, fast_steps)
+    say(f"    20 'fast' kernel-path steps: loss {fast_losses[0]:.2f} -> "
+        f"{fast_losses[-1]:.2f} (first five {np.mean(fast_losses[:5]):.3f}, "
+        f"last five {np.mean(fast_losses[-5:]):.3f}); launches {fast_n}")
+    if not all(math.isfinite(v) for v in fast_losses):
+        fail(f"'fast' train losses are not finite: {fast_losses}")
+    if not np.mean(fast_losses[-5:]) < np.mean(fast_losses[:5]):
+        fail("the 'fast' train losses do not fall over 20 steps")
+    if fast_n != {name + "_fast": n for name, n in all_n.items()} or min(
+            fast_n.values()) < 20:
+        fail(f"the 'fast' steps launched {all_n}, of them 'fast' {fast_n}")
+    launches.update(fast_n)
+    ms_f, mem_f = train_step_ms(step_f, batches, 10)
+    say(f"    'fast' kernel path B={BATCH}: {ms_f:.2f} ms/step "
+        f"({ms_f / ms_k:.3f} x 'highest'), {1000.0 * BATCH / ms_f:.1f} train "
+        f"clouds/s, peak {mem_f:.2f} GB [{card}]")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step_f(batches[0], batches[0])
+        torch.cuda.synchronize()
+    rows = device_kernels(prof)
+    busy = sum(r[0] for r in rows)
+    if busy > 0:
+        say(f"    profiled 'fast' step: device busy {busy:.2f} ms of "
+            f"{ms_f:.2f} ms/step")
+        for what, passes in TRAIN_DECODE_PASSES.items():
+            say(f"    {what} at 'fast' by pass: " + "; ".join(
+                f"{label} {t:.3f} ms in {n} launches"
+                for label, (t, n) in passes_of(rows, passes).items()))
+    del step_f
     torch.cuda.empty_cache()
 
     # the plain path, at the largest batch that fits on the card
@@ -1964,6 +2320,8 @@ def check_svr_kernels():
     nn_err, nn_times = check_nn_distance(B, N, N, 31, timed=True)
     f_err, b_err, td_times = check_train_decode(decoder, B, N, 32,
                                                 timed=True)
+    tf_err, tb_err, tf_times = check_train_decode_fast(decoder, B, N, 34,
+                                                       timed=True)
     gen = torch.Generator(device="cuda").manual_seed(33)
     a = 0.3 * torch.randn(B, N, 3, device="cuda", generator=gen)
     b = 0.3 * torch.randn(B, N, 3, device="cuda", generator=gen)
@@ -1980,6 +2338,10 @@ def check_svr_kernels():
         "emd_cost": (emd_err, emd_ms),
         "train_decode_fwd": (f_err, td_times["train_decode_fwd"][0]),
         "train_decode_bwd": (b_err, td_times["train_decode_bwd"][0]),
+        "train_decode_fwd_fast": (tf_err,
+                                  tf_times["train_decode_fwd_fast"][0]),
+        "train_decode_bwd_fast": (tb_err,
+                                  tf_times["train_decode_bwd_fast"][0]),
     }
     return measured, bounds, pd_times["dims"]
 
@@ -2272,6 +2634,34 @@ def phase_svr(card, pd_err):
             + f" [{card}]")
         for t_ms, n, name in rows[:10]:
             say(f"      {t_ms:9.3f} ms {n:6d}x {name[:70]}")
+
+    # 'fast': one SVR step built under 'fast' (called under 'highest'),
+    # through kernels 7 and 8 in that mode, on the first batch
+    from go_with_the_flows_tpu_torch.ops.precision import (
+        matmul_precision_scope)
+    with matmul_precision_scope("fast"):
+        fast_step = make_train_step(model, state.optimizer, svr=True)
+
+    def two_fast_steps():
+        t = time.perf_counter()
+        out = [float(fast_step(b["cloud"], b["eval_cloud"], state.generator,
+                               images=b["image"])["loss"]) for _ in range(2)]
+        torch.cuda.synchronize()
+        return out, 1000.0 * (time.perf_counter() - t) / 2
+
+    (fast_loss, fast_ms), all_n, fast_n = fast_launches(
+        (train_decode_fwd, train_decode_bwd), two_fast_steps)
+    say(f"    two 'fast' SVR steps B={B}: losses "
+        + ", ".join(f"{v:.4f}" for v in fast_loss)
+        + f", {fast_ms:.2f} ms/step (host clock, the first step included); "
+        f"launches {fast_n} [{card}]")
+    if not all(math.isfinite(v) for v in fast_loss) or fast_n != {
+            name + "_fast": 2 for name in all_n} or all_n != {
+            name: 2 for name in all_n}:
+        fail(f"the 'fast' SVR steps: losses {fast_loss}, launches {all_n}, "
+             f"of them 'fast' {fast_n}")
+    launches.update(fast_n)
+    del fast_step
 
     say("    SVR-shape kernels (K={}, B={}, N={}, C={}, f={}): ".format(*dims)
         + "; ".join(
@@ -3201,6 +3591,8 @@ def dist_rank(rank, work, config, svr_config):
         restore_checkpoint, save_checkpoint)
     from go_with_the_flows_tpu_torch.train.state import create_train_state
     from go_with_the_flows_tpu_torch.train.step import make_sample_step
+    from go_with_the_flows_tpu_torch.ops.precision import (
+        matmul_precision_scope)
     from go_with_the_flows_tpu_torch.utils.config import FLAGSHIP_AIRPLANE
 
     torch.cuda.set_device(0)
@@ -3370,6 +3762,37 @@ def dist_rank(rank, work, config, svr_config):
             {w.__name__: 0 for w in wrappers}, train_decode_fwd=steps,
             train_decode_bwd=steps,
             point_decode=val_batches + recon_points)  # reconstruct's 2
+        del strained
+        torch.cuda.empty_cache()
+
+        # (g) 'fast': kernels 7 and 8 in their SPMD form at 'fast' on this
+        # rank's half, then one train step built under 'fast'
+        packed, ab, p = train_decode_inputs(FLAGSHIP_AIRPLANE, BATCH,
+                                            N_POINTS, DIST_SEED)
+        gen = torch.Generator(device="cuda").manual_seed(DIST_SEED)
+        dp0 = torch.randn(p.shape, device="cuda", generator=gen)
+        dlv = torch.randn(p.shape, device="cuda", generator=gen)
+        ab, p, dp0, dlv = (t[:, rows].contiguous() for t in (ab, p, dp0, dlv))
+        p0, lv, xsave, stats = train_decode_fwd(packed, ab, p, "fast")
+        dp, grads, dab = train_decode_bwd(packed, ab, xsave, stats, dp0, dlv,
+                                          "fast")
+        torch.cuda.synchronize()
+        out["kernels_fast"] = {
+            "p0": p0.cpu(), "lv": lv.cpu(), "stats": stats.cpu(),
+            "dp": dp.cpu(), "dab": dab.cpu(),
+            "grads": {k: v.cpu() for k, v in grads.items()}}
+        del packed, ab, p, dp0, dlv, p0, lv, xsave, stats, dp, grads, dab
+        with matmul_precision_scope("fast"):
+            model, opt, step, clouds, eps = dist_train_setup(rows)
+        spmd_before = {w.__name__: w.spmd_launches for w in spmd}
+        (loss, grad), all_n, fast_n = fast_launches(spmd, lambda: (
+            float(step(clouds, clouds, None, posterior_eps=eps)["loss"]),
+            opt.flat_grad.cpu().clone()))
+        out["fast_step"] = {
+            "loss": loss, "grad": grad, "launches": all_n, "fast": fast_n,
+            "spmd": {w.__name__: w.spmd_launches - spmd_before[w.__name__]
+                     for w in spmd}}
+        del model, opt, step
     finally:
         torch.save(out, os.path.join(work, f"rank{rank}.pt"))
         dist.shutdown()
@@ -3386,6 +3809,8 @@ def phase_dist(card):
     from go_with_the_flows_tpu_torch.ops.kernels.train_decode import (
         _KERNEL_KEYS, train_decode_bwd, train_decode_bwd_plain,
         train_decode_fwd, train_decode_fwd_plain)
+    from go_with_the_flows_tpu_torch.ops.precision import (
+        matmul_precision_scope)
     from go_with_the_flows_tpu_torch.utils.config import FLAGSHIP_AIRPLANE
 
     say(f"[8] dist: data-parallel training of the flagship model on "
@@ -3417,6 +3842,24 @@ def phase_dist(card):
         # ... and DIST_STEPS one-process train steps
         model, opt, step, clouds, eps = dist_train_setup(slice(None))
         one_steps = dist_steps(step, opt, model, clouds, eps)
+        del model, opt, step, clouds, eps
+        # ... and at 'fast': the kernels and one step
+        packed, ab, p = train_decode_inputs(FLAGSHIP_AIRPLANE, BATCH,
+                                            N_POINTS, DIST_SEED)
+        gen = torch.Generator(device="cuda").manual_seed(DIST_SEED)
+        dp0 = torch.randn(p.shape, device="cuda", generator=gen)
+        dlv = torch.randn(p.shape, device="cuda", generator=gen)
+        f = train_decode_fwd(packed, ab, p, "fast")
+        b = train_decode_bwd(packed, ab, f[2], f[3], dp0, dlv, "fast")
+        one_fast = {"p0": f[0].cpu(), "lv": f[1].cpu(), "stats": f[3].cpu(),
+                    "dp": b[0].cpu(), "dab": b[2].cpu(),
+                    "grads": {k: v.cpu() for k, v in b[1].items()}}
+        del packed, ab, p, dp0, dlv, f, b
+        with matmul_precision_scope("fast"):
+            model, opt, step, clouds, eps = dist_train_setup(slice(None))
+        one_fast_step = (float(step(clouds, clouds, None,
+                                    posterior_eps=eps)["loss"]),
+                         opt.flat_grad.cpu().clone())
         del model, opt, step, clouds, eps
         torch.cuda.empty_cache()
         # ... and one one-process SVR step at B=128
@@ -3635,6 +4078,57 @@ def phase_dist(card):
         + " (each as expected from the steps and batches), of them in SPMD "
         "form " + ", ".join(f"{k} {n}" for k, n in spmd.items())
         + f"; the ranks ran {ranks_s:.1f} s")
+
+    # (g) 'fast': the SPMD kernels and one step against one process
+    kf = [g["kernels_fast"] for g in got]
+    kcat = {key: torch.cat([x[key] for x in kf], 1)
+            for key in ("p0", "lv", "dp", "dab")}
+    errs = {key: (kcat[key] - one_fast[key]).abs().max().item()
+            for key in ("p0", "lv")}
+    norms = {key: rel_norm(kcat[key], one_fast[key]) for key in ("p0", "lv")}
+    stat_used = max(((x["stats"] - one_fast["stats"]).abs()
+                     / (1e-4 + 1e-3 * one_fast["stats"].abs())).max().item()
+                    for x in kf)
+    dp_norm = rel_norm(kcat["dp"], one_fast["dp"])
+    grad_rel = {key: rel(kf[0]["grads"][key] + kf[1]["grads"][key],
+                         one_fast["grads"][key]) for key in _KERNEL_KEYS}
+    grad_rel["ab"] = rel(kcat["dab"], one_fast["dab"])
+    # each side's backward runs on its own forward's residuals, which the
+    # 33 'fast' couplings have moved apart (read on an H100 at 700 W: dp
+    # 8.8e-3 in norm, the gradients at most 2.5e-2)
+    say(f"    (g) 'fast' SPMD kernels 7 and 8 on {DIST_WORLD} ranks against "
+        f"the 1-process 'fast' kernels at B={BATCH}: p0 {errs['p0']:.3g}, "
+        f"logvar {errs['lv']:.3g} ({TRAIN_FAST_ATOL:g}), in norm "
+        f"{norms['p0']:.3g}, {norms['lv']:.3g} ({TRAIN_FAST_NORM:g}); stats "
+        f"{stat_used:.3g} of the allowance atol 1e-4 + rtol 1e-3; each on "
+        f"its own residuals, dp in norm {dp_norm:.2g} (3e-2); gradients "
+        f"summed over the ranks, |diff| / max: " + ", ".join(
+            f"d{key} {v:.2g}" for key, v in grad_rel.items()) + " (0.1)")
+    if (max(errs.values()) > TRAIN_FAST_ATOL
+            or max(norms.values()) > TRAIN_FAST_NORM or stat_used > 1.0
+            or dp_norm > 3e-2 or max(grad_rel.values()) > 0.1):
+        fail("(g) the 'fast' SPMD kernels disagree with the one-process ones")
+    fs = [g["fast_step"] for g in got]
+    if fs[0]["loss"] != fs[1]["loss"]:
+        fail("(g) the ranks' 'fast' losses differ")
+    loss_rel = abs(fs[0]["loss"] - one_fast_step[0]) / abs(one_fast_step[0])
+    grad_rel = rel(fs[0]["grad"], one_fast_step[1])
+    fast_n = {k: sum(x["fast"][k] for x in fs) for k in fs[0]["fast"]}
+    say(f"    (g) one 'fast' step, {DIST_WORLD} ranks against one process: "
+        f"loss {fs[0]['loss']:.6f} ({one_fast_step[0]:.6f}), relative diff "
+        f"{loss_rel:.3g} (1e-4); the reduced gradient {grad_rel:.3g} of its "
+        f"max (3e-2); 'fast' launches summed over the ranks {fast_n}, in "
+        f"SPMD form " + ", ".join(
+            f"{k} {sum(x['spmd'][k] for x in fs)}" for k in fs[0]["spmd"]))
+    if loss_rel > 1e-4 or grad_rel > 3e-2:
+        fail("(g) the 2-rank 'fast' step disagrees with the one-process step")
+    for x in fs:
+        if x["fast"] != {k + "_fast": 1 for k in x["spmd"]} or x[
+                "spmd"] != dict.fromkeys(x["spmd"], 1) or x["launches"] != \
+                dict.fromkeys(x["spmd"], 1):
+            fail(f"(g) a rank's 'fast' step launched {x['launches']}, of "
+                 f"them 'fast' {x['fast']}, in SPMD form {x['spmd']}")
+    launches.update(fast_n)
     return launches
 
 
@@ -4051,6 +4545,12 @@ def main() -> None:
             "go_with_the_flows_tpu_torch/csrc/train_decode.cu",
             "go_with_the_flows_tpu/ops/pallas/train_kernel.py:806"),
         "train_decode_bwd": (
+            "go_with_the_flows_tpu_torch/csrc/train_decode.cu",
+            "go_with_the_flows_tpu/ops/pallas/train_kernel.py:880"),
+        "train_decode_fwd_fast": (
+            "go_with_the_flows_tpu_torch/csrc/train_decode.cu",
+            "go_with_the_flows_tpu/ops/pallas/train_kernel.py:806"),
+        "train_decode_bwd_fast": (
             "go_with_the_flows_tpu_torch/csrc/train_decode.cu",
             "go_with_the_flows_tpu/ops/pallas/train_kernel.py:880"),
     }

@@ -32,8 +32,16 @@ the JAX scripts' precedence, and at 'highest' when it has neither: the
 JAX scripts' defaults ('fast' for generating, 'high' for the paired
 modes) rest on A/Bs of the TPU, and on the card 'high' and 'fast' are no
 faster than 'highest' yet (the modes' A/B there:
-tools/eval_precision_ab.py). train_ae and train_svr train at 'highest'
-only, and refuse a config that names another mode under either key.
+tools/eval_precision_ab.py). train_ae and train_svr build their train
+and validation steps in the config's `matmul_precision`, as the JAX
+scripts set it for the whole process, and do not read
+`eval_matmul_precision`, which the JAX training scripts do not read
+either. They take 'highest' and 'fast' ('default') and refuse 'high',
+which waits for kernels 7 and 8 in that mode. Without the key they train
+at 'highest', not at the JAX scripts' 'fast': the JAX default rests on
+the TPU, where bf16 products are the MXU's native rate; on the card the
+port's 'fast' kernels run on the CUDA cores and are no faster (PERF.md),
+and the training A/B that would move the default is still to be made.
 """
 
 from __future__ import annotations
@@ -61,12 +69,13 @@ def resolve_device(name: str) -> torch.device:
     return device
 
 
-def check_training_precision(config: Dict) -> None:
-    """Refuse a training config whose `matmul_precision` or
-    `eval_matmul_precision` names a mode other than 'highest'."""
-    for key in ("matmul_precision", "eval_matmul_precision"):
-        if config.get(key) is not None:
-            precision.require_highest(key, config[key])
+def training_precision(config: Dict) -> str:
+    """The training CLIs' matmul precision mode: the config's
+    `matmul_precision`, 'highest' without it. Raises on 'high' (and on an
+    unknown mode)."""
+    mode = config.get("matmul_precision")
+    return precision.require_training_mode(
+        "matmul_precision", "highest" if mode is None else mode)
 
 
 def eval_precision(config: Dict) -> str:

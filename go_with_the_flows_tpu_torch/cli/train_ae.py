@@ -30,15 +30,16 @@ from ..data.cloud_transforms import ComposeCloudTransformation
 from ..data.datasets import ShapeNetCoreDataset
 from ..data.loader import DataLoader
 from ..models.mixture import FlowMixtureModel
+from ..ops.precision import matmul_precision_scope
 from ..optim import make_optimizer
 from ..train import loops
 from ..train.state import TrainState, create_train_state
 from ..train.step import make_eval_step, make_train_step
 from ..utils.config import (count_params, load_config, model_config_kwargs,
                             resolve_config)
-from . import (add_common_train_options, check_training_precision,
-               derived_seed, maybe_resume, rank_config, resolve_device,
-               run_ranks, start_logging)
+from . import (add_common_train_options, derived_seed, maybe_resume,
+               rank_config, resolve_device, run_ranks, start_logging,
+               training_precision)
 
 
 def define_options_parser() -> argparse.ArgumentParser:
@@ -83,8 +84,10 @@ def run(config: Dict, train_dataset, val_dataset, device="cuda",
     with `resume`) to n_epochs. Returns the state and, per epoch run,
     {"epoch", "steps", "train_s", "val_s"} (wall seconds, the card's work
     included). Inside a process group every rank calls it: its loaders
-    take its shard of the datasets, batch_size / world clouds a batch."""
-    check_training_precision(config)
+    take its shard of the datasets, batch_size / world clouds a batch.
+    The train and validation steps run in the config's
+    `matmul_precision` ('highest' without it; cli/__init__.py)."""
+    mode = training_precision(config)
     device = torch.device(device)
     config, world, rank = rank_config(config)
     writer = start_logging(config)
@@ -112,8 +115,9 @@ def run(config: Dict, train_dataset, val_dataset, device="cuda",
         state, cur_epoch, cur_iter = maybe_resume(config, state)
         weights = {k: config.get(k, 1.0)
                    for k in ("pnll_weight", "gnll_weight", "gent_weight")}
-        train_step = make_train_step(model, state.optimizer, **weights)
-        eval_step = make_eval_step(model, **weights)
+        with matmul_precision_scope(mode):
+            train_step = make_train_step(model, state.optimizer, **weights)
+            eval_step = make_eval_step(model, **weights)
 
         timings = []
         min_loss = 1e4

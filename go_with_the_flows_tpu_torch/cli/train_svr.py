@@ -32,15 +32,15 @@ from ..data.datasets import ShapeNetAllDataset
 from ..data.image_transforms import ComposeImageTransformation
 from ..data.loader import DataLoader
 from ..models.mixture import FlowMixtureSVRModel
+from ..ops.precision import matmul_precision_scope
 from ..optim import make_optimizer
 from ..train import loops
 from ..train.state import TrainState, create_train_state
 from ..train.step import make_train_step
 from ..utils.config import (count_params, load_config, resolve_config,
                             svr_model_config_kwargs)
-from . import (add_common_train_options, check_training_precision,
-               maybe_resume, rank_config, resolve_device, run_ranks,
-               start_logging)
+from . import (add_common_train_options, maybe_resume, rank_config,
+               resolve_device, run_ranks, start_logging, training_precision)
 
 
 def define_options_parser() -> argparse.ArgumentParser:
@@ -76,8 +76,9 @@ def run(config: Dict, train_dataset, device="cuda", seed: int = 0,
     """Train a resolved SVR config's model to n_epochs. Returns the state
     and, per epoch run, {"epoch", "steps", "train_s"}. Inside a process
     group every rank calls it: its loader takes its shard of the dataset,
-    batch_size / world views a batch."""
-    check_training_precision(config)
+    batch_size / world views a batch. The train step runs in the config's
+    `matmul_precision` ('highest' without it; cli/__init__.py)."""
+    mode = training_precision(config)
     device = torch.device(device)
     config, world, rank = rank_config(config)
     writer = start_logging(config)
@@ -99,10 +100,11 @@ def run(config: Dict, train_dataset, device="cuda", seed: int = 0,
         if config["logging"]:
             print("Total number of parameters:", count_params(model))
         state, cur_epoch, cur_iter = maybe_resume(config, state)
-        train_step = make_train_step(
-            model, state.optimizer, svr=True,
-            **{k: config.get(k, 1.0)
-               for k in ("pnll_weight", "gnll_weight", "gent_weight")})
+        with matmul_precision_scope(mode):
+            train_step = make_train_step(
+                model, state.optimizer, svr=True,
+                **{k: config.get(k, 1.0)
+                   for k in ("pnll_weight", "gnll_weight", "gent_weight")})
 
         timings = []
         for epoch in range(cur_epoch, config["n_epochs"]):

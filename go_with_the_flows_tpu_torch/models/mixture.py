@@ -285,7 +285,10 @@ class FlowMixtureModel(nn.Module):
         it returns into the decoder's running statistics. Inside a
         process group of several ranks both take their BatchNorm
         statistics over the global batch (kernels 7 and 8 in their SPMD
-        form).
+        form). Both run in the current matmul precision mode; the fused
+        path packs the decoder at every call, so the bf16-rounded weights
+        of 'fast' (`kernel_weights_train`) are made from the weights of
+        this step.
         """
         K = self.n_components
         B, _, N = p_input.shape
@@ -341,7 +344,9 @@ class FlowMixtureModel(nn.Module):
         a tensor written in place (an optimizer step, a running-statistics
         update, load_state_dict: its version counter moved) or replaced
         (`.to(device)` puts new buffers in the BatchNorms). Rebinding a
-        parameter's `.data` by hand is not seen. The packed tensors are
+        parameter's `.data` by hand is not seen. The kernel layouts of
+        the other precision modes (`kernel_layout`) live in the pack, so
+        a new pack drops the old ones with it. The packed tensors are
         ordinary ones (never inference tensors), so a cached pack serves
         any later caller."""
         tensors = self._decoder_tensors()

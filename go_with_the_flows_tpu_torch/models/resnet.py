@@ -60,18 +60,52 @@ class Conv2d(nn.Conv2d):
         """The convolution in the current matmul precision mode: fp32 at
         'highest'; at 'fast' one convolution of the operands rounded to
         bf16; at 'high' three, conv(x_hi, w_hi) + conv(x_hi, w_lo) +
-        conv(x_lo, w_hi), as ops/precision.mxdot forms a product."""
+        conv(x_lo, w_hi), as ops/precision.mxdot forms a product. The
+        gradients are convolutions of the same mode (`_ModeConv`)."""
         mode = get_matmul_precision()
-        if mode == "fast":
-            return self._conv_forward(bf16_round(x), bf16_round(self.weight),
-                                      None)
-        if mode == "high":
-            x_hi, x_lo = bf16_split(x)
-            w_hi, w_lo = bf16_split(self.weight)
-            return (self._conv_forward(x_hi, w_hi, None)
-                    + self._conv_forward(x_hi, w_lo, None)
-                    + self._conv_forward(x_lo, w_hi, None))
-        return self._conv_forward(x, self.weight, None)
+        if mode == "highest":
+            return self._conv_forward(x, self.weight, None)
+        return _ModeConv.apply(x, self.weight, self.stride, self.padding,
+                               mode)
+
+
+def _mode_terms(a: torch.Tensor, b: torch.Tensor, mode: str):
+    """The operand pairs of a product of `mode`: (bf16(a), bf16(b)) at
+    'fast'; (hi, hi), (hi, lo), (lo, hi) at 'high'."""
+    if mode == "fast":
+        return [(bf16_round(a), bf16_round(b))]
+    a_hi, a_lo = bf16_split(a)
+    b_hi, b_lo = bf16_split(b)
+    return [(a_hi, b_hi), (a_hi, b_lo), (a_lo, b_hi)]
+
+
+class _ModeConv(torch.autograd.Function):
+    """conv2d(x, w) at 'high' or 'fast', whose input and weight gradients
+    are convolutions of the same mode: conv2d_input of the cotangent and
+    w, conv2d_weight of x and the cotangent, each from operands rounded
+    (or split) in the mode. A gradient's result is never rounded."""
+
+    @staticmethod
+    def forward(ctx, x, w, stride, padding, mode):
+        ctx.save_for_backward(x, w)
+        ctx.conv = (stride, padding, mode)
+        return sum(F.conv2d(a, b, None, stride, padding)
+                   for a, b in _mode_terms(x, w, mode))
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        stride, padding, mode = ctx.conv
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = sum(torch.nn.grad.conv2d_input(x.shape, b, a, stride,
+                                                padding)
+                     for a, b in _mode_terms(dy, w, mode))
+        if ctx.needs_input_grad[1]:
+            dw = sum(torch.nn.grad.conv2d_weight(b, w.shape, a, stride,
+                                                 padding)
+                     for a, b in _mode_terms(dy, x, mode))
+        return dx, dw, None, None, None
 
 
 class FusedBatchNorm(nn.Module):

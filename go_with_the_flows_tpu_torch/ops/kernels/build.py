@@ -55,16 +55,16 @@ _SIGNATURES = {
     "gwtf_pairwise_emd": [_P] * 3 + [_I] * 3 + [ctypes.c_float] * 2
     + [_I] * 2 + [_P],
     # p, w0, s0, b0, w1, w2, b2, ab, p0, lv, xsave, stats, work,
-    # K, B, C, N, f, stream
-    "gwtf_train_decode_fwd": [_P] * 13 + [_I] * 5 + [_P],
+    # K, B, C, N, f, mode, stream
+    "gwtf_train_decode_fwd": [_P] * 13 + [_I] * 6 + [_P],
     # xsave, stats, w0, s0, b0, w1, w2, b2, ab, dp0, dlv, dp, dw0, ds0,
-    # db0, dw1, dw2, db2, dab, work, K, B, C, N, f, stream
-    "gwtf_train_decode_bwd": [_P] * 20 + [_I] * 5 + [_P],
+    # db0, dw1, dw2, db2, dab, work, K, B, C, N, f, mode, stream
+    "gwtf_train_decode_bwd": [_P] * 20 + [_I] * 6 + [_P],
     # the SPMD form's stages: stage, c, n, the single entry's pointers,
-    # sums_in, sums_out, K, B, C, N, f, stream
-    "gwtf_train_decode_fwd_stage": [_I, _I, _D] + [_P] * 15 + [_I] * 5
+    # sums_in, sums_out, K, B, C, N, f, mode, stream
+    "gwtf_train_decode_fwd_stage": [_I, _I, _D] + [_P] * 15 + [_I] * 6
     + [_P],
-    "gwtf_train_decode_bwd_stage": [_I, _I, _D] + [_P] * 22 + [_I] * 5
+    "gwtf_train_decode_bwd_stage": [_I, _I, _D] + [_P] * 22 + [_I] * 6
     + [_P],
 }
 # entry points that return something else than a cudaError_t

@@ -44,6 +44,22 @@ The plain versions sum their partial sums over the ranks
 per-stage C entries (`_spmd_fwd`, `_spmd_bwd`), the sums over the ranks
 between the stages taking the place of the TPU kernel's remote copies
 (`_global_stat_sums`).
+
+Matmul precision (ops/precision.py): the kernels and their plain versions
+run at 'highest' or 'fast', the TPU kernels' `precision_mode`; 'high'
+waits for the next slice. At 'fast' each product of the TPU kernels'
+`_mxdot` and `_mxdg` takes bf16-rounded operands and fp32 sums: h0, h2
+and y in the forward and its replay; the x-moments' Gram M, whose sd0
+statistics still apply the fp32 W0 to S = sum x and to M, so that they
+are not centred exactly on the rounded h0 (`_h0_sums_from_moments`);
+and in the backward dfz = W2^T dy, dW2, dW1, da = W1^T dh2, dW0 and
+W0^T dh0. Kernel 8 and its plain version read the forward's saved
+statistics and take the textbook BatchNorm backward on them; every
+BatchNorm term and every sum stays fp32, and so does film_ab_train (JAX
+`film_wb_train` pins HIGHEST). The kernels read W0, W1 and W2 rounded
+once per pack (`kernel_weights_train`); the gradients are those of the
+fp32 packed arrays, the rounding taken as the identity, as JAX's custom
+VJP returns them. At 'highest' everything is as it was before the modes.
 """
 
 from __future__ import annotations
@@ -56,7 +72,9 @@ import torch.nn.functional as F
 from ...parallel import dist
 from .. import precision
 from ..layers import batch_stats, update_running_stats
+from ..precision import bf16_round, mxdot
 from . import build
+from .point_decode import KERNEL_MODES
 
 BN_EPS = 1e-5  # ops/layers.py BatchNorm
 EPS = 1e-6     # coupling eps (models/flows.py)
@@ -64,6 +82,7 @@ MAX_F = 64     # widest conditioner the kernels' shared-memory layout takes
 
 _HEADS = ("logvar", "mu")
 _KERNEL_KEYS = ("w0", "bn0_scale", "bn0_bias", "w1", "w2", "b2")
+_ROUNDED = ("w0", "w1", "w2")  # the weights of the products
 
 
 # --------------------------------------------------------------------- #
@@ -117,6 +136,24 @@ def pack_point_decoder_train(decoder) -> Dict[str, torch.Tensor]:
     return {k: torch.stack(v, 1) for k, v in acc.items()}
 
 
+def kernel_weights_train(packed: Dict[str, torch.Tensor],
+                         mode: str) -> Dict[str, torch.Tensor]:
+    """W0, W1 and W2 as the kernels' products read them in `mode`: the
+    packed arrays themselves at 'highest'; at 'fast' detached copies
+    rounded to bf16, made once per pack and kept in it under
+    "<name>_fast" (repack after the weights change; the training path
+    packs every step)."""
+    if mode == "highest":
+        return {k: packed[k] for k in _ROUNDED}
+    if mode != "fast":
+        raise ValueError(f"kernel_weights_train: no kernels for {mode!r}")
+    for k in _ROUNDED:
+        if k + "_fast" not in packed:
+            with torch.no_grad():
+                packed[k + "_fast"] = bf16_round(packed[k].detach())
+    return {k: packed[k + "_fast"] for k in _ROUNDED}
+
+
 def film_ab_train(packed: Dict[str, torch.Tensor], g: torch.Tensor):
     """Train-mode FiLM affines for g (B, G): ab (K, B, C, 2, 2f) and the
     FiLM BatchNorms' batch (mean, biased var), each (K, C, 4, f), over B,
@@ -167,25 +204,59 @@ def decoder_stats_update(decoder, stats: torch.Tensor, film_stats,
 # plain versions                                                        #
 # --------------------------------------------------------------------- #
 
-def _coupling_train(x, w0, s0, b0, w1, w2, b2, fw, fb):
+def _col(t):  # (K, 2, f) -> broadcast over (K, B, 2, f, N)
+    return t[:, None, :, :, None]
+
+
+def _moment_stats(w0, x):
+    """sd0's (mean, biased var) at 'fast' (K, 2, f), from the moments of x
+    (K, B, 3, N): S = sum x, M = sum bf16(x) bf16(x)^T, over the global
+    batch inside a process group, mean = W0 S / n, var = max(diag(W0 M
+    W0^T) / n - mean^2, 0) with the fp32 W0 (train_kernel.py's
+    `_moments3` and `_h0_sums_from_moments`), in float64 as the kernel
+    adds them."""
+    K = x.shape[0]
+    xd, xr = x.double(), bf16_round(x).double()
+    sums = dist.sum_over_ranks(torch.cat([
+        xd.sum((1, 3)), torch.einsum("kbin,kbjn->kij", xr, xr).reshape(K, 9)],
+        1))
+    n = x.shape[1] * x.shape[3] * dist.world_size()
+    S, M = sums[:, :3], sums[:, 3:].reshape(K, 3, 3)
+    w = w0.double()
+    mean = torch.einsum("khfi,ki->khf", w, S) / n
+    ss = torch.einsum("khfi,kij,khfj->khf", w, M, w)
+    var = torch.clamp(ss / n - mean.square(), min=0.0)
+    return mean.float(), var.float()
+
+
+def _coupling_train(x, w0, s0, b0, w1, w2, b2, fw, fb, mode="highest"):
     """One train-mode inverse coupling of all K components.
 
     x (K, B, 3, N); w0 (K, 2, f, 3); s0, b0 (K, 2, f); w1 (K, 2, f, f);
     w2 (K, 2, 3, f); b2 (K, 2, 3); fw, fb (K, B, 2, f). Returns
     (x_out, logvar, [mean0, var0, mean1, var1] each (K, 2, f)), each
-    statistic of h (K, B, 2, f, N) over its batch and points."""
-    def col(t):  # (K, 2, f) -> broadcast over (K, B, 2, f, N)
-        return t[:, None, :, :, None]
-
-    h0 = torch.einsum("khfi,kbin->kbhfn", w0, x)
-    mean0, var0 = batch_stats(h0, (1, 4))
-    n0 = (h0 - col(mean0)) * torch.rsqrt(col(var0) + BN_EPS)
-    a = F.relu(n0 * col(s0) + col(b0))
-    h2 = torch.einsum("khoi,kbhin->kbhon", w1, a)
+    statistic of h (K, B, 2, f, N) over its batch and points, at 'fast'
+    sd0's from the moments of x (`_moment_stats`)."""
+    if mode == "fast":
+        h0 = mxdot(w0[:, None], x[:, :, None], mode)
+        mean0, var0 = _moment_stats(w0, x)
+    else:
+        h0 = torch.einsum("khfi,kbin->kbhfn", w0, x)
+        mean0, var0 = batch_stats(h0, (1, 4))
+    n0 = (h0 - _col(mean0)) * torch.rsqrt(_col(var0) + BN_EPS)
+    a = F.relu(n0 * _col(s0) + _col(b0))
+    if mode == "fast":
+        h2 = mxdot(w1[:, None], a, mode)
+    else:
+        h2 = torch.einsum("khoi,kbhin->kbhon", w1, a)
     mean1, var1 = batch_stats(h2, (1, 4))
-    n1 = (h2 - col(mean1)) * torch.rsqrt(col(var1) + BN_EPS)
+    n1 = (h2 - _col(mean1)) * torch.rsqrt(_col(var1) + BN_EPS)
     fz = F.relu(fw[..., None] * n1 + fb[..., None])
-    y = torch.einsum("khjf,kbhfn->kbhjn", w2, fz) + b2[:, None, :, :, None]
+    if mode == "fast":
+        y = mxdot(w2[:, None], fz, mode)
+    else:
+        y = torch.einsum("khjf,kbhfn->kbhjn", w2, fz)
+    y = y + b2[:, None, :, :, None]
     logvar = F.softsign(y[:, :, 0])
     scale = torch.sqrt(EPS + torch.exp(logvar))
     return (x - y[:, :, 1]) / scale, logvar, (mean0, var0, mean1, var1)
@@ -198,12 +269,15 @@ def _coupling_args(ws, ab, c):
     return [w[:, c] for w in ws] + [abc[:, :, 0], abc[:, :, 1]]
 
 
-def train_decode_fwd_plain(packed, ab, p):
+def train_decode_fwd_plain(packed, ab, p, mode=None):
     """Plain PyTorch version of kernel 7: p (K, B, 3, N) through all C
     couplings in inverse order with train-mode BatchNorm. Returns
     (p0, logvar_sum, xsave (K, C, B, 3, N) = each coupling's input,
     stats (K, C, 4, 2f)). Inside a process group (parallel/dist.py), p is
-    this rank's shard and the statistics are over the global batch."""
+    this rank's shard and the statistics are over the global batch.
+    `mode`: the matmul precision, 'highest' or 'fast' (the current mode
+    for None)."""
+    mode = precision.require_training_mode("train_decode_fwd_plain", mode)
     ws = [packed[k] for k in _KERNEL_KEYS]
     K, C = ws[3].shape[:2]
     f = ws[3].shape[-1]
@@ -213,23 +287,32 @@ def train_decode_fwd_plain(packed, ab, p):
     stats = p.new_empty(K, C, 4, 2 * f)
     for c in reversed(range(C)):
         xsave[:, c] = x
-        x, logvar, st = _coupling_train(x, *_coupling_args(ws, ab, c))
+        x, logvar, st = _coupling_train(x, *_coupling_args(ws, ab, c), mode)
         lv = lv + logvar
         stats[:, c] = torch.stack([s.reshape(K, 2 * f) for s in st], 1)
     return x, lv, xsave, stats
 
 
-def train_decode_bwd_plain(packed, ab, xsave, stats, dp0, dlv):
+def train_decode_bwd_plain(packed, ab, xsave, stats, dp0, dlv, mode=None):
     """Plain PyTorch version of kernel 8: the gradients of
     sum(p0 * dp0) + sum(lv * dlv) with respect to p, the packed arrays
-    and ab. Recomputes one coupling at a time from its saved input
-    `xsave[:, c]` under autograd, its batch statistics recomputed from
-    that input (so the BatchNorm batch-statistic terms are exact), in
-    direct order; `stats` is not read. Returns (dp, d_packed (the six
-    kernel arrays), dab). Inside a process group, the statistics are over
-    the global batch (their cotangents summed over the ranks by
-    `dist.sum_over_ranks`'s backward) and d_packed holds this rank's share
-    of the gradients, which the optimizer sums over the ranks."""
+    and ab. Returns (dp, d_packed (the six kernel arrays), dab). Inside a
+    process group, the statistics are over the global batch and d_packed
+    holds this rank's share of the gradients, which the optimizer sums
+    over the ranks.
+
+    At 'highest' it recomputes one coupling at a time from its saved
+    input `xsave[:, c]` under autograd, its batch statistics recomputed
+    from that input (so the BatchNorm batch-statistic terms are exact),
+    in direct order; `stats` is not read (their cotangents are summed
+    over the ranks by `dist.sum_over_ranks`'s backward).
+
+    At 'fast' (`mode`, the current mode for None) that would not be the
+    function the kernel computes, which reads the forward's saved
+    statistics: it runs train_kernel.py's three passes (`_bwd_fast`)."""
+    mode = precision.require_training_mode("train_decode_bwd_plain", mode)
+    if mode == "fast":
+        return _bwd_fast(packed, ab, xsave, stats, dp0, dlv)
     ws = [packed[k].detach() for k in _KERNEL_KEYS]
     ab = ab.detach()
     K, B, C = ab.shape[:3]
@@ -252,6 +335,79 @@ def train_decode_bwd_plain(packed, ab, xsave, stats, dp0, dlv):
         for k, g in zip(_KERNEL_KEYS, got[1:-1]):
             grads[k][:, c] = g
         dab[:, :, c] = got[-1]
+    return dx, grads, dab
+
+
+@torch.no_grad()
+def _bwd_fast(packed, ab, xsave, stats, dp0, dlv):
+    """Kernel 8's 'fast' function as train_kernel.py's `_make_bwd_kernel`
+    forms it (passes A, B and C over all points at once), the products
+    through `mxdot` at 'fast': per coupling in direct order, the forward
+    replayed to y on the saved statistics, the head's cotangents, the
+    textbook BatchNorm backward (dx = inv (dy - mean dy - xhat mean(dy
+    xhat))) with the means of its two sums over the global batch, the
+    weight gradients of this rank's points. n1 stays fp32 where the TPU
+    kernel keeps a bf16 copy of it for passes B and C (its VMEM cannot
+    hold three fp32 caches); the kernel here keeps fp32 too, and the
+    tests' tolerances against the JAX kernel take in that difference."""
+    mode = "fast"
+    ws = [packed[k].detach() for k in _KERNEL_KEYS]
+    ab = ab.detach()
+    K, B, C = ab.shape[:3]
+    f = ws[3].shape[-1]
+    n = B * xsave.shape[-1] * dist.world_size()
+    dx = dp0
+    grads = {k: torch.zeros_like(w) for k, w in zip(_KERNEL_KEYS, ws)}
+    dab = torch.zeros_like(ab)
+    for c in range(C):
+        x = xsave[:, c]
+        w0, s0, b0, w1, w2, b2, fw, fb = _coupling_args(ws, ab, c)
+        st = stats[:, c].reshape(K, 4, 2, f)
+        mean0, mean1 = _col(st[:, 0]), _col(st[:, 2])
+        inv0 = _col(torch.rsqrt(st[:, 1] + BN_EPS))
+        inv1 = _col(torch.rsqrt(st[:, 3] + BN_EPS))
+        fw, fb = fw[..., None], fb[..., None]
+        # pass A: the forward replayed, the head chain and its cotangents
+        h0 = mxdot(w0[:, None], x[:, :, None], mode)   # (K, B, 2, f, N)
+        n0 = (h0 - mean0) * inv0
+        a = F.relu(n0 * _col(s0) + _col(b0))
+        n1 = (mxdot(w1[:, None], a, mode) - mean1) * inv1
+        z = fw * n1 + fb
+        fz = F.relu(z)
+        y = mxdot(w2[:, None], fz, mode) + b2[:, None, :, :, None]
+        ylv, ymu = y[:, :, 0], y[:, :, 1]              # (K, B, 3, N)
+        logvar = F.softsign(ylv)
+        scale = torch.sqrt(EPS + torch.exp(logvar))
+        xout = (x - ymu) / scale
+        ds = -dx * xout / scale
+        dlogvar = dlv + ds * torch.exp(logvar) / (2.0 * scale)
+        sg = 1.0 + ylv.abs()
+        dy = torch.stack([dlogvar / (sg * sg), -dx / scale], 2)
+        dfz = mxdot(w2.transpose(-1, -2)[:, None], dy, mode)
+        dz = torch.where(z > 0.0, dfz, 0.0)
+        dn1 = dz * fw
+        dab[:, :, c] = torch.stack([(dz * n1).sum(-1).flatten(-2),
+                                    dz.sum(-1).flatten(-2)], 2)
+        grads["w2"][:, c] = mxdot(dy, fz.transpose(-1, -2), mode).sum(1)
+        grads["b2"][:, c] = dy.sum((1, 4))
+        m1 = dist.sum_over_ranks(torch.stack(
+            [dn1.sum((1, 4)), (dn1 * n1).sum((1, 4))])) / n
+        # pass B: BN1's backward, dW1, BN0's sums
+        dh2 = inv1 * (dn1 - _col(m1[0]) - n1 * _col(m1[1]))
+        grads["w1"][:, c] = mxdot(dh2, a.transpose(-1, -2), mode).sum(1)
+        da = mxdot(w1.transpose(-1, -2)[:, None], dh2, mode)
+        dabn = torch.where(a > 0.0, da, 0.0)
+        grads["bn0_scale"][:, c] = (dabn * n0).sum((1, 4))
+        grads["bn0_bias"][:, c] = dabn.sum((1, 4))
+        dn0 = dabn * _col(s0)
+        m0 = dist.sum_over_ranks(torch.stack(
+            [dn0.sum((1, 4)), (dn0 * n0).sum((1, 4))])) / n
+        # pass C: BN0's backward, dW0, the input cotangent
+        dh0 = inv0 * (dn0 - _col(m0[0]) - n0 * _col(m0[1]))
+        grads["w0"][:, c] = mxdot(dh0, x[:, :, None].transpose(-1, -2),
+                                  mode).sum(1)
+        dx = dx / scale + mxdot(w0.transpose(-1, -2)[:, None], dh0,
+                                mode).sum(2)
     return dx, grads, dab
 
 
@@ -285,41 +441,51 @@ def _check(packed, ab, p, what):
     return K, B, C, N, f
 
 
-def train_decode_fwd(packed, ab, p):
+def train_decode_fwd(packed, ab, p, mode=None):
     """Kernel 7 on a CUDA tensor, its plain version on a CPU tensor.
     Returns (p0, logvar_sum, xsave, stats) as train_decode_fwd_plain.
-    Inside a process group of several ranks (parallel/dist.py), p is this
-    rank's shard and the statistics are over the global batch: the kernel
-    runs in its SPMD form, stage by stage (`_spmd_fwd`); in one process,
-    in one C call."""
+    `mode`: the matmul precision, 'highest' or 'fast' (the current mode
+    for None), which picks the kernel's instantiation. Inside a process
+    group of several ranks (parallel/dist.py), p is this rank's shard and
+    the statistics are over the global batch: the kernel runs in its SPMD
+    form, stage by stage (`_spmd_fwd`); in one process, in one C call."""
+    mode = precision.require_training_mode("train_decode_fwd", mode)
     if p.device.type == "cpu":
-        return train_decode_fwd_plain(packed, ab, p)
+        return train_decode_fwd_plain(packed, ab, p, mode)
     K, B, C, N, f = _check(packed, ab, p, "train_decode_fwd")
+    kw = kernel_weights_train(packed, mode)
     p0 = torch.empty_like(p)
     lv = torch.empty_like(p)
     xsave = p.new_empty(K, C, B, 3, N)
     stats = p.new_empty(K, C, 4, 2 * f)
     lib = build.library()
     work = p.new_empty(lib.gwtf_train_decode_workspace(0, K, B, C, N, f))
-    args = [p] + [packed[k] for k in _KERNEL_KEYS] + [ab, p0, lv, xsave,
-                                                     stats, work]
+    # the statistics read the fp32 W0; the products W1 and W2 of the mode
+    ws = [packed["w0"], packed["bn0_scale"], packed["bn0_bias"], kw["w1"],
+          kw["w2"], packed["b2"]]
+    args = [p] + ws + [ab, p0, lv, xsave, stats, work]
     stream = build.stream_handle(p.device)
+    code_mode = KERNEL_MODES[mode]
     with torch.cuda.device(p.device):
         if dist.active():
             _drive(_spmd_fwd(lib, args, (K, B, C, N, f),
-                             dist.world_size() * B * N, stream))
+                             dist.world_size() * B * N, stream, code_mode))
             train_decode_fwd.spmd_launches += 1
         else:
             code = lib.gwtf_train_decode_fwd(
-                *(t.data_ptr() for t in args), K, B, C, N, f, stream)
+                *(t.data_ptr() for t in args), K, B, C, N, f, code_mode,
+                stream)
             build.check(lib, code, "train_decode_fwd")
     train_decode_fwd.launches += 1
+    train_decode_fwd.launches_by_mode[mode] += 1
     return p0, lv, xsave, stats
 
 
-# launches, and of them those in the SPMD form
+# launches, of them those in the SPMD form, and by precision mode
 train_decode_fwd.launches = 0
 train_decode_fwd.spmd_launches = 0
+train_decode_fwd.launches_by_mode = dict.fromkeys(precision.TRAINING_MODES,
+                                                  0)
 
 
 def _drive(stages) -> None:
@@ -334,13 +500,14 @@ def _drive(stages) -> None:
         pass
 
 
-def _spmd_fwd(lib, args, dims, n, stream):
+def _spmd_fwd(lib, args, dims, n, stream, mode=0):
     """Kernel 7's SPMD form as a generator over its exchange points:
     `args` the tensors of gwtf_train_decode_fwd in order, `dims` (K, B, C,
     N, f) of this rank's shard, `n` the points of a component over all
-    the ranks. It yields this rank's partial sums, (K, 9) moments or
-    (K, 4f) h2 sums in float64, and is sent back their sum over the ranks;
-    the stages are queued on `stream`."""
+    the ranks, `mode` the kernel's (KERNEL_MODES). It yields this rank's
+    partial sums, (K, 9) moments or (K, 4f) h2 sums in float64, and is
+    sent back their sum over the ranks; the stages are queued on
+    `stream`."""
     K, B, C, N, f = dims
     ptrs = [t.data_ptr() for t in args]
     device = args[0].device
@@ -351,7 +518,7 @@ def _spmd_fwd(lib, args, dims, n, stream):
         code = lib.gwtf_train_decode_fwd_stage(
             which, c, float(n), *ptrs,
             None if sums_in is None else sums_in.data_ptr(),
-            sums_out.data_ptr(), K, B, C, N, f, stream)
+            sums_out.data_ptr(), K, B, C, N, f, mode, stream)
         build.check(lib, code, f"train_decode_fwd stage {which}")
 
     stage(0, 0, None, mom)
@@ -364,7 +531,7 @@ def _spmd_fwd(lib, args, dims, n, stream):
             glob = yield mom
 
 
-def _spmd_bwd(lib, args, dims, n, stream):
+def _spmd_bwd(lib, args, dims, n, stream, mode=0):
     """Kernel 8's SPMD form as a generator over its exchange points, as
     `_spmd_fwd`: `args` the tensors of gwtf_train_decode_bwd in order (its
     workspace gwtf_train_decode_workspace(2, ...) floats). Per coupling it
@@ -382,7 +549,7 @@ def _spmd_bwd(lib, args, dims, n, stream):
             which, c, float(n), *ptrs,
             None if sums_in is None else sums_in.data_ptr(),
             None if sums_out is None else sums_out.data_ptr(),
-            K, B, C, N, f, stream)
+            K, B, C, N, f, mode, stream)
         build.check(lib, code, f"train_decode_bwd stage {which}")
 
     stage(0, 0, None, None)
@@ -394,12 +561,15 @@ def _spmd_bwd(lib, args, dims, n, stream):
         stage(3, c, glob, None)
 
 
-def train_decode_bwd(packed, ab, xsave, stats, dp0, dlv):
+def train_decode_bwd(packed, ab, xsave, stats, dp0, dlv, mode=None):
     """Kernel 8 on a CUDA tensor, its plain version on a CPU tensor.
-    Returns (dp, d_packed, dab) as train_decode_bwd_plain; inside a
-    process group of several ranks, in its SPMD form (`_spmd_bwd`)."""
+    Returns (dp, d_packed, dab) as train_decode_bwd_plain, in `mode` as
+    train_decode_fwd; inside a process group of several ranks, in its
+    SPMD form (`_spmd_bwd`)."""
+    mode = precision.require_training_mode("train_decode_bwd", mode)
     if dp0.device.type == "cpu":
-        return train_decode_bwd_plain(packed, ab, xsave, stats, dp0, dlv)
+        return train_decode_bwd_plain(packed, ab, xsave, stats, dp0, dlv,
+                                      mode)
     K, B, C, N, f = _check(packed, ab, dp0, "train_decode_bwd")
     for t, shape in ((xsave, (K, C, B, 3, N)), (stats, (K, C, 4, 2 * f)),
                      (dlv, (K, B, 3, N))):
@@ -407,7 +577,9 @@ def train_decode_bwd(packed, ab, xsave, stats, dp0, dlv):
             raise ValueError(f"train_decode_bwd: shape {tuple(t.shape)}, "
                              f"expected {shape}")
     build.check_tensors([xsave, stats, dlv], dp0.device)
-    ws = [packed[k] for k in _KERNEL_KEYS]
+    kw = kernel_weights_train(packed, mode)
+    ws = [kw["w0"], packed["bn0_scale"], packed["bn0_bias"], kw["w1"],
+          kw["w2"], packed["b2"]]
     dp = torch.empty_like(dp0)
     grads = {k: torch.empty_like(w) for k, w in zip(_KERNEL_KEYS, ws)}
     dab = torch.empty_like(ab)
@@ -418,29 +590,37 @@ def train_decode_bwd(packed, ab, xsave, stats, dp0, dlv):
     args = ([xsave, stats] + ws + [ab, dp0, dlv, dp]
             + [grads[k] for k in _KERNEL_KEYS] + [dab, work])
     stream = build.stream_handle(dp0.device)
+    code_mode = KERNEL_MODES[mode]
     with torch.cuda.device(dp0.device):
         if spmd:
             _drive(_spmd_bwd(lib, args, (K, B, C, N, f),
-                             dist.world_size() * B * N, stream))
+                             dist.world_size() * B * N, stream, code_mode))
             train_decode_bwd.spmd_launches += 1
         else:
             code = lib.gwtf_train_decode_bwd(
-                *(t.data_ptr() for t in args), K, B, C, N, f, stream)
+                *(t.data_ptr() for t in args), K, B, C, N, f, code_mode,
+                stream)
             build.check(lib, code, "train_decode_bwd")
     train_decode_bwd.launches += 1
+    train_decode_bwd.launches_by_mode[mode] += 1
     return dp, grads, dab
 
 
 train_decode_bwd.launches = 0
 train_decode_bwd.spmd_launches = 0
+train_decode_bwd.launches_by_mode = dict.fromkeys(precision.TRAINING_MODES,
+                                                  0)
 
 
 class _FusedTrainDecode(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, w0, s0, b0, w1, w2, b2, ab, p):
+    def forward(ctx, mode, w0, s0, b0, w1, w2, b2, ab, p):
         packed = dict(zip(_KERNEL_KEYS, (w0, s0, b0, w1, w2, b2)))
-        p0, lv, xsave, stats = train_decode_fwd(packed, ab, p)
+        p0, lv, xsave, stats = train_decode_fwd(packed, ab, p, mode)
         ctx.save_for_backward(w0, s0, b0, w1, w2, b2, ab, xsave, stats)
+        # the weights of the mode, made once by the forward
+        ctx.packed = {k: packed[k] for k in packed if k.endswith("_fast")}
+        ctx.mode = mode
         ctx.mark_non_differentiable(stats)
         return p0, lv, stats
 
@@ -450,9 +630,10 @@ class _FusedTrainDecode(torch.autograd.Function):
         ref = xsave[:, 0]
         dp0 = torch.zeros_like(ref) if dp0 is None else dp0.contiguous()
         dlv = torch.zeros_like(ref) if dlv is None else dlv.contiguous()
-        packed = dict(zip(_KERNEL_KEYS, ws))
-        dp, grads, dab = train_decode_bwd(packed, ab, xsave, stats, dp0, dlv)
-        return (*(grads[k] for k in _KERNEL_KEYS), dab, dp)
+        packed = dict(zip(_KERNEL_KEYS, ws), **ctx.packed)
+        dp, grads, dab = train_decode_bwd(packed, ab, xsave, stats, dp0, dlv,
+                                          ctx.mode)
+        return (None, *(grads[k] for k in _KERNEL_KEYS), dab, dp)
 
 
 def fused_train_decode(packed: Dict[str, torch.Tensor], ab: torch.Tensor,
@@ -463,8 +644,9 @@ def fused_train_decode(packed: Dict[str, torch.Tensor], ab: torch.Tensor,
     tensors; the plain versions on CPU tensors. Differentiable in the
     packed kernel arrays, ab and p; stats is not. Inside a process group
     (parallel/dist.py), p is this rank's shard of the global batch, whose
-    BatchNorm statistics both directions use. Runs at matmul precision
-    'highest' only (ops/precision.py), and raises under another mode."""
-    precision.require_highest("fused_train_decode")
+    BatchNorm statistics both directions use. Runs in the current matmul
+    precision mode (ops/precision.py), which its backward keeps: 'highest'
+    or 'fast'; it raises under 'high'."""
+    mode = precision.require_training_mode("fused_train_decode", None)
     return _FusedTrainDecode.apply(
-        *(packed[k] for k in _KERNEL_KEYS), ab, p)
+        mode, *(packed[k] for k in _KERNEL_KEYS), ab, p)

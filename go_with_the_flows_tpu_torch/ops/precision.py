@@ -19,11 +19,19 @@ switches that decide whether fp32 products keep their digits (cuDNN
 convolutions default to TF32) stay at fp32 in every mode.
 
 The mode covers the model's own products (ops/layers.SharedDot and
-Linear, the ResNet's convolutions and fc) and kernel 1, the eval decode
-(ops/kernels/point_decode.py). The metric ops stay fp32 in every mode,
-and so do film_alpha_beta and the FiLM affines. A step reads the mode
-when it is built and keeps it (train/step.py), as a JAX step keeps the
-mode it was traced with.
+Linear, the ResNet's convolutions and fc), kernel 1, the eval decode
+(ops/kernels/point_decode.py), and kernels 7 and 8, the train-mode
+decode and its backward (ops/kernels/train_decode.py). The metric ops
+stay fp32 in every mode, and so do film_alpha_beta, film_ab_train and
+the FiLM affines. A step reads the mode when it is built and keeps it
+(train/step.py), as a JAX step keeps the mode it was traced with.
+
+Gradients keep the mode: `mxdot`'s backward forms dA = dY B^T and
+dB = A^T dY as products of the same mode, from the cotangent and the
+operands each rounded (or split) anew, JAX's transpose of a dot_general
+with its `precision` carried along; a gradient's result is never
+rounded. Training runs at 'highest' and 'fast'; 'high' waits for kernels
+7 and 8 in that mode (`require_training_mode`).
 """
 
 from __future__ import annotations
@@ -77,17 +85,21 @@ def matmul_precision_scope(mode: str) -> Iterator[None]:
         set_matmul_precision(prev)
 
 
-def require_highest(what: str, mode: Optional[str] = None) -> None:
-    """Raise unless `mode` (the current mode for None) is 'highest': the
-    training path (kernels 7 and 8, csrc/train_decode.cu) has only its
-    fp32 arithmetic so far."""
+TRAINING_MODES = ("highest", "fast")
+
+
+def require_training_mode(what: str, mode: Optional[str] = None) -> str:
+    """`mode` (the current mode for None) by its canonical name, if the
+    training path takes it: 'highest' or 'fast' ('default'). Raises on
+    'high', which kernels 7 and 8 (csrc/train_decode.cu) do not have
+    yet."""
     mode = resolve(mode)
-    if mode != "highest":
+    if mode not in TRAINING_MODES:
         raise ValueError(
             f"{what}: matmul precision {mode!r}: training runs at 'highest' "
-            "only; the 'high' and 'fast' training modes wait for kernels 7 "
-            "and 8 in those modes (csrc/train_decode.cu), the next slice of "
-            "the port")
+            "and 'fast'; 'high' training waits for kernels 7 and 8 in that "
+            "mode (csrc/train_decode.cu), the next slice of the port")
+    return mode
 
 
 def resolve(mode: Optional[str]) -> str:
@@ -111,19 +123,49 @@ def bf16_split(x: torch.Tensor):
     return hi, bf16_round(x - hi)
 
 
-def mxdot(a: torch.Tensor, b: torch.Tensor,
-          mode: Optional[str] = None) -> torch.Tensor:
-    """torch.matmul(a, b) in a precision mode (the current one for None);
-    the counterpart of the TPU kernels' `_mxdot`."""
-    mode = resolve(mode)
+def _product(a: torch.Tensor, b: torch.Tensor, mode: str) -> torch.Tensor:
     if mode == "fast":
         return torch.matmul(bf16_round(a), bf16_round(b))
-    if mode == "high":
-        a_hi, a_lo = bf16_split(a)
-        b_hi, b_lo = bf16_split(b)
-        return (torch.matmul(a_hi, b_hi) + torch.matmul(a_hi, b_lo)
-                + torch.matmul(a_lo, b_hi))
-    return torch.matmul(a, b)
+    a_hi, a_lo = bf16_split(a)
+    b_hi, b_lo = bf16_split(b)
+    return (torch.matmul(a_hi, b_hi) + torch.matmul(a_hi, b_lo)
+            + torch.matmul(a_lo, b_hi))
+
+
+class _ModeDot(torch.autograd.Function):
+    """a @ b at 'high' or 'fast', each gradient a product of the same
+    mode: dA = mxdot(dY, B^T), dB = mxdot(A^T, dY), summed over the
+    dimensions the product broadcast."""
+
+    @staticmethod
+    def forward(ctx, a, b, mode):
+        ctx.save_for_backward(a, b)
+        ctx.mode = mode
+        return _product(a, b, mode)
+
+    @staticmethod
+    def backward(ctx, dy):
+        a, b = ctx.saved_tensors
+        da = db = None
+        if ctx.needs_input_grad[0]:
+            da = mxdot(dy, b.transpose(-1, -2), ctx.mode).sum_to_size(
+                a.shape)
+        if ctx.needs_input_grad[1]:
+            db = mxdot(a.transpose(-1, -2), dy, ctx.mode).sum_to_size(
+                b.shape)
+        return da, db, None
+
+
+def mxdot(a: torch.Tensor, b: torch.Tensor,
+          mode: Optional[str] = None) -> torch.Tensor:
+    """torch.matmul(a, b) of operands of at least two dimensions in a
+    precision mode (the current one for None); the counterpart of the TPU
+    kernels' `_mxdot`. Its gradients are products of the same mode (at
+    'highest' torch.matmul's own)."""
+    mode = resolve(mode)
+    if mode == "highest":
+        return torch.matmul(a, b)
+    return _ModeDot.apply(a, b, mode)
 
 
 set_matmul_precision("highest")

@@ -91,7 +91,7 @@ def train(model_kwargs: Dict, n_points: int, steps: int, b: int,
         print(f"# loaded trained state from {state_cache}")
         return model
     print("# trains at 'highest' (the JAX tool at 'high'): the port's "
-          "training path has no 'high' or 'fast' mode yet")
+          "training path has no 'high' mode yet")
     opt = make_optimizer(list(model.parameters()), epoch_length=steps,
                          cycle_length=4, min_lr=2e-4, max_lr=5e-4,
                          beta1=0.9, min_beta2=0.99, max_beta2=0.99, wd=1e-6)

@@ -14,7 +14,8 @@ PyTorch has no trace, so each step reads the matmul precision mode
 (ops/precision.py) when it is built and runs every call inside
 `matmul_precision_scope` of that mode: a step keeps the mode it was built
 under, whatever the mode is when it is called, as a JAX step keeps the
-mode it was traced with. The training step takes 'highest' only.
+mode it was traced with. The training step takes 'highest' and 'fast'
+(kernels 7 and 8 have no 'high' yet).
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ import torch
 
 from ..losses import flow_mixture_loss
 from ..ops.precision import (get_matmul_precision, matmul_precision_scope,
-                             require_highest)
+                             require_training_mode)
 from ..parallel import dist
 
 
@@ -107,11 +108,12 @@ def make_train_step(model, optimizer, pnll_weight: float = 1.0,
     rank's rows), the gradient of its mean loss, the same optimizer step
     on every rank, and the metrics its means.
 
-    Built at matmul precision 'highest' only (ValueError under another
-    mode: the training modes wait for kernels 7 and 8 in them); each call
-    runs at 'highest'.
+    The matmul precision mode current at build time holds for every call:
+    'highest' or 'fast' (kernels 7 and 8, or the modules, in that mode;
+    the gradients keep it); 'high' raises ValueError (kernels 7 and 8
+    have no 'high' yet).
     """
-    require_highest("make_train_step")
+    precision_mode = require_training_mode("make_train_step")
 
     def train_step(g_clouds: torch.Tensor, p_clouds: torch.Tensor,
                    generator: Optional[torch.Generator] = None,
@@ -128,7 +130,7 @@ def make_train_step(model, optimizer, pnll_weight: float = 1.0,
                                               posterior_eps)
         model.train()
         optimizer.zero_grad(set_to_none=True)
-        with matmul_precision_scope("highest"):
+        with matmul_precision_scope(precision_mode):
             out = _encode_training(model, g_clouds, svr, images,
                                    posterior_eps)
             out.update(model.decode_training(p_clouds, out["g_sample"],

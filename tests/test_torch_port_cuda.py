@@ -404,3 +404,91 @@ def test_train_decode_rejects_what_it_does_not_take(device):
     _, _, xsave, stats = train_decode_fwd(packed, ab, p)
     with pytest.raises(ValueError, match="shape"):
         train_decode_bwd(packed, ab, xsave[:, 1:], stats, p, p)
+
+
+def _effect_gap(got, got_hi, want, want_hi):
+    effect = want - want_hi
+    return ((got - got_hi - effect).square().mean()
+            / effect.square().mean()).sqrt().item()
+
+
+def _rel_norm(got, want):
+    return ((got - want).norm() / want.norm()).item()
+
+
+@pytest.mark.parametrize("f,B,N", [(8, 3, 333), (37, 4, 700), (64, 2, 129)])
+def test_train_decode_fast_kernels(device, f, B, N):
+    """Kernels 7 and 8 at 'fast' against their 'fast' plain versions, with
+    chip_smoke.py's bounds (check_train_decode_fast): two sum orders can
+    put an operand on either side of a bf16 rounding boundary, where it
+    moves a bf16 step, and the couplings carry that on. p0, the logvar
+    sum and the saved states within 5e-2 and 1e-2 in norm, the statistics
+    rtol 1e-3 (atol 1e-4); kernel 8 and its plain version on kernel 7's
+    residuals: dp within 1e-2 in norm, every gradient within 3e-2 of its
+    own largest entry; the mode's effect on p0 and dW1 within 0.5 of the
+    plain version's in rms, each version's 'highest' on its own
+    residuals; two launches bit-equal; the launches counted under
+    'fast'."""
+    packed, ab, p = _train_decode_inputs(device, f, B, N, f + 2)
+    gen = torch.Generator(device=device).manual_seed(f)
+    dp0 = torch.randn(p.shape, device=device, generator=gen)
+    dlv = torch.randn(p.shape, device=device, generator=gen)
+    fast = (train_decode_fwd.launches_by_mode["fast"],
+            train_decode_bwd.launches_by_mode["fast"])
+    out = {}
+    for mode in ("highest", "fast"):
+        got = train_decode_fwd(packed, ab, p, mode)
+        want = train_decode_fwd_plain(packed, ab, p, mode)
+        kb = train_decode_bwd(packed, ab, *got[2:], dp0, dlv, mode)
+        pb = train_decode_bwd_plain(packed, ab, *want[2:], dp0, dlv, mode)
+        out[mode] = (got, want, kb, pb)
+    got, want, kb, pb = out["fast"]
+    for a, b in zip(got[:3], want[:3]):
+        torch.testing.assert_close(a, b, rtol=0, atol=5e-2)
+        assert _rel_norm(a, b) <= 1e-2
+    torch.testing.assert_close(got[3], want[3], rtol=1e-3, atol=1e-4)
+    hg, hw, hkb, hpb = out["highest"]
+    assert _effect_gap(got[0], hg[0], want[0], hw[0]) <= 0.5
+    assert _effect_gap(kb[1]["w1"], hkb[1]["w1"], pb[1]["w1"],
+                       hpb[1]["w1"]) <= 0.5
+    same = train_decode_bwd_plain(packed, ab, *got[2:], dp0, dlv, "fast")
+    assert _rel_norm(kb[0], same[0]) <= 1e-2
+    for k, w in same[1].items():
+        assert _rel_err(kb[1][k], w) < 3e-2, k
+    assert _rel_err(kb[2], same[2]) < 3e-2
+    again = train_decode_fwd(packed, ab, p, "fast")
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    again = train_decode_bwd(packed, ab, *got[2:], dp0, dlv, "fast")
+    assert torch.equal(kb[0], again[0])
+    assert (train_decode_fwd.launches_by_mode["fast"] - fast[0],
+            train_decode_bwd.launches_by_mode["fast"] - fast[1]) == (2, 2)
+
+
+def test_train_step_fast_runs_through_the_kernels(device):
+    """A make_train_step step built at 'fast' launches kernels 7 and 8 in
+    that mode, whatever mode is current when it is called, and gives
+    finite metrics that differ from the 'highest' step's."""
+    import copy
+
+    config = dict(n_components=2, g_latent_space_size=12, g_prior_n_flows=2,
+                  g_prior_n_features=8, p_decoder_n_flows=2,
+                  p_decoder_n_features=8, pc_enc_init_n_features=8,
+                  pc_enc_n_features=(8, 16))
+    hp = dict(epoch_length=10, cycle_length=2, min_lr=1e-4, max_lr=1e-4,
+              beta1=0.9, min_beta2=0.99, max_beta2=0.99, wd=1e-6)
+    base = FlowMixtureModel(**config,
+                            generator=torch.Generator().manual_seed(7))
+    gen = torch.Generator(device=device).manual_seed(9)
+    clouds = 0.3 * torch.randn(4, 3, 300, device=device, generator=gen)
+    eps = torch.randn(4, 12, device=device, generator=gen)
+    losses = {}
+    for mode in ("highest", "fast"):
+        model = copy.deepcopy(base).to(device)
+        with matmul_precision_scope(mode):
+            step = make_train_step(model, make_optimizer(
+                list(model.parameters()), **hp))
+        before = dict(train_decode_fwd.launches_by_mode)
+        losses[mode] = float(step(clouds, clouds, posterior_eps=eps)["loss"])
+        assert train_decode_fwd.launches_by_mode[mode] == before[mode] + 1
+    assert all(torch.isfinite(torch.tensor(v)) for v in losses.values())
+    assert losses["fast"] != losses["highest"]

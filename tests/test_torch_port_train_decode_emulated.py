@@ -17,7 +17,13 @@ the GPU's, not the algorithm.
 The SPMD form (the per-stage entries and the wrapper's host loops,
 `_spmd_fwd` and `_spmd_bwd`) runs as two shards of one batch in this
 process, in lockstep, their exchange a plain sum of the two shards'
-partial sums, against the single entry on the whole batch."""
+partial sums, against the single entry on the whole batch.
+
+The 'fast' instantiations (MODE 2: bf16-rounded operands, fp32 sums; the
+weights rounded by `kernel_weights_train`) run against the 'fast' plain
+versions at f=5 and f=33, with the mode in force (their effect against
+the plain versions'), and in their SPMD form against the single entries;
+the entry points take the mode before the stream."""
 
 import ctypes
 import os
@@ -34,6 +40,7 @@ from go_with_the_flows_tpu_torch.ops.kernels.train_decode import (
     _spmd_bwd,
     _spmd_fwd,
     film_ab_train,
+    kernel_weights_train,
     pack_point_decoder_train,
     train_decode_bwd_plain,
     train_decode_fwd_plain,
@@ -58,8 +65,8 @@ def _emulated_source(text: str) -> str:
         return (f"emu_launch(emu_dim({grid}), emu_dim({block}), {smem}, "
                 f"{stream}, [&] {{ {m.group(1)}({m.group(3)}); }});")
 
-    text = re.sub(r"([\w:]+(?:<FP>)?)<<<(.*?)>>>\((.*?)\);", launch, text,
-                  flags=re.S)
+    text = re.sub(r"([\w:]+(?:<[\w, ]+>)?)<<<(.*?)>>>\((.*?)\);", launch,
+                  text, flags=re.S)
     if "<<<" in text:
         raise AssertionError("a launch the emulation does not rewrite")
     return text
@@ -83,8 +90,8 @@ def lib(tmp_path_factory):
                            f"{built.stderr[-4000:]}")
     lib = ctypes.CDLL(str(so))
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.gwtf_train_decode_fwd.argtypes = [P] * 13 + [I] * 5 + [P]
-    lib.gwtf_train_decode_bwd.argtypes = [P] * 20 + [I] * 5 + [P]
+    lib.gwtf_train_decode_fwd.argtypes = [P] * 13 + [I] * 6 + [P]
+    lib.gwtf_train_decode_bwd.argtypes = [P] * 20 + [I] * 6 + [P]
     for fn in (lib.gwtf_train_decode_fwd, lib.gwtf_train_decode_bwd):
         fn.restype = ctypes.c_int
     lib.gwtf_train_decode_workspace.argtypes = [I] * 6
@@ -144,7 +151,7 @@ def test_emulated_train_decode_fwd(lib, f, B, N):
                           float("nan"))
         args = [p] + [packed[k] for k in _KERNEL_KEYS] + [ab] + got + [work]
         assert lib.gwtf_train_decode_fwd(*(t.data_ptr() for t in args), K, B,
-                                         C, N, f, None) == 0
+                                         C, N, f, 0, None) == 0
         return got
 
     got = run()
@@ -177,7 +184,7 @@ def test_emulated_train_decode_bwd(lib, f, B, N):
                           float("nan"))
         args = [xsave, stats] + ws + [ab, dp0, dlv] + out + [work]
         assert lib.gwtf_train_decode_bwd(*(t.data_ptr() for t in args), K, B,
-                                         C, N, f, None) == 0
+                                         C, N, f, 0, None) == 0
         return out
 
     got = run()
@@ -242,7 +249,7 @@ def test_emulated_train_decode_spmd(lib, f, B, N):
                       float("nan"))
     args = [p] + ws + [ab] + whole + [work]
     assert lib.gwtf_train_decode_fwd(*(t.data_ptr() for t in args), K, B, C,
-                                     N, f, None) == 0
+                                     N, f, 0, None) == 0
 
     fwd, gens = [], []
     for ps, abs_ in zip(_shards(p, 1, B), _shards(ab, 1, B)):
@@ -275,7 +282,7 @@ def test_emulated_train_decode_spmd(lib, f, B, N):
                       float("nan"))
     args = [xsave, stats] + ws + [ab, dp0, dlv] + want + [work]
     assert lib.gwtf_train_decode_bwd(*(t.data_ptr() for t in args), K, B, C,
-                                     N, f, None) == 0
+                                     N, f, 0, None) == 0
 
     bwd, gens = [], []
     for xs, abs_, d0, dl in zip(_shards(xsave, 2, B), _shards(ab, 1, B),
@@ -298,3 +305,170 @@ def test_emulated_train_decode_spmd(lib, f, B, N):
     assert _rel_err(torch.cat([o[0] for o in bwd], 1), dp) < 1e-3
     for i, k in enumerate(_KERNEL_KEYS, 1):
         assert _rel_err(bwd[0][i] + bwd[1][i], grads[k]) < 3e-2, k
+
+
+# ------------------------------------------------------------------ #
+# 'fast' (MODE 2)                                                     #
+# ------------------------------------------------------------------ #
+
+FAST = 2  # the kernels' MODE for 'fast' (point_decode.KERNEL_MODES)
+
+
+def _fast_weights(packed):
+    """The packed arrays as the 'fast' kernels read them: W1 and W2
+    rounded for the forward, W0 too for the backward."""
+    kw = kernel_weights_train(dict(packed), "fast")
+    fwd = [packed["w0"], packed["bn0_scale"], packed["bn0_bias"], kw["w1"],
+           kw["w2"], packed["b2"]]
+    return fwd, [kw["w0"]] + fwd[1:]
+
+
+def _off_share(got, want, atol=1e-4):
+    return ((got - want).abs() > atol).float().mean().item()
+
+
+def _mode_gap(got, got_hi, want, want_hi):
+    effect = want - want_hi
+    return ((got - got_hi - effect).square().mean()
+            / effect.square().mean()).sqrt().item()
+
+
+@pytest.mark.parametrize("f,B,N", [(5, 2, 600), (33, 1, 600)])
+def test_emulated_train_decode_fast(lib, f, B, N):
+    """Kernels 7 and 8 at 'fast' (f=5 padded to 8, f=33 to 40, the
+    flagship's instantiation; two 512-point segments, the last ragged)
+    against their 'fast' plain versions. Kernel 7: p0, the logvar sum
+    and the saved states atol 5e-3 with at most 5e-3 of the entries beyond
+    1e-4 (two sum orders can put an operand a bf16 step apart; measured
+    at most 8.3e-4 and 1.5e-3 at f=33, B=2, N=1250), the statistics rtol
+    1e-3, atol 1e-4 (measured 1e-6); the mode's effect (the output less
+    the 'highest' kernel's) within 0.05 of the plain version's in rms
+    (measured 0.015). Kernel 8 on the plain forward's residuals of its
+    mode: dp and every packed array's and ab's gradient within 1e-3 of
+    their own largest entry (measured at most 7e-5), and the mode's
+    effect on each within 1e-2 of the plain version's, each mode on its
+    own forward's residuals (measured at most 3.8e-4; a copy of the
+    source whose B1 forms da from dh2 unrounded reads 2.2e-3 and 0.052,
+    one whose hidden pass leaves a unrounded fails the forward's bounds).
+    Two launches of each give equal bits."""
+    packed, ab, p = _inputs(f, B, N, f + 3)
+    K, C = p.shape[0], packed["w1"].shape[1]
+    fws, bws = _fast_weights(packed)
+    hws = [packed[k] for k in _KERNEL_KEYS]
+
+    def fwd(ws, mode):
+        got = [torch.empty_like(p), torch.empty_like(p),
+               p.new_empty(K, C, B, 3, N), p.new_empty(K, C, 4, 2 * f)]
+        work = torch.full((lib.gwtf_train_decode_workspace(0, K, B, C, N, f),),
+                          float("nan"))
+        args = [p] + ws + [ab] + got + [work]
+        assert lib.gwtf_train_decode_fwd(*(t.data_ptr() for t in args), K, B,
+                                         C, N, f, mode, None) == 0
+        return got
+
+    got, hi = fwd(fws, FAST), fwd(hws, 0)
+    want = train_decode_fwd_plain(packed, ab, p, "fast")
+    want_hi = train_decode_fwd_plain(packed, ab, p, "highest")
+    for i in range(3):
+        torch.testing.assert_close(got[i], want[i], rtol=0, atol=5e-3)
+        assert _off_share(got[i], want[i]) <= 5e-3
+    for i in range(2):
+        assert _mode_gap(got[i], hi[i], want[i], want_hi[i]) <= 0.05
+    torch.testing.assert_close(got[3], want[3], rtol=1e-3, atol=1e-4)
+    for a, b in zip(got, fwd(fws, FAST)):
+        assert torch.equal(a, b)
+
+    _, _, xsave, stats = want
+    gen = torch.Generator().manual_seed(f)
+    dp0 = torch.randn(p.shape, generator=gen)
+    dlv = torch.randn(p.shape, generator=gen)
+
+    def bwd(ws, mode, xsave, stats):
+        out = [torch.empty_like(dp0)] + [torch.empty_like(w) for w in ws] + [
+            torch.empty_like(ab)]
+        work = torch.full((lib.gwtf_train_decode_workspace(1, K, B, C, N, f),),
+                          float("nan"))
+        args = [xsave, stats] + ws + [ab, dp0, dlv] + out + [work]
+        assert lib.gwtf_train_decode_bwd(*(t.data_ptr() for t in args), K, B,
+                                         C, N, f, mode, None) == 0
+        return out
+
+    kb = bwd(bws, FAST, xsave, stats)
+    dp, grads, dab = train_decode_bwd_plain(packed, ab, xsave, stats, dp0,
+                                            dlv, "fast")
+    # the 'highest' effect's base: each version on its own forward's
+    # residuals
+    kb_hi = bwd(hws, 0, *hi[2:])
+    dp_hi, grads_hi, dab_hi = train_decode_bwd_plain(
+        packed, ab, *want_hi[2:], dp0, dlv, "highest")
+    plain = [dp] + [grads[k] for k in _KERNEL_KEYS] + [dab]
+    plain_hi = [dp_hi] + [grads_hi[k] for k in _KERNEL_KEYS] + [dab_hi]
+    for a, b, a_hi, b_hi in zip(kb, plain, kb_hi, plain_hi):
+        assert _rel_err(a, b) < 1e-3
+        assert _mode_gap(a, a_hi, b, b_hi) <= 1e-2
+    for a, b in zip(kb, bwd(bws, FAST, xsave, stats)):
+        assert torch.equal(a, b)
+
+
+def test_emulated_train_decode_spmd_fast(lib):
+    """Kernels 7 and 8 at 'fast' in their SPMD form on two shards (f=13,
+    B=4, N=130) against the single entries at 'fast' on the whole batch,
+    with test_emulated_train_decode_fast's bounds (the shards' sums come
+    in another order, which can move an operand a bf16 step)."""
+    f, B, N = 13, 4, 130
+    packed, ab, p = _inputs(f, B, N, f + 4)
+    K, C = p.shape[0], packed["w1"].shape[1]
+    fws, bws = _fast_weights(packed)
+    whole = [torch.empty_like(p), torch.empty_like(p),
+             p.new_empty(K, C, B, 3, N), p.new_empty(K, C, 4, 2 * f)]
+    work = torch.full((lib.gwtf_train_decode_workspace(0, K, B, C, N, f),),
+                      float("nan"))
+    args = [p] + fws + [ab] + whole + [work]
+    assert lib.gwtf_train_decode_fwd(*(t.data_ptr() for t in args), K, B, C,
+                                     N, f, FAST, None) == 0
+    fwd, gens = [], []
+    for ps, abs_ in zip(_shards(p, 1, B), _shards(ab, 1, B)):
+        b = ps.shape[1]
+        out = [torch.empty_like(ps), torch.empty_like(ps),
+               p.new_empty(K, C, b, 3, N), p.new_empty(K, C, 4, 2 * f)]
+        work = torch.full(
+            (lib.gwtf_train_decode_workspace(0, K, b, C, N, f),), float("nan"))
+        fwd.append(out)
+        gens.append(_spmd_fwd(lib, [ps] + fws + [abs_] + out + [work],
+                              (K, b, C, N, f), B * N, None, FAST))
+    _lockstep(gens)
+    for i, dim in enumerate((1, 1, 2)):
+        got = torch.cat([o[i] for o in fwd], dim)
+        torch.testing.assert_close(got, whole[i], rtol=0, atol=5e-3)
+        assert _off_share(got, whole[i]) <= 5e-3
+    for o in fwd:
+        torch.testing.assert_close(o[3], whole[3], rtol=1e-3, atol=1e-4)
+
+    _, _, xsave, stats = whole
+    gen = torch.Generator().manual_seed(f)
+    dp0 = torch.randn(p.shape, generator=gen)
+    dlv = torch.randn(p.shape, generator=gen)
+    want = [torch.empty_like(dp0)] + [torch.empty_like(w) for w in bws] + [
+        torch.empty_like(ab)]
+    work = torch.full((lib.gwtf_train_decode_workspace(1, K, B, C, N, f),),
+                      float("nan"))
+    args = [xsave, stats] + bws + [ab, dp0, dlv] + want + [work]
+    assert lib.gwtf_train_decode_bwd(*(t.data_ptr() for t in args), K, B, C,
+                                     N, f, FAST, None) == 0
+    bwd, gens = [], []
+    for xs, abs_, d0, dl in zip(_shards(xsave, 2, B), _shards(ab, 1, B),
+                                _shards(dp0, 1, B), _shards(dlv, 1, B)):
+        b = d0.shape[1]
+        out = [torch.empty_like(d0)] + [torch.full_like(w, float("nan"))
+                                        for w in bws] + [
+            torch.empty_like(abs_)]
+        work = torch.full(
+            (lib.gwtf_train_decode_workspace(2, K, b, C, N, f),), float("nan"))
+        bwd.append(out)
+        gens.append(_spmd_bwd(lib, [xs, stats] + bws + [abs_, d0, dl] + out
+                              + [work], (K, b, C, N, f), B * N, None, FAST))
+    _lockstep(gens)
+    assert _rel_err(torch.cat([o[0] for o in bwd], 1), want[0]) < 1e-2
+    for i, k in enumerate(_KERNEL_KEYS, 1):
+        assert _rel_err(bwd[0][i] + bwd[1][i], want[i]) < 3e-2, k
+    assert _rel_err(torch.cat([o[-1] for o in bwd], 1), want[-1]) < 3e-2
