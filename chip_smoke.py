@@ -16,18 +16,19 @@ non-zero at the first failure:
      sum), kernel 7's hidden and update passes, kernel 8's
      B1/B2 and the EMD forward; all but kernel 8's must not spill, and
      kernels 1, 2, 3 and 6 keep no stack frame; kernels 7 and 8 by
-     precision mode ('highest' and 'fast', each pass at FP 8-64): the
-     hidden and update passes and B1, B2 at most 128 registers with no
-     spill in both modes;
+     precision mode ('highest', 'high' and 'fast', each pass at FP
+     8-64): the hidden and update passes spill in no mode, B1 and B2 at
+     most 128 registers with no spill in every mode;
   2. kernels: each kernel against its plain PyTorch version at the main
      path's shapes (jiggled BatchNorm statistics), with times, kernel 1
      in each matmul precision mode against the plain version of that
      mode (ops/precision.py: 'highest', 'high', 'fast'), and the
      mode in force (its effect on the output as the plain version's,
-     check_mode_in_force); kernels 7 and 8 also at 'fast' against their
-     'fast' plain versions (check_train_decode_fast: a ragged N, a small
-     batch and the flagship shape, timed beside 'highest' in one window,
-     the mode in force on p0 and dW1); the EMD
+     check_mode_in_force); kernels 7 and 8 also at 'fast' and at 'high'
+     against the plain versions of their mode (check_train_decode_mode:
+     9 narrow couplings, a ragged N, a small batch and the flagship
+     shape, timed beside 'highest' in one window, the mode in force on p0
+     and dW1); the EMD
      kernels also at ragged and unequal sizes and at the SVR protocol's
      2500 points, the EMD backward through autograd, and the EMD grid
      against the paired EMD kernel bit for bit;
@@ -44,10 +45,10 @@ non-zero at the first failure:
      kernel-path steps on seeded clouds with the two train-decode launch
      counters read around them; ms/step, clouds/s and peak memory of both
      paths; a torch.profiler pass over one warm kernel-path step; then
-     at 'fast': one step kernels against modules (the loss and the
-     gradient in norm: not one function at 'fast'), twenty kernel-path
-     steps built under 'fast' whose losses fall, their launches counted
-     by mode, and their ms/step;
+     at 'fast' and at 'high': one step kernels against modules (the loss
+     and the gradient in norm: not one function outside 'highest'),
+     twenty kernel-path steps built under the mode whose losses fall,
+     their launches counted by mode, and their ms/step;
   5. loop: the flagship model through the train-and-validate path at
      B=64 on seeded in-memory clouds served by the port's DataLoader:
      `train` for one epoch of 4 steps (kernels 7 and 8) with its
@@ -78,7 +79,8 @@ non-zero at the first failure:
      through kernel 1 against the modules; the loop's and bare steps'
      ms/step in turns, peak memory, and a profiled step's busy time, the
      ResNet's share of it and kernels 7 and 8; kernels 7 and 8 at 'fast'
-     at the SVR shapes and two SVR train steps built under 'fast';
+     and 'high' at the SVR shapes and two SVR train steps built under
+     each;
   7. cli: the four command-line entry points' `run` functions (cli/
      train_ae, evaluate_ae, reconstruct_ae, train_svr), their arguments
      parsed as scripts/*.sh give them, on in-memory ShapeNet layouts
@@ -127,8 +129,8 @@ non-zero at the first failure:
      batch), 2 timed steps with their collectives; (f) cli/train_svr's
      run for one epoch over the 2 loader shards of phase 7's in-memory
      ShapeNetAll layout, the ranks' models equal at its end; (g) at
-     'fast', kernels 7 and 8 in their SPMD form and one step against one
-     process. The ranks'
+     'fast' and (h) at 'high', kernels 7 and 8 in their SPMD form and one
+     step against one process. The ranks'
      launches add to the kernels line, each kernel's as many as the
      steps and batches give, every launch of kernels 7 and 8 in its SPMD
      form;
@@ -139,8 +141,11 @@ non-zero at the first failure:
      for bit the same in every mode, each mode's sample-step time and
      drift from 'highest'; config_SVR.yaml's model reconstructing 8
      images under 'high' (the ResNet's convolutions as three bf16
-     passes); tools/eval_precision_ab.run at 20 steps, B=64, S=64, one
-     rep, its table printed.
+     passes); tools/eval_precision_ab.run at 20 steps (which train at
+     'high', kernels 7 and 8), B=64, S=64, one rep, its table printed;
+     tools/train_quality_ab.run at 20 steps, B=16, S=16, one rep through
+     its three variants (the modules at 'highest', kernels 7 and 8 at
+     'high' and at 'fast', each trained and scored at 'high').
 
 With `--cards N` it runs only phases 0 and 1 and then cli/train_ae's
 data-parallel launch on N cards of the host (cli.run_ranks, one rank a
@@ -166,9 +171,9 @@ counts the forward's statistics launches (at most one a coupling and
 the seed).
 
 Its last two lines are a JSON object with one entry per kernel, kernel 1
-once a precision mode and kernels 7 and 8 once for 'highest' and once
-for 'fast' (train_decode_*_fast: their launches those of phases 4, 6
-and 8's 'fast' steps; each time
+once a precision mode and kernels 7 and 8 once a mode too
+(train_decode_*_high and _fast: their launches those of the steps built
+in that mode, phases 4, 6, 8 and 9; each time
 beside `bound_ms`, the least time the card could take for the same work
 at the published peaks, from the operations and bytes that the timed
 call's shapes need) and the JSON status line {"ok": true, "device": ...}.
@@ -440,11 +445,11 @@ TRAIN_DECODE_PASS_KERNELS = ("fwd_hidden", "fwd_update", "bwd_head",
 
 
 def check_train_decode_ptxas(report):
-    """Kernels 7 and 8 by precision mode (MODE 0 'highest', 2 'fast'):
-    each pass instantiated at the 8 widths FP 8-64 in both modes (the
-    seed pass once a mode); the forward's hidden and update passes spill
-    in neither mode; B1 and B2 (bwd_hidden, bwd_dw1) at most 128
-    registers with no spill in both."""
+    """Kernels 7 and 8 by precision mode (MODE 0 'highest', 1 'high', 2
+    'fast'): each pass instantiated at the 8 widths FP 8-64 in every mode
+    (the seed pass once a mode); the forward's hidden and update passes
+    spill in no mode; B1 and B2 (bwd_hidden, bwd_dw1) at most 128
+    registers with no spill in every mode."""
     rows, seeds = {}, set()
     for name, regs, spill, _ in report:
         m = re.search("(" + "|".join(TRAIN_DECODE_PASS_KERNELS)
@@ -455,11 +460,11 @@ def check_train_decode_ptxas(report):
         m = re.search(r"seed_moments_kernelILi(\d)EE", name)
         if m:
             seeds.add(MODES[int(m.group(1))])
-    if seeds != {"highest", "fast"}:
+    if seeds != set(MODES):
         fail(f"seed_moments_kernel instantiated for {sorted(seeds)}, "
-             "'highest' and 'fast' expected")
+             f"{MODES} expected")
     for kernel in TRAIN_DECODE_PASS_KERNELS:
-        for mode in ("highest", "fast"):
+        for mode in MODES:
             got = rows.get((kernel, mode), {})
             if sorted(got) != list(range(8, 72, 8)):
                 fail(f"{kernel}_kernel {mode}: instantiations at FP "
@@ -902,23 +907,33 @@ def check_train_decode(config, B, N, seed, timed):
     return fwd_err, bwd_err, times
 
 
-# kernels 7 and 8 at 'fast' against their 'fast' plain versions: two sum
-# orders can put an operand on either side of a bf16 rounding boundary,
-# where it moves a bf16 step (0.4 %), and 33 train-mode couplings carry
-# that on and widen it (on an H100 at 700 W: p0 off by at most
-# 8.6e-3 and 1.1e-3 in norm at 33 couplings, 6e-7 at 9 narrow ones); so
-# p0, the logvar sum and the saved states are held by their largest
-# difference and in norm (relative), the backward, on kernel 7's
-# residuals, in norm and by each gradient's largest entry (read at most
-# 1.4e-3 and 4.6e-3), and the mode in force by its effect within
-# TRAIN_MODE_EFFECT_GAP at the 33-coupling shapes (read 0.067-0.284; a
+# kernels 7 and 8 at 'high' and 'fast' against the plain versions of their
+# mode. At 'fast' two sum orders can put an operand on either side of a
+# bf16 rounding boundary, where it moves a bf16 step (0.4 %), and 33
+# train-mode couplings carry that on and widen it (on an H100 at 700 W:
+# p0 off by at most 8.6e-3 and 1.1e-3 in norm at 33 couplings, 6e-7 at 9
+# narrow ones); so p0, the logvar sum and the saved states are held by
+# their largest difference (`atol`) and in norm (relative, `norm`), the
+# batch statistics by atol + rtol (`stats`), the backward, on kernel 7's
+# residuals, in norm (`dp_norm`) and by each gradient's largest entry
+# (`grad`; read at most 1.4e-3 and 4.6e-3), and the mode in force by its
+# effect within `gap` at the 33-coupling shapes (read 0.067-0.284; a
 # kernel that left out every rounding would be near 1) and
-# MODE_EFFECT_GAP's 0.05 at the 9-coupling one (read 1.9e-4)
-TRAIN_FAST_ATOL = 5e-2
-TRAIN_FAST_NORM = 1e-2
-TRAIN_FAST_DP_NORM = 1e-2
-TRAIN_FAST_GRAD = 3e-2
-TRAIN_MODE_EFFECT_GAP = 0.5
+# MODE_EFFECT_GAP's at the 9-coupling one (read 1.9e-4). At 'high' a
+# step across a boundary moves an operand's hi by a bf16 step and its lo
+# back by as much, about 2^-16 of it in all (read at 33 couplings: p0 off
+# by at most 3.4e-5 and 7.7e-6 in norm, the statistics by 1.2e-7, dp
+# 2.8e-4 in norm, the gradients at most 1.0e-2 of their largest entries);
+# the mode's effect is of that size too (p0 about 9e-6 in norm), so at 33
+# couplings the chain's own fp32 noise takes a share of it (read gaps
+# 0.32-0.39 on p0, 0.16-0.61 on dW1; a kernel without the mode reads 1),
+# and at 9 couplings MODE_EFFECT_GAP's 0.5 holds it (read 0.098, 0.022)
+TRAIN_MODE_BOUNDS = {
+    "fast": dict(atol=5e-2, norm=1e-2, stats=(1e-4, 1e-3), dp_norm=1e-2,
+                 grad=3e-2, gap=0.5),
+    "high": dict(atol=2e-4, norm=3e-5, stats=(1e-6, 1e-5), dp_norm=1e-3,
+                 grad=3e-2, gap=0.9),
+}
 
 
 def rel_norm(a, b) -> float:
@@ -926,49 +941,53 @@ def rel_norm(a, b) -> float:
             / b.double().norm().clamp_min(1e-30)).item()
 
 
-def check_train_decode_fast(config, B, N, seed, timed,
-                            gap_bound=TRAIN_MODE_EFFECT_GAP):
-    """Kernels 7 and 8 at 'fast' against their 'fast' plain versions:
-    p0, the logvar sum and the saved states within TRAIN_FAST_ATOL and
-    TRAIN_FAST_NORM, the batch statistics rtol 1e-3 (atol 1e-4); kernel 8
-    and its plain version on kernel 7's 'fast' residuals: dp within
-    TRAIN_FAST_DP_NORM in norm, every packed array's and ab's gradient
-    within TRAIN_FAST_GRAD of its own largest entry; the mode in force
-    (`gap_bound`) on p0 and dW1, each version against its own 'highest'
-    on its own residuals; two launches of each bit-equal. Prints every
-    measure before it fails on one. Returns (fwd max |diff|, bwd max
-    |diff|, times), times (kernel ms, plain ms) by wrapper name and mode
-    when `timed`."""
+def check_train_decode_mode(config, B, N, seed, timed, mode,
+                            gap_bound=None):
+    """Kernels 7 and 8 in `mode` ('high' or 'fast') against the plain
+    versions of that mode, with TRAIN_MODE_BOUNDS[mode]: p0, the logvar
+    sum and the saved states (atol, norm), the batch statistics (atol +
+    rtol); kernel 8 and its plain version on kernel 7's residuals of the
+    mode: dp in norm, every packed array's and ab's gradient by its own
+    largest entry; the mode in force (`gap_bound`, the mode's `gap` for
+    None) on p0 and dW1, each version against its own 'highest' on its
+    own residuals; two launches of each bit-equal. Prints every measure
+    before it fails on one. Returns (fwd max |diff|, bwd max |diff|,
+    times), times (kernel ms, plain ms) by wrapper name and mode
+    ('highest' and `mode`, timed in one window) when `timed`."""
     import torch
 
     from go_with_the_flows_tpu_torch.ops.kernels.train_decode import (
         train_decode_bwd, train_decode_bwd_plain, train_decode_fwd,
         train_decode_fwd_plain)
 
+    lim = TRAIN_MODE_BOUNDS[mode]
+    gap_bound = lim["gap"] if gap_bound is None else gap_bound
     packed, ab, p = train_decode_inputs(config, B, N, seed)
     K, C, _, f = packed["w1"].shape[:4]
-    tag = f"train_decode fast K={K} B={B} N={N} C={C} f={f}"
+    tag = f"train_decode {mode} K={K} B={B} N={N} C={C} f={f}"
     gen = torch.Generator(device="cuda").manual_seed(seed)
     dp0 = torch.randn(p.shape, device="cuda", generator=gen)
     dlv = torch.randn(p.shape, device="cuda", generator=gen)
     bad = []
     # the mode's effect: each version at both modes on its own residuals
     eff = {}
-    for mode in ("highest", "fast"):
-        got = train_decode_fwd(packed, ab, p, mode)
-        want = train_decode_fwd_plain(packed, ab, p, mode)
-        eff[mode] = (got[0], want[0],
-                     train_decode_bwd(packed, ab, *got[2:], dp0, dlv,
-                                      mode)[1]["w1"],
-                     train_decode_bwd_plain(packed, ab, *want[2:], dp0, dlv,
-                                            mode)[1]["w1"])
+    for m in ("highest", mode):
+        got = train_decode_fwd(packed, ab, p, m)
+        want = train_decode_fwd_plain(packed, ab, p, m)
+        eff[m] = (got[0], want[0],
+                  train_decode_bwd(packed, ab, *got[2:], dp0, dlv,
+                                   m)[1]["w1"],
+                  train_decode_bwd_plain(packed, ab, *want[2:], dp0, dlv,
+                                         m)[1]["w1"])
     for i, what in ((0, "p0"), (2, "dW1")):
-        gap = mode_effect_gap(eff["fast"][i], eff["highest"][i],
-                              eff["fast"][i + 1], eff["highest"][i + 1])
-        say(f"    {tag} {what}: the mode's effect within {gap:.3g} of the "
-            f"plain version's in rms ({gap_bound:g})")
+        gap = mode_effect_gap(eff[mode][i], eff["highest"][i],
+                              eff[mode][i + 1], eff["highest"][i + 1])
+        effect = rel_norm(eff[mode][i + 1], eff["highest"][i + 1])
+        say(f"    {tag} {what}: the mode's effect ({effect:.3g} in norm) "
+            f"within {gap:.3g} of the plain version's in rms "
+            f"({gap_bound:g})")
         if not gap <= gap_bound:
-            bad.append(f"the kernel's effect of 'fast' on {what} is "
+            bad.append(f"the kernel's effect of '{mode}' on {what} is "
                        f"{gap:.3g} away from the plain version's")
     del eff
     errs = []
@@ -976,16 +995,17 @@ def check_train_decode_fast(config, B, N, seed, timed,
         err = (a - b).abs().max().item()
         norm = rel_norm(a, b)
         off = ((a - b).abs() > 1e-4).float().mean().item()
-        say(f"    {tag} {what}: max |diff| {err:.3g} ({TRAIN_FAST_ATOL:g}), "
-            f"in norm {norm:.3g} ({TRAIN_FAST_NORM:g}), share beyond 1e-4 "
+        say(f"    {tag} {what}: max |diff| {err:.3g} ({lim['atol']:g}), "
+            f"in norm {norm:.3g} ({lim['norm']:g}), share beyond 1e-4 "
             f"{off:.3g}")
-        if err > TRAIN_FAST_ATOL or norm > TRAIN_FAST_NORM:
+        if err > lim["atol"] or norm > lim["norm"]:
             bad.append(f"{what} disagrees with the plain version")
         errs.append(err)
-    st = ((got[3] - want[3]).abs() / (1e-4 + 1e-3 * want[3].abs())).max()
+    s_atol, s_rtol = lim["stats"]
+    st = ((got[3] - want[3]).abs() / (s_atol + s_rtol * want[3].abs())).max()
     say(f"    {tag} batch stats: max |diff| "
         f"{(got[3] - want[3]).abs().max().item():.3g}, {st.item():.3g} of "
-        "the allowance atol 1e-4 + rtol 1e-3")
+        f"the allowance atol {s_atol:g} + rtol {s_rtol:g}")
     if st.item() > 1.0:
         bad.append("the batch statistics disagree with the plain version")
 
@@ -994,8 +1014,8 @@ def check_train_decode_fast(config, B, N, seed, timed,
                 / b.double().abs().max().clamp_min(1e-30)).item()
 
     _, _, xsave, stats = got
-    kb = train_decode_bwd(packed, ab, xsave, stats, dp0, dlv, "fast")
-    pb = train_decode_bwd_plain(packed, ab, xsave, stats, dp0, dlv, "fast")
+    kb = train_decode_bwd(packed, ab, xsave, stats, dp0, dlv, mode)
+    pb = train_decode_bwd_plain(packed, ab, xsave, stats, dp0, dlv, mode)
     pairs = [(f"d{k}", kb[1][k], v) for k, v in pb[1].items()] + [
         ("dab", kb[2], pb[2])]
     dp_norm = rel_norm(kb[0], pb[0])
@@ -1004,18 +1024,18 @@ def check_train_decode_fast(config, B, N, seed, timed,
     say(f"    {tag} backward on kernel 7's residuals, |diff| / max |plain|: "
         f"dp {rel(kb[0], pb[0]):.2g}"
         + "".join(f", {n} {rel(a, b):.2g}" for n, a, b in pairs)
-        + f" ({TRAIN_FAST_GRAD:g}); dp in norm {dp_norm:.2g} "
-        f"({TRAIN_FAST_DP_NORM:g}); max |diff| {bwd_err:.3g}")
-    if dp_norm > TRAIN_FAST_DP_NORM:
+        + f" ({lim['grad']:g}); dp in norm {dp_norm:.2g} "
+        f"({lim['dp_norm']:g}); max |diff| {bwd_err:.3g}")
+    if dp_norm > lim["dp_norm"]:
         bad.append(f"backward dp {dp_norm:.3g} in norm")
     for name, a, b in pairs:
-        if not rel(a, b) <= TRAIN_FAST_GRAD:
+        if not rel(a, b) <= lim["grad"]:
             bad.append(f"backward {name}: {rel(a, b):.3g} of its largest "
                        "entry")
     if not all(torch.equal(a, b) for a, b in
-               zip(got, train_decode_fwd(packed, ab, p, "fast"))):
+               zip(got, train_decode_fwd(packed, ab, p, mode))):
         bad.append("two forward launches differ")
-    again = train_decode_bwd(packed, ab, xsave, stats, dp0, dlv, "fast")
+    again = train_decode_bwd(packed, ab, xsave, stats, dp0, dlv, mode)
     if not (torch.equal(kb[0], again[0]) and torch.equal(kb[2], again[2])
             and all(torch.equal(kb[1][k], again[1][k]) for k in kb[1])):
         bad.append("two backward launches differ")
@@ -1025,21 +1045,21 @@ def check_train_decode_fast(config, B, N, seed, timed,
     times = None
     if timed:
         times = {}
-        for mode in ("highest", "fast"):
-            times[f"train_decode_fwd_{mode}"] = (
-                cuda_ms(lambda: train_decode_fwd(packed, ab, p, mode), 5),
-                cuda_ms(lambda: train_decode_fwd_plain(packed, ab, p, mode),
+        for m in ("highest", mode):
+            times[f"train_decode_fwd_{m}"] = (
+                cuda_ms(lambda: train_decode_fwd(packed, ab, p, m), 5),
+                cuda_ms(lambda: train_decode_fwd_plain(packed, ab, p, m),
                         2))
-        for mode in ("highest", "fast"):
-            times[f"train_decode_bwd_{mode}"] = (
+        for m in ("highest", mode):
+            times[f"train_decode_bwd_{m}"] = (
                 cuda_ms(lambda: train_decode_bwd(packed, ab, xsave, stats,
-                                                 dp0, dlv, mode), 3),
+                                                 dp0, dlv, m), 3),
                 cuda_ms(lambda: train_decode_bwd_plain(
-                    packed, ab, xsave, stats, dp0, dlv, mode), 1))
+                    packed, ab, xsave, stats, dp0, dlv, m), 1))
         say(f"    {tag}: " + "; ".join(
             f"{name} kernel {ms:.3f} ms, plain {plain:.3f} ms"
             for name, (ms, plain) in times.items())
-            + " (the backward on the 'fast' forward's residuals in both "
+            + f" (the backward on the '{mode}' forward's residuals in both "
             "modes, timed in the same window)")
     return max(errs), bwd_err, times
 
@@ -1107,12 +1127,17 @@ def path_bounds(K, B, N, C, f):
         # dp0 and dlv, writes dp
         "train_decode_bwd": bound(**decode_work(
             K, B, N, C, f, 12 * f * f + 96 * f, 24 + 12 * C)),
-        # the same products at 'fast' as bf16 passes at the tensor cores'
-        # rate
+        # the same products as bf16 passes at the tensor cores' rate: one
+        # at 'fast', three at 'high'
         "train_decode_fwd_fast": bound(**decode_work(
             K, B, N, C, f, fwd_flop, 24 + 12 * C), peak=BF16_FLOPS),
         "train_decode_bwd_fast": bound(**decode_work(
             K, B, N, C, f, 12 * f * f + 96 * f, 24 + 12 * C),
+            peak=BF16_FLOPS),
+        "train_decode_fwd_high": bound(**decode_work(
+            K, B, N, C, f, 3 * fwd_flop, 24 + 12 * C), peak=BF16_FLOPS),
+        "train_decode_bwd_high": bound(**decode_work(
+            K, B, N, C, f, 3 * (12 * f * f + 96 * f), 24 + 12 * C),
             peak=BF16_FLOPS),
     }
 
@@ -1127,10 +1152,11 @@ def phase_kernels():
     # ragged shapes and the narrow (f=8) instantiation go through the same
     # kernels as the flagship's
     check_point_decode(small, 3, 50, 7, timed=False, modes=MODES)
-    # kernels 7 and 8 at 'fast', 9 narrow couplings: the mode's effect
-    # held as kernel 1's
-    check_train_decode_fast(small, 3, 50, 7, timed=False,
-                            gap_bound=MODE_EFFECT_GAP["fast"])
+    # kernels 7 and 8 at 'high' and 'fast', 9 narrow couplings: the mode's
+    # effect held as kernel 1's
+    for mode in ("high", "fast"):
+        check_train_decode_mode(small, 3, 50, 7, timed=False, mode=mode,
+                                gap_bound=MODE_EFFECT_GAP[mode])
     check_nn_distance(3, 50, 77, 8, timed=False)
     # three row chunks, the last partial, with ties in both directions
     check_nn_distance(2, 1100, 700, 20, timed=False, grid=True)
@@ -1172,16 +1198,20 @@ def phase_kernels():
         td_bwd.append(b_err)
     f_err, b_err, td_times = check_train_decode(
         FLAGSHIP_AIRPLANE, BATCH, N_POINTS, 19, timed=True)
-    # 'fast': a ragged N and a small batch, then the flagship shape, timed
-    # beside 'highest' in one window
-    tf_fwd, tf_bwd = [], []
-    for B, N, seed in ((16, 2000, 20), (2, N_POINTS, 21)):
-        fe, be, _ = check_train_decode_fast(FLAGSHIP_AIRPLANE, B, N, seed,
-                                            timed=False)
-        tf_fwd.append(fe)
-        tf_bwd.append(be)
-    fe, be, tf_times = check_train_decode_fast(FLAGSHIP_AIRPLANE, BATCH,
-                                               N_POINTS, 22, timed=True)
+    # 'fast', then 'high': a ragged N and a small batch, then the flagship
+    # shape, timed beside 'highest' in one window
+    reduced = {}
+    for mode, seeds in (("fast", (20, 21, 22)), ("high", (23, 24, 25))):
+        fwd_errs, bwd_errs = [], []
+        for (B, N), seed in zip(((16, 2000), (2, N_POINTS)), seeds):
+            fe, be, _ = check_train_decode_mode(FLAGSHIP_AIRPLANE, B, N, seed,
+                                                timed=False, mode=mode)
+            fwd_errs.append(fe)
+            bwd_errs.append(be)
+        fe, be, times = check_train_decode_mode(
+            FLAGSHIP_AIRPLANE, BATCH, N_POINTS, seeds[2], timed=True,
+            mode=mode)
+        reduced[mode] = (max(fwd_errs + [fe]), max(bwd_errs + [be]), times)
 
     B, N = BATCH, N_POINTS
     pairs = B * N * N
@@ -1208,12 +1238,14 @@ def phase_kernels():
         say(f"    point_decode {mode}: {ms:.3f} ms direct, "
             f"{ms / base:.2f} x 'highest'; bound "
             f"{bounds['point_decode_' + mode][0]:.3f} ms at the bf16 peak")
-    for name in ("train_decode_fwd", "train_decode_bwd"):
-        ms = tf_times[name + "_fast"][0]
-        base = tf_times[name + "_highest"][0]
-        say(f"    {name} fast: {ms:.3f} ms, {ms / base:.3f} x 'highest' in "
-            f"the same window; bound {bounds[name + '_fast'][0]:.3f} ms at "
-            "the bf16 peak")
+    for mode in ("high", "fast"):
+        times = reduced[mode][2]
+        for name in ("train_decode_fwd", "train_decode_bwd"):
+            ms = times[f"{name}_{mode}"][0]
+            base = times[name + "_highest"][0]
+            say(f"    {name} {mode}: {ms:.3f} ms, {ms / base:.3f} x "
+                f"'highest' in the same window; bound "
+                f"{bounds[f'{name}_{mode}'][0]:.3f} ms at the bf16 peak")
     return {
         "point_decode": (pd_errs["highest"], pd_times["highest", "direct"]),
         "point_decode_high": (pd_errs["high"], pd_times["high", "direct"]),
@@ -1227,10 +1259,10 @@ def phase_kernels():
                              td_times["train_decode_fwd"]),
         "train_decode_bwd": (max(td_bwd + [b_err]),
                              td_times["train_decode_bwd"]),
-        "train_decode_fwd_fast": (max(tf_fwd + [fe]),
-                                  tf_times["train_decode_fwd_fast"]),
-        "train_decode_bwd_fast": (max(tf_bwd + [be]),
-                                  tf_times["train_decode_bwd_fast"]),
+        **{f"train_decode_{d}_{mode}": (
+            reduced[mode][0 if d == "fwd" else 1],
+            reduced[mode][2][f"train_decode_{d}_{mode}"])
+           for mode in ("high", "fast") for d in ("fwd", "bwd")},
     }, bounds
 
 
@@ -1603,20 +1635,21 @@ def check_train_steps(base, clouds, eps, images=None):
             f"{k} |diff| {v:.3g}" for k, v in walk.items()) + " (bound 2 lr)")
 
 
-# one 'fast' step through kernels 7 and 8 against one through the modules:
-# not one function at 'fast' (the kernels' sd0 statistics come from the
-# x-moments with the fp32 W0, off-centre on the rounded h0, and their
-# backward takes them as h0's, as the JAX kernel does), so the loss is held
-# relative and the gradient over all parameters in norm (read 5.3e-6 and
-# 3.0e-3 at B=64 on an H100 at 700 W)
-FAST_STEP_LOSS = 1e-4
-FAST_STEP_GRAD_NORM = 3e-2
+# one 'high' or 'fast' step through kernels 7 and 8 against one through the
+# modules: not one function outside 'highest' (the kernels' sd0
+# statistics come from the x-moments with the fp32 W0, off-centre on h0
+# of the mode, and their backward takes them as h0's, as the JAX kernel
+# does), so the loss is held relative and the gradient over all
+# parameters in norm, by mode (read at B=64 on an H100 at 700 W: at 'fast'
+# 5.3e-6 and 3.0e-3, at 'high', where the centring is off by about 2^-16
+# of h0, 0 and 2.1e-5)
+STEP_BOUNDS = {"fast": (1e-4, 3e-2), "high": (1e-6, 1e-4)}
 
 
-def check_train_steps_fast(base, clouds, eps, images=None):
-    """One 'fast' step from one state through the kernels and through the
-    decoder's modules (FAST_STEP_LOSS, FAST_STEP_GRAD_NORM); prints the
-    leaves whose gradients differ most. `images`: an SVR model's step."""
+def check_train_steps_mode(base, clouds, eps, mode, images=None):
+    """One step in `mode` from one state through the kernels and through
+    the decoder's modules (STEP_BOUNDS); prints the leaves whose
+    gradients differ most. `images`: an SVR model's step."""
     import copy
 
     import torch
@@ -1626,12 +1659,13 @@ def check_train_steps_fast(base, clouds, eps, images=None):
     from go_with_the_flows_tpu_torch.optim import make_optimizer
     from go_with_the_flows_tpu_torch.train.step import make_train_step
 
+    loss_bound, grad_bound = STEP_BOUNDS[mode]
     hp = dict(TRAIN_HP, min_lr=2e-4, max_lr=2e-4)
     svr = {} if images is None else {"images": images}
     out = {}
     for fused in (False, True):
         model = copy.deepcopy(base).cuda()
-        with matmul_precision_scope("fast"):
+        with matmul_precision_scope(mode):
             step = make_train_step(model, make_optimizer(
                 list(model.parameters()), **hp), svr=bool(svr),
                 fused_decoder=fused)
@@ -1647,20 +1681,20 @@ def check_train_steps_fast(base, clouds, eps, images=None):
     grad_norm = rel_norm(flat_k, flat_p)
     worst = sorted(((gk[n] - g).norm() / g.norm().clamp_min(1e-30)).item()
                    for n, g in gp.items())
-    say(f"    one 'fast' step at B={clouds.shape[0]}, kernel path vs module "
-        f"path: loss {mk['loss']:.6g} vs {mp['loss']:.6g}, relative "
-        f"{loss_rel:.3g} ({FAST_STEP_LOSS:g}); all gradients in norm "
-        f"{grad_norm:.3g} ({FAST_STEP_GRAD_NORM:g}); the leaves' own "
+    say(f"    one '{mode}' step at B={clouds.shape[0]}, kernel path vs "
+        f"module path: loss {mk['loss']:.6g} vs {mp['loss']:.6g}, relative "
+        f"{loss_rel:.3g} ({loss_bound:g}); all gradients in norm "
+        f"{grad_norm:.3g} ({grad_bound:g}); the leaves' own "
         f"relative norms, median {worst[len(worst) // 2]:.3g}, largest "
         f"{worst[-1]:.3g}")
-    if loss_rel > FAST_STEP_LOSS or grad_norm > FAST_STEP_GRAD_NORM:
-        fail("the 'fast' kernel-path step disagrees with the module path")
+    if loss_rel > loss_bound or grad_norm > grad_bound:
+        fail(f"the '{mode}' kernel-path step disagrees with the module path")
 
 
-def fast_launches(wrappers, fn):
-    """fn() with kernels 7 and 8's counters, their 'fast' ones too, set to
-    0 before: (fn's result, {name: all launches}, {name + "_fast": the
-    'fast' launches})."""
+def mode_launches(wrappers, fn, mode):
+    """fn() with kernels 7 and 8's counters, their counts by mode too, set
+    to 0 before: (fn's result, {name: all launches}, {name + "_" + mode:
+    the launches in `mode`})."""
     import torch
 
     zero(wrappers)
@@ -1668,8 +1702,8 @@ def fast_launches(wrappers, fn):
         w.launches_by_mode.update(dict.fromkeys(w.launches_by_mode, 0))
     out = fn()
     torch.cuda.synchronize()
-    return out, read(wrappers), {w.__name__ + "_fast":
-                                 w.launches_by_mode["fast"]
+    return out, read(wrappers), {f"{w.__name__}_{mode}":
+                                 w.launches_by_mode[mode]
                                  for w in wrappers}
 
 
@@ -1785,59 +1819,64 @@ def phase_train(card):
     del step_k
     torch.cuda.empty_cache()
 
-    # 'fast': one step kernels vs modules, then the 'fast' main path,
-    # twenty kernel-path steps built under 'fast' (called under 'highest')
+    # 'fast', then 'high': one step kernels vs modules, then the main path
+    # in the mode, twenty kernel-path steps built under it (called under
+    # 'highest')
     from go_with_the_flows_tpu_torch.ops.precision import (
         matmul_precision_scope)
-    for B in (BATCH, BATCH // 2, BATCH // 4):
-        try:
-            check_train_steps_fast(base, batches[0][:B].contiguous(), eps[:B])
-            break
-        except torch.cuda.OutOfMemoryError:
-            torch.cuda.empty_cache()
-            say(f"    'fast' one-step comparison: the plain path is out of "
-                f"memory at B={B}")
-    else:
-        fail("the plain 'fast' training path does not fit at any batch tried")
-    torch.cuda.empty_cache()
-    with matmul_precision_scope("fast"):
-        step_f = trainer(None)
+    for mode in ("fast", "high"):
+        for B in (BATCH, BATCH // 2, BATCH // 4):
+            try:
+                check_train_steps_mode(base, batches[0][:B].contiguous(),
+                                       eps[:B], mode)
+                break
+            except torch.cuda.OutOfMemoryError:
+                torch.cuda.empty_cache()
+                say(f"    '{mode}' one-step comparison: the plain path is "
+                    f"out of memory at B={B}")
+        else:
+            fail(f"the plain '{mode}' training path does not fit at any "
+                 "batch tried")
+        torch.cuda.empty_cache()
+        with matmul_precision_scope(mode):
+            step_m = trainer(None)
 
-    def fast_steps():
-        return [float(step_f(c, c)["loss"])
-                for c in (batches[i % len(batches)] for i in range(20))]
+        def mode_steps():
+            return [float(step_m(c, c)["loss"])
+                    for c in (batches[i % len(batches)] for i in range(20))]
 
-    fast_losses, all_n, fast_n = fast_launches(wrappers, fast_steps)
-    say(f"    20 'fast' kernel-path steps: loss {fast_losses[0]:.2f} -> "
-        f"{fast_losses[-1]:.2f} (first five {np.mean(fast_losses[:5]):.3f}, "
-        f"last five {np.mean(fast_losses[-5:]):.3f}); launches {fast_n}")
-    if not all(math.isfinite(v) for v in fast_losses):
-        fail(f"'fast' train losses are not finite: {fast_losses}")
-    if not np.mean(fast_losses[-5:]) < np.mean(fast_losses[:5]):
-        fail("the 'fast' train losses do not fall over 20 steps")
-    if fast_n != {name + "_fast": n for name, n in all_n.items()} or min(
-            fast_n.values()) < 20:
-        fail(f"the 'fast' steps launched {all_n}, of them 'fast' {fast_n}")
-    launches.update(fast_n)
-    ms_f, mem_f = train_step_ms(step_f, batches, 10)
-    say(f"    'fast' kernel path B={BATCH}: {ms_f:.2f} ms/step "
-        f"({ms_f / ms_k:.3f} x 'highest'), {1000.0 * BATCH / ms_f:.1f} train "
-        f"clouds/s, peak {mem_f:.2f} GB [{card}]")
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        step_f(batches[0], batches[0])
-        torch.cuda.synchronize()
-    rows = device_kernels(prof)
-    busy = sum(r[0] for r in rows)
-    if busy > 0:
-        say(f"    profiled 'fast' step: device busy {busy:.2f} ms of "
-            f"{ms_f:.2f} ms/step")
-        for what, passes in TRAIN_DECODE_PASSES.items():
-            say(f"    {what} at 'fast' by pass: " + "; ".join(
-                f"{label} {t:.3f} ms in {n} launches"
-                for label, (t, n) in passes_of(rows, passes).items()))
-    del step_f
-    torch.cuda.empty_cache()
+        m_losses, all_n, m_n = mode_launches(wrappers, mode_steps, mode)
+        say(f"    20 '{mode}' kernel-path steps: loss {m_losses[0]:.2f} -> "
+            f"{m_losses[-1]:.2f} (first five {np.mean(m_losses[:5]):.3f}, "
+            f"last five {np.mean(m_losses[-5:]):.3f}); launches {m_n}")
+        if not all(math.isfinite(v) for v in m_losses):
+            fail(f"'{mode}' train losses are not finite: {m_losses}")
+        if not np.mean(m_losses[-5:]) < np.mean(m_losses[:5]):
+            fail(f"the '{mode}' train losses do not fall over 20 steps")
+        if m_n != {f"{name}_{mode}": n for name, n in all_n.items()} or min(
+                m_n.values()) < 20:
+            fail(f"the '{mode}' steps launched {all_n}, of them in the "
+                 f"mode {m_n}")
+        launches.update(m_n)
+        ms_m, mem_m = train_step_ms(step_m, batches, 10)
+        say(f"    '{mode}' kernel path B={BATCH}: {ms_m:.2f} ms/step "
+            f"({ms_m / ms_k:.3f} x 'highest'), {1000.0 * BATCH / ms_m:.1f} "
+            f"train clouds/s, peak {mem_m:.2f} GB [{card}]")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            step_m(batches[0], batches[0])
+            torch.cuda.synchronize()
+        rows = device_kernels(prof)
+        busy = sum(r[0] for r in rows)
+        if busy > 0:
+            say(f"    profiled '{mode}' step: device busy {busy:.2f} ms of "
+                f"{ms_m:.2f} ms/step")
+            for what, passes in TRAIN_DECODE_PASSES.items():
+                say(f"    {what} at '{mode}' by pass: " + "; ".join(
+                    f"{label} {t:.3f} ms in {n} launches"
+                    for label, (t, n) in passes_of(rows, passes).items()))
+        del step_m
+        torch.cuda.empty_cache()
 
     # the plain path, at the largest batch that fits on the card
     for B in (BATCH, BATCH // 2, BATCH // 4):
@@ -2320,8 +2359,9 @@ def check_svr_kernels():
     nn_err, nn_times = check_nn_distance(B, N, N, 31, timed=True)
     f_err, b_err, td_times = check_train_decode(decoder, B, N, 32,
                                                 timed=True)
-    tf_err, tb_err, tf_times = check_train_decode_fast(decoder, B, N, 34,
-                                                       timed=True)
+    reduced = {mode: check_train_decode_mode(decoder, B, N, seed, timed=True,
+                                             mode=mode)
+               for mode, seed in (("fast", 34), ("high", 35))}
     gen = torch.Generator(device="cuda").manual_seed(33)
     a = 0.3 * torch.randn(B, N, 3, device="cuda", generator=gen)
     b = 0.3 * torch.randn(B, N, 3, device="cuda", generator=gen)
@@ -2338,10 +2378,10 @@ def check_svr_kernels():
         "emd_cost": (emd_err, emd_ms),
         "train_decode_fwd": (f_err, td_times["train_decode_fwd"][0]),
         "train_decode_bwd": (b_err, td_times["train_decode_bwd"][0]),
-        "train_decode_fwd_fast": (tf_err,
-                                  tf_times["train_decode_fwd_fast"][0]),
-        "train_decode_bwd_fast": (tb_err,
-                                  tf_times["train_decode_bwd_fast"][0]),
+        **{f"train_decode_{d}_{mode}": (
+            errs[0 if d == "fwd" else 1],
+            errs[2][f"train_decode_{d}_{mode}"][0])
+           for mode, errs in reduced.items() for d in ("fwd", "bwd")},
     }
     return measured, bounds, pd_times["dims"]
 
@@ -2635,33 +2675,36 @@ def phase_svr(card, pd_err):
         for t_ms, n, name in rows[:10]:
             say(f"      {t_ms:9.3f} ms {n:6d}x {name[:70]}")
 
-    # 'fast': one SVR step built under 'fast' (called under 'highest'),
-    # through kernels 7 and 8 in that mode, on the first batch
+    # 'fast' and 'high': two SVR steps built under the mode (called under
+    # 'highest'), through kernels 7 and 8 in that mode, on the first batch
     from go_with_the_flows_tpu_torch.ops.precision import (
         matmul_precision_scope)
-    with matmul_precision_scope("fast"):
-        fast_step = make_train_step(model, state.optimizer, svr=True)
+    for mode in ("fast", "high"):
+        with matmul_precision_scope(mode):
+            mode_step = make_train_step(model, state.optimizer, svr=True)
 
-    def two_fast_steps():
-        t = time.perf_counter()
-        out = [float(fast_step(b["cloud"], b["eval_cloud"], state.generator,
-                               images=b["image"])["loss"]) for _ in range(2)]
-        torch.cuda.synchronize()
-        return out, 1000.0 * (time.perf_counter() - t) / 2
+        def two_steps():
+            t = time.perf_counter()
+            out = [float(mode_step(b["cloud"], b["eval_cloud"],
+                                   state.generator,
+                                   images=b["image"])["loss"])
+                   for _ in range(2)]
+            torch.cuda.synchronize()
+            return out, 1000.0 * (time.perf_counter() - t) / 2
 
-    (fast_loss, fast_ms), all_n, fast_n = fast_launches(
-        (train_decode_fwd, train_decode_bwd), two_fast_steps)
-    say(f"    two 'fast' SVR steps B={B}: losses "
-        + ", ".join(f"{v:.4f}" for v in fast_loss)
-        + f", {fast_ms:.2f} ms/step (host clock, the first step included); "
-        f"launches {fast_n} [{card}]")
-    if not all(math.isfinite(v) for v in fast_loss) or fast_n != {
-            name + "_fast": 2 for name in all_n} or all_n != {
-            name: 2 for name in all_n}:
-        fail(f"the 'fast' SVR steps: losses {fast_loss}, launches {all_n}, "
-             f"of them 'fast' {fast_n}")
-    launches.update(fast_n)
-    del fast_step
+        (m_loss, m_ms), all_n, m_n = mode_launches(
+            (train_decode_fwd, train_decode_bwd), two_steps, mode)
+        say(f"    two '{mode}' SVR steps B={B}: losses "
+            + ", ".join(f"{v:.4f}" for v in m_loss)
+            + f", {m_ms:.2f} ms/step (host clock, the first step included);"
+            f" launches {m_n} [{card}]")
+        if not all(math.isfinite(v) for v in m_loss) or m_n != {
+                f"{name}_{mode}": 2 for name in all_n} or all_n != {
+                name: 2 for name in all_n}:
+            fail(f"the '{mode}' SVR steps: losses {m_loss}, launches "
+                 f"{all_n}, of them in the mode {m_n}")
+        launches.update(m_n)
+        del mode_step
 
     say("    SVR-shape kernels (K={}, B={}, N={}, C={}, f={}): ".format(*dims)
         + "; ".join(
@@ -3422,6 +3465,14 @@ DIST_SEED = 31
 # reading on an H100 (0.0446); after the first step, from equal
 # parameters, they agree to atol 1e-5 + rtol 1e-5
 DIST_STAT_DRIFT = 0.1
+# (g) 'fast' and (h) 'high', 2 ranks against one process: the SPMD
+# kernels' dp in norm and the gradients by their largest entries (each
+# side on its own residuals; TRAIN_MODE_BOUNDS for the forward), one
+# step's loss (relative) and reduced gradient (by its largest entry)
+DIST_MODE_BOUNDS = {
+    "fast": dict(dp_norm=3e-2, grad=0.1, loss=1e-4, step_grad=3e-2),
+    "high": dict(dp_norm=6e-3, grad=3e-2, loss=1e-6, step_grad=1e-3),
+}
 
 
 def dist_train_setup(rows):
@@ -3765,34 +3816,36 @@ def dist_rank(rank, work, config, svr_config):
         del strained
         torch.cuda.empty_cache()
 
-        # (g) 'fast': kernels 7 and 8 in their SPMD form at 'fast' on this
-        # rank's half, then one train step built under 'fast'
-        packed, ab, p = train_decode_inputs(FLAGSHIP_AIRPLANE, BATCH,
-                                            N_POINTS, DIST_SEED)
-        gen = torch.Generator(device="cuda").manual_seed(DIST_SEED)
-        dp0 = torch.randn(p.shape, device="cuda", generator=gen)
-        dlv = torch.randn(p.shape, device="cuda", generator=gen)
-        ab, p, dp0, dlv = (t[:, rows].contiguous() for t in (ab, p, dp0, dlv))
-        p0, lv, xsave, stats = train_decode_fwd(packed, ab, p, "fast")
-        dp, grads, dab = train_decode_bwd(packed, ab, xsave, stats, dp0, dlv,
-                                          "fast")
-        torch.cuda.synchronize()
-        out["kernels_fast"] = {
-            "p0": p0.cpu(), "lv": lv.cpu(), "stats": stats.cpu(),
-            "dp": dp.cpu(), "dab": dab.cpu(),
-            "grads": {k: v.cpu() for k, v in grads.items()}}
-        del packed, ab, p, dp0, dlv, p0, lv, xsave, stats, dp, grads, dab
-        with matmul_precision_scope("fast"):
-            model, opt, step, clouds, eps = dist_train_setup(rows)
-        spmd_before = {w.__name__: w.spmd_launches for w in spmd}
-        (loss, grad), all_n, fast_n = fast_launches(spmd, lambda: (
-            float(step(clouds, clouds, None, posterior_eps=eps)["loss"]),
-            opt.flat_grad.cpu().clone()))
-        out["fast_step"] = {
-            "loss": loss, "grad": grad, "launches": all_n, "fast": fast_n,
-            "spmd": {w.__name__: w.spmd_launches - spmd_before[w.__name__]
-                     for w in spmd}}
-        del model, opt, step
+        # (g) 'fast' and (h) 'high': kernels 7 and 8 in their SPMD form in
+        # the mode on this rank's half, then one train step built under it
+        for mode in ("fast", "high"):
+            packed, ab, p = train_decode_inputs(FLAGSHIP_AIRPLANE, BATCH,
+                                                N_POINTS, DIST_SEED)
+            gen = torch.Generator(device="cuda").manual_seed(DIST_SEED)
+            dp0 = torch.randn(p.shape, device="cuda", generator=gen)
+            dlv = torch.randn(p.shape, device="cuda", generator=gen)
+            ab, p, dp0, dlv = (t[:, rows].contiguous()
+                               for t in (ab, p, dp0, dlv))
+            p0, lv, xsave, stats = train_decode_fwd(packed, ab, p, mode)
+            dp, grads, dab = train_decode_bwd(packed, ab, xsave, stats, dp0,
+                                              dlv, mode)
+            torch.cuda.synchronize()
+            out[f"kernels_{mode}"] = {
+                "p0": p0.cpu(), "lv": lv.cpu(), "stats": stats.cpu(),
+                "dp": dp.cpu(), "dab": dab.cpu(),
+                "grads": {k: v.cpu() for k, v in grads.items()}}
+            del packed, ab, p, dp0, dlv, p0, lv, xsave, stats, dp, grads, dab
+            with matmul_precision_scope(mode):
+                model, opt, step, clouds, eps = dist_train_setup(rows)
+            spmd_before = {w.__name__: w.spmd_launches for w in spmd}
+            (loss, grad), all_n, m_n = mode_launches(spmd, lambda: (
+                float(step(clouds, clouds, None, posterior_eps=eps)["loss"]),
+                opt.flat_grad.cpu().clone()), mode)
+            out[f"{mode}_step"] = {
+                "loss": loss, "grad": grad, "launches": all_n, "mode": m_n,
+                "spmd": {w.__name__: w.spmd_launches - spmd_before[w.__name__]
+                         for w in spmd}}
+            del model, opt, step
     finally:
         torch.save(out, os.path.join(work, f"rank{rank}.pt"))
         dist.shutdown()
@@ -3843,24 +3896,27 @@ def phase_dist(card):
         model, opt, step, clouds, eps = dist_train_setup(slice(None))
         one_steps = dist_steps(step, opt, model, clouds, eps)
         del model, opt, step, clouds, eps
-        # ... and at 'fast': the kernels and one step
-        packed, ab, p = train_decode_inputs(FLAGSHIP_AIRPLANE, BATCH,
-                                            N_POINTS, DIST_SEED)
-        gen = torch.Generator(device="cuda").manual_seed(DIST_SEED)
-        dp0 = torch.randn(p.shape, device="cuda", generator=gen)
-        dlv = torch.randn(p.shape, device="cuda", generator=gen)
-        f = train_decode_fwd(packed, ab, p, "fast")
-        b = train_decode_bwd(packed, ab, f[2], f[3], dp0, dlv, "fast")
-        one_fast = {"p0": f[0].cpu(), "lv": f[1].cpu(), "stats": f[3].cpu(),
-                    "dp": b[0].cpu(), "dab": b[2].cpu(),
-                    "grads": {k: v.cpu() for k, v in b[1].items()}}
-        del packed, ab, p, dp0, dlv, f, b
-        with matmul_precision_scope("fast"):
-            model, opt, step, clouds, eps = dist_train_setup(slice(None))
-        one_fast_step = (float(step(clouds, clouds, None,
-                                    posterior_eps=eps)["loss"]),
-                         opt.flat_grad.cpu().clone())
-        del model, opt, step, clouds, eps
+        # ... and at 'fast' and 'high': the kernels and one step
+        one_mode, one_mode_step = {}, {}
+        for mode in ("fast", "high"):
+            packed, ab, p = train_decode_inputs(FLAGSHIP_AIRPLANE, BATCH,
+                                                N_POINTS, DIST_SEED)
+            gen = torch.Generator(device="cuda").manual_seed(DIST_SEED)
+            dp0 = torch.randn(p.shape, device="cuda", generator=gen)
+            dlv = torch.randn(p.shape, device="cuda", generator=gen)
+            f = train_decode_fwd(packed, ab, p, mode)
+            b = train_decode_bwd(packed, ab, f[2], f[3], dp0, dlv, mode)
+            one_mode[mode] = {
+                "p0": f[0].cpu(), "lv": f[1].cpu(), "stats": f[3].cpu(),
+                "dp": b[0].cpu(), "dab": b[2].cpu(),
+                "grads": {k: v.cpu() for k, v in b[1].items()}}
+            del packed, ab, p, dp0, dlv, f, b
+            with matmul_precision_scope(mode):
+                model, opt, step, clouds, eps = dist_train_setup(slice(None))
+            one_mode_step[mode] = (float(step(clouds, clouds, None,
+                                              posterior_eps=eps)["loss"]),
+                                   opt.flat_grad.cpu().clone())
+            del model, opt, step, clouds, eps
         torch.cuda.empty_cache()
         # ... and one one-process SVR step at B=128
         model, step, clouds, images, eps = dist_svr_setup(slice(None))
@@ -4079,56 +4135,70 @@ def phase_dist(card):
         "form " + ", ".join(f"{k} {n}" for k, n in spmd.items())
         + f"; the ranks ran {ranks_s:.1f} s")
 
-    # (g) 'fast': the SPMD kernels and one step against one process
-    kf = [g["kernels_fast"] for g in got]
-    kcat = {key: torch.cat([x[key] for x in kf], 1)
-            for key in ("p0", "lv", "dp", "dab")}
-    errs = {key: (kcat[key] - one_fast[key]).abs().max().item()
-            for key in ("p0", "lv")}
-    norms = {key: rel_norm(kcat[key], one_fast[key]) for key in ("p0", "lv")}
-    stat_used = max(((x["stats"] - one_fast["stats"]).abs()
-                     / (1e-4 + 1e-3 * one_fast["stats"].abs())).max().item()
-                    for x in kf)
-    dp_norm = rel_norm(kcat["dp"], one_fast["dp"])
-    grad_rel = {key: rel(kf[0]["grads"][key] + kf[1]["grads"][key],
-                         one_fast["grads"][key]) for key in _KERNEL_KEYS}
-    grad_rel["ab"] = rel(kcat["dab"], one_fast["dab"])
-    # each side's backward runs on its own forward's residuals, which the
-    # 33 'fast' couplings have moved apart (read on an H100 at 700 W: dp
-    # 8.8e-3 in norm, the gradients at most 2.5e-2)
-    say(f"    (g) 'fast' SPMD kernels 7 and 8 on {DIST_WORLD} ranks against "
-        f"the 1-process 'fast' kernels at B={BATCH}: p0 {errs['p0']:.3g}, "
-        f"logvar {errs['lv']:.3g} ({TRAIN_FAST_ATOL:g}), in norm "
-        f"{norms['p0']:.3g}, {norms['lv']:.3g} ({TRAIN_FAST_NORM:g}); stats "
-        f"{stat_used:.3g} of the allowance atol 1e-4 + rtol 1e-3; each on "
-        f"its own residuals, dp in norm {dp_norm:.2g} (3e-2); gradients "
-        f"summed over the ranks, |diff| / max: " + ", ".join(
-            f"d{key} {v:.2g}" for key, v in grad_rel.items()) + " (0.1)")
-    if (max(errs.values()) > TRAIN_FAST_ATOL
-            or max(norms.values()) > TRAIN_FAST_NORM or stat_used > 1.0
-            or dp_norm > 3e-2 or max(grad_rel.values()) > 0.1):
-        fail("(g) the 'fast' SPMD kernels disagree with the one-process ones")
-    fs = [g["fast_step"] for g in got]
-    if fs[0]["loss"] != fs[1]["loss"]:
-        fail("(g) the ranks' 'fast' losses differ")
-    loss_rel = abs(fs[0]["loss"] - one_fast_step[0]) / abs(one_fast_step[0])
-    grad_rel = rel(fs[0]["grad"], one_fast_step[1])
-    fast_n = {k: sum(x["fast"][k] for x in fs) for k in fs[0]["fast"]}
-    say(f"    (g) one 'fast' step, {DIST_WORLD} ranks against one process: "
-        f"loss {fs[0]['loss']:.6f} ({one_fast_step[0]:.6f}), relative diff "
-        f"{loss_rel:.3g} (1e-4); the reduced gradient {grad_rel:.3g} of its "
-        f"max (3e-2); 'fast' launches summed over the ranks {fast_n}, in "
-        f"SPMD form " + ", ".join(
-            f"{k} {sum(x['spmd'][k] for x in fs)}" for k in fs[0]["spmd"]))
-    if loss_rel > 1e-4 or grad_rel > 3e-2:
-        fail("(g) the 2-rank 'fast' step disagrees with the one-process step")
-    for x in fs:
-        if x["fast"] != {k + "_fast": 1 for k in x["spmd"]} or x[
-                "spmd"] != dict.fromkeys(x["spmd"], 1) or x["launches"] != \
-                dict.fromkeys(x["spmd"], 1):
-            fail(f"(g) a rank's 'fast' step launched {x['launches']}, of "
-                 f"them 'fast' {x['fast']}, in SPMD form {x['spmd']}")
-    launches.update(fast_n)
+    # (g) 'fast' and (h) 'high': the SPMD kernels and one step against one
+    # process
+    for part, mode in (("g", "fast"), ("h", "high")):
+        lim, dlim = TRAIN_MODE_BOUNDS[mode], DIST_MODE_BOUNDS[mode]
+        one_k = one_mode[mode]
+        kf = [g[f"kernels_{mode}"] for g in got]
+        kcat = {key: torch.cat([x[key] for x in kf], 1)
+                for key in ("p0", "lv", "dp", "dab")}
+        errs = {key: (kcat[key] - one_k[key]).abs().max().item()
+                for key in ("p0", "lv")}
+        norms = {key: rel_norm(kcat[key], one_k[key]) for key in ("p0", "lv")}
+        s_atol, s_rtol = lim["stats"]
+        stat_used = max(((x["stats"] - one_k["stats"]).abs()
+                         / (s_atol + s_rtol * one_k["stats"].abs())
+                         ).max().item() for x in kf)
+        dp_norm = rel_norm(kcat["dp"], one_k["dp"])
+        grad_rel = {key: rel(kf[0]["grads"][key] + kf[1]["grads"][key],
+                             one_k["grads"][key]) for key in _KERNEL_KEYS}
+        grad_rel["ab"] = rel(kcat["dab"], one_k["dab"])
+        # each side's backward runs on its own forward's residuals, which
+        # the 33 couplings have moved apart (read on an H100 at 700 W, at
+        # 'fast': dp 8.8e-3 in norm, the gradients at most 2.5e-2; at
+        # 'high' 1.8e-3 and 1.1e-2)
+        say(f"    ({part}) '{mode}' SPMD kernels 7 and 8 on {DIST_WORLD} "
+            f"ranks against the 1-process '{mode}' kernels at B={BATCH}: p0 "
+            f"{errs['p0']:.3g}, logvar {errs['lv']:.3g} ({lim['atol']:g}), "
+            f"in norm {norms['p0']:.3g}, {norms['lv']:.3g} "
+            f"({lim['norm']:g}); stats {stat_used:.3g} of the allowance "
+            f"atol {s_atol:g} + rtol {s_rtol:g}; each on its own residuals, "
+            f"dp in norm {dp_norm:.2g} ({dlim['dp_norm']:g}); gradients "
+            f"summed over the ranks, |diff| / max: " + ", ".join(
+                f"d{key} {v:.2g}" for key, v in grad_rel.items())
+            + f" ({dlim['grad']:g})")
+        if (max(errs.values()) > lim["atol"]
+                or max(norms.values()) > lim["norm"] or stat_used > 1.0
+                or dp_norm > dlim["dp_norm"]
+                or max(grad_rel.values()) > dlim["grad"]):
+            fail(f"({part}) the '{mode}' SPMD kernels disagree with the "
+                 "one-process ones")
+        fs = [g[f"{mode}_step"] for g in got]
+        one_step = one_mode_step[mode]
+        if fs[0]["loss"] != fs[1]["loss"]:
+            fail(f"({part}) the ranks' '{mode}' losses differ")
+        loss_rel = abs(fs[0]["loss"] - one_step[0]) / abs(one_step[0])
+        step_grad = rel(fs[0]["grad"], one_step[1])
+        mode_n = {k: sum(x["mode"][k] for x in fs) for k in fs[0]["mode"]}
+        say(f"    ({part}) one '{mode}' step, {DIST_WORLD} ranks against one "
+            f"process: loss {fs[0]['loss']:.6f} ({one_step[0]:.6f}), "
+            f"relative diff {loss_rel:.3g} ({dlim['loss']:g}); the reduced "
+            f"gradient {step_grad:.3g} of its max ({dlim['step_grad']:g}); "
+            f"'{mode}' launches summed over the ranks {mode_n}, in SPMD form "
+            + ", ".join(f"{k} {sum(x['spmd'][k] for x in fs)}"
+                        for k in fs[0]["spmd"]))
+        if loss_rel > dlim["loss"] or step_grad > dlim["step_grad"]:
+            fail(f"({part}) the 2-rank '{mode}' step disagrees with the "
+                 "one-process step")
+        for x in fs:
+            if x["mode"] != {f"{k}_{mode}": 1 for k in x["spmd"]} or x[
+                    "spmd"] != dict.fromkeys(x["spmd"], 1) or x[
+                    "launches"] != dict.fromkeys(x["spmd"], 1):
+                fail(f"({part}) a rank's '{mode}' step launched "
+                     f"{x['launches']}, of them '{mode}' {x['mode']}, in "
+                     f"SPMD form {x['spmd']}")
+        launches.update(mode_n)
     return launches
 
 
@@ -4263,13 +4333,17 @@ def phase_nccl(card, cards):
 # --------------------------------------------------------------------- #
 
 AB_STEPS, AB_S = 20, 64  # eval_precision_ab.run's size here
+# train_quality_ab.run's size here: steps, B (its 'xla' variant's autograd
+# holds every coupling's activations), S
+QA_STEPS, QA_B, QA_S = 20, 16, 16
 SVR_IMAGES = 8
 
 
 def phase_precision(card):
     """The flagship's sample steps built under each mode, SVR
-    reconstruction under 'high' and eval_precision_ab.run; returns the
-    launches of every kernel, kernel 1's by mode."""
+    reconstruction under 'high', eval_precision_ab.run (which trains at
+    'high') and train_quality_ab.run; returns the launches of every
+    kernel, kernels 1, 7 and 8 by mode."""
     import math
 
     import numpy as np
@@ -4290,7 +4364,8 @@ def phase_precision(card):
         train_decode_bwd, train_decode_fwd)
     from go_with_the_flows_tpu_torch.ops.precision import (
         get_matmul_precision, matmul_precision_scope)
-    from go_with_the_flows_tpu_torch.tools import eval_precision_ab
+    from go_with_the_flows_tpu_torch.tools import (eval_precision_ab,
+                                                   train_quality_ab)
     from go_with_the_flows_tpu_torch.train.step import make_sample_step
     from go_with_the_flows_tpu_torch.utils.config import (
         FLAGSHIP_AIRPLANE, SVR_RUN, SVR_SHAPENETALL13,
@@ -4303,20 +4378,24 @@ def phase_precision(card):
                 emd_backward, pairwise_emd, train_decode_fwd,
                 train_decode_bwd)
     launches = dict.fromkeys((w.__name__ for w in wrappers), 0)
-    launches.update(point_decode_high=0, point_decode_fast=0)
+    moded = (point_decode, train_decode_fwd, train_decode_bwd)
+    launches.update({f"{w.__name__}_{m}": 0 for w in moded
+                     for m in ("high", "fast")})
 
     def count(fn):
         """fn() with the kernels' counters set to 0 before and added into
-        `launches` after; kernel 1's by mode."""
+        `launches` after; kernels 1, 7 and 8 by mode."""
         zero(wrappers)
-        by_mode.update(dict.fromkeys(by_mode, 0))
+        for w in moded:
+            w.launches_by_mode.update(dict.fromkeys(w.launches_by_mode, 0))
         out = fn()
         torch.cuda.synchronize()
         for k, n in read(wrappers).items():
             launches[k] += n
-        launches["point_decode"] -= by_mode["high"] + by_mode["fast"]
-        for mode in ("high", "fast"):
-            launches["point_decode_" + mode] += by_mode[mode]
+        for w in moded:
+            for mode in ("high", "fast"):
+                launches[w.__name__] -= w.launches_by_mode[mode]
+                launches[f"{w.__name__}_{mode}"] += w.launches_by_mode[mode]
         return out, dict(by_mode)
 
     # a plain decode on a CUDA tensor would be a fallback: fail on one
@@ -4439,17 +4518,52 @@ def phase_precision(card):
                     fail(f"eval_precision_ab: {mode} {k} = {mu}")
         if results["highest"]["max_point_drift_vs_first_mode"][0] != 0.0:
             fail("eval_precision_ab: 'highest' drifts from itself")
-        say("    eval_precision_ab (20 steps, S=64, 1 rep): "
+        say("    eval_precision_ab (20 steps at 'high', S=64, 1 rep): "
             + json.dumps(results))
         ab_s = time.perf_counter() - t0
+
+        # the training A/B at a short size: its three variants, each
+        # trained and scored
+        t0 = time.perf_counter()
+        before = {k: launches[k] for k in launches}
+        qa, _ = count(lambda: train_quality_ab.run(
+            FLAGSHIP_AIRPLANE, N_POINTS, QA_STEPS, QA_B, QA_S, 1,
+            train_quality_ab.VARIANTS, "high", "cuda"))
+        qa_n = {k: launches[k] - before[k] for k in launches}
+        if set(qa) != set(train_quality_ab.VARIANTS):
+            fail(f"train_quality_ab ran the variants {sorted(qa)}")
+        for variant, rec in qa.items():
+            if set(rec) != {"train_wall_s", "steps_per_s", "final_loss",
+                            "loss_curve", "metrics"} or not all(
+                    math.isfinite(mu) for mu, _ in rec["metrics"].values()):
+                fail(f"train_quality_ab {variant}: {rec}")
+            say(f"    train_quality_ab {variant} ({QA_STEPS} steps at "
+                f"B={QA_B}, S={QA_S}, 1 rep): {rec['steps_per_s']} steps/s, "
+                f"loss curve {rec['loss_curve']}, metrics "
+                + json.dumps({k: round(mu, 6) for k, (mu, _)
+                              in rec["metrics"].items()}) + f" [{card}]")
+        # 'xla' trains through the modules; each 'fused' variant through
+        # kernels 7 and 8 in its mode, once a step
+        for name in ("train_decode_fwd", "train_decode_bwd"):
+            if (qa_n[name] or qa_n[name + "_high"] != QA_STEPS
+                    or qa_n[name + "_fast"] != QA_STEPS):
+                fail(f"train_quality_ab launched {name} {qa_n[name]}, at "
+                     f"'high' {qa_n[name + '_high']}, at 'fast' "
+                     f"{qa_n[name + '_fast']}; {QA_STEPS} a fused variant "
+                     "expected")
+        qa_s = time.perf_counter() - t0
     finally:
         pd_module.point_decode_plain = plain
     say(f"    phase 9 seconds: flagship steps and metrics {flag_s:.1f}, "
-        f"SVR {svr_s:.1f}, eval_precision_ab {ab_s:.1f}; launches "
+        f"SVR {svr_s:.1f}, eval_precision_ab {ab_s:.1f}, train_quality_ab "
+        f"{qa_s:.1f}; launches "
         + ", ".join(f"{k} {n}" for k, n in launches.items() if n))
     for mode in ("high", "fast"):
         if launches["point_decode_" + mode] < 1:
             fail(f"kernel 1's {mode!r} instantiation was not launched")
+    if launches["train_decode_fwd_high"] < AB_STEPS + QA_STEPS:
+        fail("eval_precision_ab did not train through kernels 7 and 8 at "
+             "'high'")
     return launches
 
 
@@ -4542,16 +4656,22 @@ def main() -> None:
             "go_with_the_flows_tpu_torch/csrc/emd.cu",
             "go_with_the_flows_tpu/ops/pallas/pairwise_kernel.py:187"),
         "train_decode_fwd": (
-            "go_with_the_flows_tpu_torch/csrc/train_decode.cu",
+            "go_with_the_flows_tpu_torch/csrc/train_decode.cuh",
             "go_with_the_flows_tpu/ops/pallas/train_kernel.py:806"),
         "train_decode_bwd": (
-            "go_with_the_flows_tpu_torch/csrc/train_decode.cu",
+            "go_with_the_flows_tpu_torch/csrc/train_decode.cuh",
             "go_with_the_flows_tpu/ops/pallas/train_kernel.py:880"),
         "train_decode_fwd_fast": (
-            "go_with_the_flows_tpu_torch/csrc/train_decode.cu",
+            "go_with_the_flows_tpu_torch/csrc/train_decode.cuh",
             "go_with_the_flows_tpu/ops/pallas/train_kernel.py:806"),
         "train_decode_bwd_fast": (
-            "go_with_the_flows_tpu_torch/csrc/train_decode.cu",
+            "go_with_the_flows_tpu_torch/csrc/train_decode.cuh",
+            "go_with_the_flows_tpu/ops/pallas/train_kernel.py:880"),
+        "train_decode_fwd_high": (
+            "go_with_the_flows_tpu_torch/csrc/train_decode.cuh",
+            "go_with_the_flows_tpu/ops/pallas/train_kernel.py:806"),
+        "train_decode_bwd_high": (
+            "go_with_the_flows_tpu_torch/csrc/train_decode.cuh",
             "go_with_the_flows_tpu/ops/pallas/train_kernel.py:880"),
     }
     kernels = []

@@ -36,12 +36,15 @@ tools/eval_precision_ab.py). train_ae and train_svr build their train
 and validation steps in the config's `matmul_precision`, as the JAX
 scripts set it for the whole process, and do not read
 `eval_matmul_precision`, which the JAX training scripts do not read
-either. They take 'highest' and 'fast' ('default') and refuse 'high',
-which waits for kernels 7 and 8 in that mode. Without the key they train
-at 'highest', not at the JAX scripts' 'fast': the JAX default rests on
-the TPU, where bf16 products are the MXU's native rate; on the card the
-port's 'fast' kernels run on the CUDA cores and are no faster (PERF.md),
-and the training A/B that would move the default is still to be made.
+either. They take every mode, 'highest', 'high' and 'fast' ('default'):
+on the card the train step runs kernels 7 and 8 in that mode, and
+validation kernel 1 in it (with `--distributed` the kernels' SPMD form).
+Without the key they train at 'highest', not at the JAX scripts' 'fast':
+the JAX default rests on the TPU, where bf16 products are the MXU's
+native rate; on the card the port's reduced-precision kernels run on
+the CUDA cores and are no faster (PERF.md), and the training A/B that
+would move the default (tools/train_quality_ab.py) is still to be run
+at full size.
 """
 
 from __future__ import annotations
@@ -71,11 +74,10 @@ def resolve_device(name: str) -> torch.device:
 
 def training_precision(config: Dict) -> str:
     """The training CLIs' matmul precision mode: the config's
-    `matmul_precision`, 'highest' without it. Raises on 'high' (and on an
-    unknown mode)."""
+    `matmul_precision`, 'highest' without it. Raises on an unknown
+    mode."""
     mode = config.get("matmul_precision")
-    return precision.require_training_mode(
-        "matmul_precision", "highest" if mode is None else mode)
+    return precision.resolve("highest" if mode is None else mode)
 
 
 def eval_precision(config: Dict) -> str:

@@ -46,20 +46,22 @@ between the stages taking the place of the TPU kernel's remote copies
 (`_global_stat_sums`).
 
 Matmul precision (ops/precision.py): the kernels and their plain versions
-run at 'highest' or 'fast', the TPU kernels' `precision_mode`; 'high'
-waits for the next slice. At 'fast' each product of the TPU kernels'
-`_mxdot` and `_mxdg` takes bf16-rounded operands and fp32 sums: h0, h2
-and y in the forward and its replay; the x-moments' Gram M, whose sd0
-statistics still apply the fp32 W0 to S = sum x and to M, so that they
-are not centred exactly on the rounded h0 (`_h0_sums_from_moments`);
-and in the backward dfz = W2^T dy, dW2, dW1, da = W1^T dh2, dW0 and
-W0^T dh0. Kernel 8 and its plain version read the forward's saved
-statistics and take the textbook BatchNorm backward on them; every
-BatchNorm term and every sum stays fp32, and so does film_ab_train (JAX
-`film_wb_train` pins HIGHEST). The kernels read W0, W1 and W2 rounded
-once per pack (`kernel_weights_train`); the gradients are those of the
-fp32 packed arrays, the rounding taken as the identity, as JAX's custom
-VJP returns them. At 'highest' everything is as it was before the modes.
+run in each of the TPU kernels' `precision_mode`s, 'highest', 'high' and
+'fast'. Outside 'highest' each product of the TPU kernels' `_mxdot` and
+`_mxdg` is that of the mode, with fp32 sums: at 'fast' one product of
+the bf16-rounded operands, at 'high' three, hi(a) hi(b) + hi(a) lo(b) +
+lo(a) hi(b) (`precision.bf16_split`). Those products are h0, h2 and y in
+the forward and its replay; the x-moments' Gram M, whose sd0 statistics
+still apply the fp32 W0 to S = sum x and to M, so that they are not
+centred exactly on h0 of the mode (`_h0_sums_from_moments`); and in the
+backward dfz = W2^T dy, dW2, dW1, da = W1^T dh2, dW0 and W0^T dh0.
+Kernel 8 and its plain version read the forward's saved statistics and
+take the textbook BatchNorm backward on them; every BatchNorm term and
+every sum stays fp32, and so does film_ab_train (JAX `film_wb_train` pins
+HIGHEST). The kernels read W0, W1 and W2 rounded, or split, once per pack
+(`kernel_weights_train`); the gradients are those of the fp32 packed
+arrays, the rounding taken as the identity, as JAX's custom VJP returns
+them. At 'highest' everything is as it was before the modes.
 """
 
 from __future__ import annotations
@@ -72,7 +74,7 @@ import torch.nn.functional as F
 from ...parallel import dist
 from .. import precision
 from ..layers import batch_stats, update_running_stats
-from ..precision import bf16_round, mxdot
+from ..precision import bf16_round, bf16_split, mxdot
 from . import build
 from .point_decode import KERNEL_MODES
 
@@ -139,19 +141,24 @@ def pack_point_decoder_train(decoder) -> Dict[str, torch.Tensor]:
 def kernel_weights_train(packed: Dict[str, torch.Tensor],
                          mode: str) -> Dict[str, torch.Tensor]:
     """W0, W1 and W2 as the kernels' products read them in `mode`: the
-    packed arrays themselves at 'highest'; at 'fast' detached copies
-    rounded to bf16, made once per pack and kept in it under
-    "<name>_fast" (repack after the weights change; the training path
-    packs every step)."""
+    packed arrays themselves at 'highest'; detached copies made once per
+    pack and kept in it under "<name>_<mode>" (repack after the weights
+    change; the training path packs every step): at 'fast' rounded to
+    bf16, at 'high' split, one contiguous (2, ...) tensor of the hi parts
+    followed by the lo parts (`bf16_split`), which the kernels read at a
+    fixed offset."""
     if mode == "highest":
         return {k: packed[k] for k in _ROUNDED}
-    if mode != "fast":
+    if mode not in ("high", "fast"):
         raise ValueError(f"kernel_weights_train: no kernels for {mode!r}")
     for k in _ROUNDED:
-        if k + "_fast" not in packed:
+        if f"{k}_{mode}" not in packed:
             with torch.no_grad():
-                packed[k + "_fast"] = bf16_round(packed[k].detach())
-    return {k: packed[k + "_fast"] for k in _ROUNDED}
+                w = packed[k].detach()
+                packed[f"{k}_{mode}"] = (
+                    bf16_round(w) if mode == "fast"
+                    else torch.stack(bf16_split(w)).contiguous())
+    return {k: packed[f"{k}_{mode}"] for k in _ROUNDED}
 
 
 def film_ab_train(packed: Dict[str, torch.Tensor], g: torch.Tensor):
@@ -208,18 +215,28 @@ def _col(t):  # (K, 2, f) -> broadcast over (K, B, 2, f, N)
     return t[:, None, :, :, None]
 
 
-def _moment_stats(w0, x):
-    """sd0's (mean, biased var) at 'fast' (K, 2, f), from the moments of x
-    (K, B, 3, N): S = sum x, M = sum bf16(x) bf16(x)^T, over the global
-    batch inside a process group, mean = W0 S / n, var = max(diag(W0 M
-    W0^T) / n - mean^2, 0) with the fp32 W0 (train_kernel.py's
-    `_moments3` and `_h0_sums_from_moments`), in float64 as the kernel
-    adds them."""
+def _moment_stats(w0, x, mode):
+    """sd0's (mean, biased var) (K, 2, f) outside 'highest', from the
+    moments of x (K, B, 3, N): S = sum x and the Gram M = sum x x^T as
+    the mode forms it (at 'fast' of bf16(x), at 'high' hi hi^T + hi lo^T
+    + lo hi^T of x's parts, symmetric), over the global batch inside a
+    process group, mean = W0 S / n, var = max(diag(W0 M W0^T) / n -
+    mean^2, 0) with the fp32 W0 (train_kernel.py's `_moments3` and
+    `_h0_sums_from_moments`), in float64 as the kernel adds them."""
     K = x.shape[0]
-    xd, xr = x.double(), bf16_round(x).double()
-    sums = dist.sum_over_ranks(torch.cat([
-        xd.sum((1, 3)), torch.einsum("kbin,kbjn->kij", xr, xr).reshape(K, 9)],
-        1))
+    xd = x.double()
+
+    def gram(a, b):
+        return torch.einsum("kbin,kbjn->kij", a.double(), b.double())
+
+    if mode == "fast":
+        xr = bf16_round(x)
+        m = gram(xr, xr)
+    else:
+        hi, lo = bf16_split(x)
+        m = gram(hi, hi) + gram(hi, lo) + gram(lo, hi)
+    sums = dist.sum_over_ranks(torch.cat([xd.sum((1, 3)), m.reshape(K, 9)],
+                                         1))
     n = x.shape[1] * x.shape[3] * dist.world_size()
     S, M = sums[:, :3], sums[:, 3:].reshape(K, 3, 3)
     w = w0.double()
@@ -235,24 +252,25 @@ def _coupling_train(x, w0, s0, b0, w1, w2, b2, fw, fb, mode="highest"):
     x (K, B, 3, N); w0 (K, 2, f, 3); s0, b0 (K, 2, f); w1 (K, 2, f, f);
     w2 (K, 2, 3, f); b2 (K, 2, 3); fw, fb (K, B, 2, f). Returns
     (x_out, logvar, [mean0, var0, mean1, var1] each (K, 2, f)), each
-    statistic of h (K, B, 2, f, N) over its batch and points, at 'fast'
-    sd0's from the moments of x (`_moment_stats`)."""
-    if mode == "fast":
+    statistic of h (K, B, 2, f, N) over its batch and points, outside
+    'highest' sd0's from the moments of x (`_moment_stats`)."""
+    reduced = mode != "highest"
+    if reduced:
         h0 = mxdot(w0[:, None], x[:, :, None], mode)
-        mean0, var0 = _moment_stats(w0, x)
+        mean0, var0 = _moment_stats(w0, x, mode)
     else:
         h0 = torch.einsum("khfi,kbin->kbhfn", w0, x)
         mean0, var0 = batch_stats(h0, (1, 4))
     n0 = (h0 - _col(mean0)) * torch.rsqrt(_col(var0) + BN_EPS)
     a = F.relu(n0 * _col(s0) + _col(b0))
-    if mode == "fast":
+    if reduced:
         h2 = mxdot(w1[:, None], a, mode)
     else:
         h2 = torch.einsum("khoi,kbhin->kbhon", w1, a)
     mean1, var1 = batch_stats(h2, (1, 4))
     n1 = (h2 - _col(mean1)) * torch.rsqrt(_col(var1) + BN_EPS)
     fz = F.relu(fw[..., None] * n1 + fb[..., None])
-    if mode == "fast":
+    if reduced:
         y = mxdot(w2[:, None], fz, mode)
     else:
         y = torch.einsum("khjf,kbhfn->kbhjn", w2, fz)
@@ -275,9 +293,9 @@ def train_decode_fwd_plain(packed, ab, p, mode=None):
     (p0, logvar_sum, xsave (K, C, B, 3, N) = each coupling's input,
     stats (K, C, 4, 2f)). Inside a process group (parallel/dist.py), p is
     this rank's shard and the statistics are over the global batch.
-    `mode`: the matmul precision, 'highest' or 'fast' (the current mode
-    for None)."""
-    mode = precision.require_training_mode("train_decode_fwd_plain", mode)
+    `mode`: the matmul precision, 'highest', 'high' or 'fast' (the
+    current mode for None)."""
+    mode = precision.resolve(mode)
     ws = [packed[k] for k in _KERNEL_KEYS]
     K, C = ws[3].shape[:2]
     f = ws[3].shape[-1]
@@ -307,12 +325,13 @@ def train_decode_bwd_plain(packed, ab, xsave, stats, dp0, dlv, mode=None):
     in direct order; `stats` is not read (their cotangents are summed
     over the ranks by `dist.sum_over_ranks`'s backward).
 
-    At 'fast' (`mode`, the current mode for None) that would not be the
-    function the kernel computes, which reads the forward's saved
-    statistics: it runs train_kernel.py's three passes (`_bwd_fast`)."""
-    mode = precision.require_training_mode("train_decode_bwd_plain", mode)
-    if mode == "fast":
-        return _bwd_fast(packed, ab, xsave, stats, dp0, dlv)
+    At 'high' and 'fast' (`mode`, the current mode for None) that would
+    not be the function the kernel computes, which reads the forward's
+    saved statistics: it runs train_kernel.py's three passes
+    (`_bwd_reduced`)."""
+    mode = precision.resolve(mode)
+    if mode != "highest":
+        return _bwd_reduced(packed, ab, xsave, stats, dp0, dlv, mode)
     ws = [packed[k].detach() for k in _KERNEL_KEYS]
     ab = ab.detach()
     K, B, C = ab.shape[:3]
@@ -339,10 +358,11 @@ def train_decode_bwd_plain(packed, ab, xsave, stats, dp0, dlv, mode=None):
 
 
 @torch.no_grad()
-def _bwd_fast(packed, ab, xsave, stats, dp0, dlv):
-    """Kernel 8's 'fast' function as train_kernel.py's `_make_bwd_kernel`
-    forms it (passes A, B and C over all points at once), the products
-    through `mxdot` at 'fast': per coupling in direct order, the forward
+def _bwd_reduced(packed, ab, xsave, stats, dp0, dlv, mode):
+    """Kernel 8's function at 'high' or 'fast' as train_kernel.py's
+    `_make_bwd_kernel` forms it (passes A, B and C over all points at
+    once), the products through `mxdot` in `mode`: per coupling in direct
+    order, the forward
     replayed to y on the saved statistics, the head's cotangents, the
     textbook BatchNorm backward (dx = inv (dy - mean dy - xhat mean(dy
     xhat))) with the means of its two sums over the global batch, the
@@ -350,7 +370,6 @@ def _bwd_fast(packed, ab, xsave, stats, dp0, dlv):
     kernel keeps a bf16 copy of it for passes B and C (its VMEM cannot
     hold three fp32 caches); the kernel here keeps fp32 too, and the
     tests' tolerances against the JAX kernel take in that difference."""
-    mode = "fast"
     ws = [packed[k].detach() for k in _KERNEL_KEYS]
     ab = ab.detach()
     K, B, C = ab.shape[:3]
@@ -444,12 +463,12 @@ def _check(packed, ab, p, what):
 def train_decode_fwd(packed, ab, p, mode=None):
     """Kernel 7 on a CUDA tensor, its plain version on a CPU tensor.
     Returns (p0, logvar_sum, xsave, stats) as train_decode_fwd_plain.
-    `mode`: the matmul precision, 'highest' or 'fast' (the current mode
-    for None), which picks the kernel's instantiation. Inside a process
+    `mode`: the matmul precision, 'highest', 'high' or 'fast' (the
+    current mode for None), which picks the kernel's instantiation. Inside a process
     group of several ranks (parallel/dist.py), p is this rank's shard and
     the statistics are over the global batch: the kernel runs in its SPMD
     form, stage by stage (`_spmd_fwd`); in one process, in one C call."""
-    mode = precision.require_training_mode("train_decode_fwd", mode)
+    mode = precision.resolve(mode)
     if p.device.type == "cpu":
         return train_decode_fwd_plain(packed, ab, p, mode)
     K, B, C, N, f = _check(packed, ab, p, "train_decode_fwd")
@@ -461,6 +480,7 @@ def train_decode_fwd(packed, ab, p, mode=None):
     lib = build.library()
     work = p.new_empty(lib.gwtf_train_decode_workspace(0, K, B, C, N, f))
     # the statistics read the fp32 W0; the products W1 and W2 of the mode
+    # (at 'high' their hi parts followed by their lo parts)
     ws = [packed["w0"], packed["bn0_scale"], packed["bn0_bias"], kw["w1"],
           kw["w2"], packed["b2"]]
     args = [p] + ws + [ab, p0, lv, xsave, stats, work]
@@ -484,8 +504,7 @@ def train_decode_fwd(packed, ab, p, mode=None):
 # launches, of them those in the SPMD form, and by precision mode
 train_decode_fwd.launches = 0
 train_decode_fwd.spmd_launches = 0
-train_decode_fwd.launches_by_mode = dict.fromkeys(precision.TRAINING_MODES,
-                                                  0)
+train_decode_fwd.launches_by_mode = dict.fromkeys(KERNEL_MODES, 0)
 
 
 def _drive(stages) -> None:
@@ -566,7 +585,7 @@ def train_decode_bwd(packed, ab, xsave, stats, dp0, dlv, mode=None):
     Returns (dp, d_packed, dab) as train_decode_bwd_plain, in `mode` as
     train_decode_fwd; inside a process group of several ranks, in its
     SPMD form (`_spmd_bwd`)."""
-    mode = precision.require_training_mode("train_decode_bwd", mode)
+    mode = precision.resolve(mode)
     if dp0.device.type == "cpu":
         return train_decode_bwd_plain(packed, ab, xsave, stats, dp0, dlv,
                                       mode)
@@ -581,7 +600,7 @@ def train_decode_bwd(packed, ab, xsave, stats, dp0, dlv, mode=None):
     ws = [kw["w0"], packed["bn0_scale"], packed["bn0_bias"], kw["w1"],
           kw["w2"], packed["b2"]]
     dp = torch.empty_like(dp0)
-    grads = {k: torch.empty_like(w) for k, w in zip(_KERNEL_KEYS, ws)}
+    grads = {k: torch.empty_like(packed[k]) for k in _KERNEL_KEYS}
     dab = torch.empty_like(ab)
     lib = build.library()
     spmd = dist.active()
@@ -608,8 +627,7 @@ def train_decode_bwd(packed, ab, xsave, stats, dp0, dlv, mode=None):
 
 train_decode_bwd.launches = 0
 train_decode_bwd.spmd_launches = 0
-train_decode_bwd.launches_by_mode = dict.fromkeys(precision.TRAINING_MODES,
-                                                  0)
+train_decode_bwd.launches_by_mode = dict.fromkeys(KERNEL_MODES, 0)
 
 
 class _FusedTrainDecode(torch.autograd.Function):
@@ -619,7 +637,8 @@ class _FusedTrainDecode(torch.autograd.Function):
         p0, lv, xsave, stats = train_decode_fwd(packed, ab, p, mode)
         ctx.save_for_backward(w0, s0, b0, w1, w2, b2, ab, xsave, stats)
         # the weights of the mode, made once by the forward
-        ctx.packed = {k: packed[k] for k in packed if k.endswith("_fast")}
+        ctx.packed = {k: packed[k] for k in packed
+                      if k.endswith(("_high", "_fast"))}
         ctx.mode = mode
         ctx.mark_non_differentiable(stats)
         return p0, lv, stats
@@ -645,8 +664,7 @@ def fused_train_decode(packed: Dict[str, torch.Tensor], ab: torch.Tensor,
     packed kernel arrays, ab and p; stats is not. Inside a process group
     (parallel/dist.py), p is this rank's shard of the global batch, whose
     BatchNorm statistics both directions use. Runs in the current matmul
-    precision mode (ops/precision.py), which its backward keeps: 'highest'
-    or 'fast'; it raises under 'high'."""
-    mode = precision.require_training_mode("fused_train_decode", None)
+    precision mode (ops/precision.py), which its backward keeps."""
+    mode = precision.resolve(None)
     return _FusedTrainDecode.apply(
         mode, *(packed[k] for k in _KERNEL_KEYS), ab, p)

@@ -30,8 +30,7 @@ Gradients keep the mode: `mxdot`'s backward forms dA = dY B^T and
 dB = A^T dY as products of the same mode, from the cotangent and the
 operands each rounded (or split) anew, JAX's transpose of a dot_general
 with its `precision` carried along; a gradient's result is never
-rounded. Training runs at 'highest' and 'fast'; 'high' waits for kernels
-7 and 8 in that mode (`require_training_mode`).
+rounded. Training runs in every mode.
 """
 
 from __future__ import annotations
@@ -83,23 +82,6 @@ def matmul_precision_scope(mode: str) -> Iterator[None]:
         yield
     finally:
         set_matmul_precision(prev)
-
-
-TRAINING_MODES = ("highest", "fast")
-
-
-def require_training_mode(what: str, mode: Optional[str] = None) -> str:
-    """`mode` (the current mode for None) by its canonical name, if the
-    training path takes it: 'highest' or 'fast' ('default'). Raises on
-    'high', which kernels 7 and 8 (csrc/train_decode.cu) do not have
-    yet."""
-    mode = resolve(mode)
-    if mode not in TRAINING_MODES:
-        raise ValueError(
-            f"{what}: matmul precision {mode!r}: training runs at 'highest' "
-            "and 'fast'; 'high' training waits for kernels 7 and 8 in that "
-            "mode (csrc/train_decode.cu), the next slice of the port")
-    return mode
 
 
 def resolve(mode: Optional[str]) -> str:

@@ -10,8 +10,7 @@ output:
 
   1. train the flagship airplane model (utils/config.FLAGSHIP_AIRPLANE,
      clouds of 2048 points) for --steps steps on synthetic mixture clouds
-     at B=--b, at 'highest': the JAX tool trains at 'high', which the
-     port's training path does not have yet (a '#' line says so);
+     at B=--b, at 'high', as the JAX tool does (its training default);
   2. per mode: sample S labeled clouds a rep, the noise drawn from a
      torch.Generator seeded 1000 + rep on the device in every mode (so
      the modes are paired), and evaluate them against one reference set:
@@ -26,6 +25,8 @@ output:
 `--state_cache` keeps the trained model's state dict (torch.save): with
 no PATH at go_with_the_flows_tpu_torch/_build/eval_ab_state.pt, reused
 when it exists, so that a rerun of the metric side skips the training.
+The file holds a model trained at 'high' (a file written by an earlier
+version of the tool holds one trained at 'highest').
 `run` takes the model's keyword arguments and sizes, so that a test can
 call it at a small size on the CPU.
 """
@@ -79,7 +80,7 @@ def _sync(device: torch.device) -> None:
 
 def train(model_kwargs: Dict, n_points: int, steps: int, b: int,
           device, state_cache: Optional[str] = None):
-    """The model trained for `steps` steps at 'highest' on make_clouds
+    """The model trained for `steps` steps at 'high' on make_clouds
     batches from RandomState(0) (or loaded from `state_cache`)."""
     device = torch.device(device)
     model = FlowMixtureModel(
@@ -90,12 +91,10 @@ def train(model_kwargs: Dict, n_points: int, steps: int, b: int,
         model.load_state_dict(torch.load(state_cache, map_location=device))
         print(f"# loaded trained state from {state_cache}")
         return model
-    print("# trains at 'highest' (the JAX tool at 'high'): the port's "
-          "training path has no 'high' mode yet")
     opt = make_optimizer(list(model.parameters()), epoch_length=steps,
                          cycle_length=4, min_lr=2e-4, max_lr=5e-4,
                          beta1=0.9, min_beta2=0.99, max_beta2=0.99, wd=1e-6)
-    with matmul_precision_scope("highest"):
+    with matmul_precision_scope("high"):
         step = make_train_step(model, opt)
     # one generator seeded 1 for the run, its draws moving on each step,
     # as the JAX step folds the step count into the tool's PRNGKey(1)

@@ -1,24 +1,28 @@
-"""Kernels 7 and 8 of two versions of `csrc/train_decode.cu` side by side
-on the card: a measurement, run by hand on a machine with `nvcc` and a
-card, not part of any path.
+"""Kernels 7 and 8 of two versions of their CUDA source side by side on the
+card: a measurement, run by hand on a machine with `nvcc` and a card, not
+part of any path.
 
     python -m go_with_the_flows_tpu_torch.tools.train_decode_ab \
         --parent DIR [--out DIR] [--turns 2]
 
 DIR is another checkout of the repository (an older commit, unpacked
-with `git archive`); its `go_with_the_flows_tpu_torch/csrc/train_decode.cu`
-is the parent. Both sources are compiled alone, one after the other
-from the same path (the instruction schedule of some functions depends
-on the file's path), with the library's flags (`ops/kernels/build.py`)
-into DIR/_train_decode_ab/. Then:
+with `git archive`); its `go_with_the_flows_tpu_torch/csrc/train_decode*`
+files are the parent (one `train_decode.cu`, or a `train_decode.cuh` and
+the units that include it). Both versions are compiled alone, one after
+the other from the same directory (the instruction schedule of some
+functions depends on the file's path), with the library's flags
+(`ops/kernels/build.py`) into DIR/_train_decode_ab/. Then:
 
   * SASS (`cuobjdump -sass`): for every kernel function of the parent,
-    whether this checkout's 'highest' instantiation of it (MODE 0; the
+    whether this checkout's instantiation of it in the same MODE (the
     same name where the function has no MODE) has the same instructions
     at the same addresses (the encoding words left out): equal, or the
-    count of lines that differ;
+    count of lines that differ (an instruction more or less shifts every
+    line after it), with both instruction counts and the opcodes whose
+    counts differ;
   * time: kernel 7 (`gwtf_train_decode_fwd`) and kernel 8
-    (`gwtf_train_decode_bwd`) of both libraries at 'highest' on the
+    (`gwtf_train_decode_bwd`) of both libraries at 'highest' (and at
+    'fast', the weights rounded, where both take a mode) on the
     flagship's inputs (K=4, B=64, N=2048, 11 flows of f=37: random
     weights from seed 19, as chip_smoke.py's phase 2 makes them), in
     turns parent, this, this, parent (`--turns` times), each the mean of
@@ -43,29 +47,53 @@ import subprocess
 
 from ..ops.kernels import build
 
-_SRC = os.path.join("go_with_the_flows_tpu_torch", "csrc", "train_decode.cu")
+_CSRC = os.path.join("go_with_the_flows_tpu_torch", "csrc")
+
+
+def source_files(csrc):
+    """The kernels' source files in a csrc directory: train_decode.cu, and
+    the header and the per-mode units where the source is split."""
+    import glob
+
+    return sorted(glob.glob(os.path.join(csrc, "train_decode*.cu"))
+                  + glob.glob(os.path.join(csrc, "train_decode*.cuh")))
 
 
 def compile_all(sources, out_dir):
-    """Compile each source alone into out_dir/<tag>.so, one after the
-    other from the same path, out_dir/src/train_decode.cu: the compiler
-    names the anonymous namespace after the file's path, and those names
-    move the instruction schedule of some functions (two compiles of one
-    source from two paths differ in bwd_dw1_kernel's SASS)."""
+    """Compile each version (a csrc directory) alone into
+    out_dir/<tag>.so, one after the other from the same directory,
+    out_dir/src/ (a version's units by one nvcc each, at once, as
+    build.py does): the compiler names the anonymous namespace after the
+    file's path, and those names move the instruction schedule of some
+    functions (two compiles of one source from two paths differ in
+    bwd_dw1_kernel's SASS)."""
     import shutil
 
-    os.makedirs(os.path.join(out_dir, "src"), exist_ok=True)
-    at = os.path.join(out_dir, "src", "train_decode.cu")
+    at = os.path.join(out_dir, "src")
     nvcc = build._nvcc()
     out = {}
-    for tag, src in sources.items():
-        shutil.copyfile(src, at)
+    for tag, csrc in sources.items():
+        shutil.rmtree(at, ignore_errors=True)
+        os.makedirs(at)
+        units = [f for f in (shutil.copy(f, at) for f in source_files(csrc))
+                 if f.endswith(".cu")]
+        objs = [u[:-3] + ".o" for u in units]
+        procs = [subprocess.Popen([nvcc, *build.NVCC_FLAGS, "-c", "-o", o, u],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for u, o in zip(units, objs)]
+        logs = [p.communicate()[0] for p in procs]
         so = os.path.join(out_dir, f"{tag}.so")
-        proc = subprocess.run(
-            [nvcc, *build.NVCC_FLAGS, "-shared", "-o", so, at],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {tag}:\n{proc.stdout[-4000:]}")
+        for u, p, log in zip(units, procs, logs):
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {tag} "
+                                   f"{os.path.basename(u)}:\n{log[-4000:]}")
+        link = subprocess.run([nvcc, *build.ARCH_FLAGS, "-shared", "-o", so]
+                              + objs, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed on {tag}:\n"
+                               f"{link.stdout[-4000:]}")
         out[tag] = so
     return out
 
@@ -87,7 +115,7 @@ def sass_functions(so):
     return funcs
 
 
-# the __global__ functions of csrc/train_decode.cu
+# the __global__ functions of kernels 7 and 8
 KERNELS = ("seed_moments_kernel", "fwd_hidden_kernel", "fwd_stats_kernel",
            "group_sums_kernel", "bn1_stats_kernel", "moment_rows_kernel",
            "scale_sums_kernel", "fwd_update_kernel", "sum_rows_kernel",
@@ -108,21 +136,36 @@ def kernel_key(name):
     return m.group(1), int(fp) if fp else None, int(mode or 0)
 
 
+def opcode_delta(a, b):
+    """{opcode: count in b less count in a} where they differ."""
+    from collections import Counter
+
+    def ops(lines):
+        return Counter(line.split()[0] if not line.startswith("@")
+                       else line.split()[1] for line in lines)
+
+    pa, pb = ops(a), ops(b)
+    return {op: pb[op] - pa[op] for op in sorted(set(pa) | set(pb))
+            if pb[op] != pa[op]}
+
+
 def compare_sass(parent_so, this_so, out_dir=None):
-    """[(kernel, FP, lines differing or 0)] for each parent kernel; the
-    two listings of a kernel that differs go to out_dir."""
+    """[(kernel, FP, MODE, lines differing or 0, (parent's instructions,
+    this one's, opcode_delta))] for each parent kernel; the two listings
+    of a kernel that differs go to out_dir."""
     parent = {kernel_key(n): v for n, v in sass_functions(parent_so).items()}
     this = {kernel_key(n): v for n, v in sass_functions(this_so).items()}
     rows = []
     for key in sorted(k for k in parent if k is not None):
         if key not in this:
-            rows.append((key[0], key[1], None))
+            rows.append(key + (None, None))
             continue
         a, b = parent[key], this[key]
         diff = sum(x != y for x, y in zip(a, b)) + abs(len(a) - len(b))
-        rows.append((key[0], key[1], diff))
+        rows.append(key + (diff, (len(a), len(b), opcode_delta(a, b))))
         if diff and out_dir:
-            name = f"{key[0]}_{key[1]}" if key[1] else key[0]
+            name = (f"{key[0]}_{key[1]}" if key[1] else key[0]) + \
+                f"_m{key[2]}"
             for tag, lines in (("parent", a), ("this", b)):
                 with open(os.path.join(out_dir, f"{name}.{tag}.sass"),
                           "w") as f:
@@ -130,9 +173,9 @@ def compare_sass(parent_so, this_so, out_dir=None):
     return rows
 
 
-def takes_mode(src):
-    with open(src) as f:
-        return "int f, int mode" in f.read()
+def takes_mode(csrc):
+    text = "".join(open(f).read() for f in source_files(csrc))
+    return "int f, int mode" in text or "GWTF_DIMS, int mode" in text
 
 
 def flagship_inputs():
@@ -154,12 +197,14 @@ def flagship_inputs():
     return packed, ab.detach().contiguous(), p
 
 
-def runner(so, with_mode):
-    """fwd(), bwd() of one library at 'highest' on the flagship inputs,
-    each returning its outputs."""
+def runner(so, with_mode, mode=0):
+    """fwd(), bwd() of one library in `mode` (a kernel MODE; 'highest'
+    when the library takes none) on the flagship inputs, each returning
+    its outputs."""
     import torch
 
-    from ..ops.kernels.train_decode import _KERNEL_KEYS
+    from ..ops.kernels.point_decode import KERNEL_MODES
+    from ..ops.kernels.train_decode import _KERNEL_KEYS, kernel_weights_train
 
     lib = ctypes.CDLL(so)
     P, I = ctypes.c_void_p, ctypes.c_int
@@ -168,11 +213,16 @@ def runner(so, with_mode):
     lib.gwtf_train_decode_bwd.argtypes = [P] * 20 + [I] * 5 + extra + [P]
     lib.gwtf_train_decode_workspace.argtypes = [I] * 6
     lib.gwtf_train_decode_workspace.restype = ctypes.c_longlong
-    mode = [0] if with_mode else []
+    name = next(k for k, v in KERNEL_MODES.items() if v == mode)
     packed, ab, p = flagship_inputs()
+    kw = kernel_weights_train(packed, name)
+    mode = [mode] if with_mode else []
     K, B, _, N = p.shape
     C, f = packed["w1"].shape[1], packed["w1"].shape[-1]
+    # the statistics read the fp32 W0, the products the weights of the mode
     ws = [packed[k] for k in _KERNEL_KEYS]
+    fws = [ws[0]] + ws[1:3] + [kw["w1"], kw["w2"], ws[5]]
+    bws = [kw["w0"]] + fws[1:]
     stream = torch.cuda.current_stream().cuda_stream
     fwd_out = [torch.empty_like(p), torch.empty_like(p),
                p.new_empty(K, C, B, 3, N), p.new_empty(K, C, 4, 2 * f)]
@@ -185,7 +235,7 @@ def runner(so, with_mode):
     bwd_work = p.new_empty(lib.gwtf_train_decode_workspace(1, K, B, C, N, f))
 
     def fwd():
-        args = [p] + ws + [ab] + fwd_out + [fwd_work]
+        args = [p] + fws + [ab] + fwd_out + [fwd_work]
         code = lib.gwtf_train_decode_fwd(*(t.data_ptr() for t in args), K, B,
                                          C, N, f, *mode, stream)
         if code:
@@ -193,7 +243,7 @@ def runner(so, with_mode):
         return fwd_out
 
     def bwd():
-        args = [fwd_out[2], fwd_out[3]] + ws + [ab, dp0, dlv] + bwd_out + [
+        args = [fwd_out[2], fwd_out[3]] + bws + [ab, dp0, dlv] + bwd_out + [
             bwd_work]
         code = lib.gwtf_train_decode_bwd(*(t.data_ptr() for t in args), K, B,
                                          C, N, f, *mode, stream)
@@ -231,8 +281,8 @@ def main(argv=None):
     args = parser.parse_args(argv)
     import torch
 
-    sources = {"parent": os.path.join(args.parent, _SRC),
-               "this": os.path.join(build.CSRC, "train_decode.cu")}
+    sources = {"parent": os.path.join(args.parent, _CSRC),
+               "this": build.CSRC}
     if args.control:
         sources["parent_again"] = sources["parent"]
     out_dir = args.out or os.path.join(args.parent, "_train_decode_ab")
@@ -240,43 +290,56 @@ def main(argv=None):
 
     summary = {"sass": {}, "ms": {}}
     rows = compare_sass(libs["parent"], libs["this"], out_dir)
-    for kernel, fp, diff in rows:
+    names = ("highest", "high", "fast")  # MODE
+    for kernel, fp, mode, diff, counts in rows:
         what = ("missing" if diff is None else
-                "equal" if diff == 0 else f"{diff} lines differ")
+                "equal" if diff == 0 else
+                f"{diff} lines differ; {counts[0]} and {counts[1]} "
+                f"instructions, opcodes this less parent {counts[2]}")
         print(f"SASS {kernel}" + (f" FP={fp}" if fp else "")
-              + f" 'highest': {what}", flush=True)
-        summary["sass"][f"{kernel}" + (f"<{fp}>" if fp else "")] = diff
-    summary["sass_all_equal"] = all(d == 0 for _, _, d in rows)
+              + f" '{names[mode]}': {what}", flush=True)
+        summary["sass"][f"{kernel}" + (f"<{fp}>" if fp else "")
+                        + f"[{names[mode]}]"] = diff
+    summary["sass_all_equal"] = all(d == 0 for *_, d, _ in rows)
     if args.control:
-        again = [(k, fp, d) for k, fp, d in
+        again = [(k, fp, m, d) for k, fp, m, d, _ in
                  compare_sass(libs["parent"], libs.pop("parent_again")) if d]
         print(f"SASS of two compiles of the parent: {len(again)} kernels "
               f"differ {again}", flush=True)
-        summary["control_differs"] = [f"{k}<{fp}>" for k, fp, _ in again]
+        summary["control_differs"] = [f"{k}<{fp}>[{names[m]}]"
+                                      for k, fp, m, _ in again]
 
-    run = {tag: runner(so, takes_mode(sources[tag]))
-           for tag, so in libs.items()}
-    outs = {tag: [t.clone() for t in fwd()] + [t.clone() for t in bwd()]
-            for tag, (fwd, bwd) in run.items()}
-    torch.cuda.synchronize()
-    summary["bit_equal"] = all(torch.equal(a, b) for a, b in
-                               zip(outs["parent"], outs["this"]))
-    del outs
-    order = ["parent", "this", "this", "parent"] * args.turns
-    times = {(tag, k): [] for tag in run for k in ("fwd", "bwd")}
-    for tag in order:
-        fwd, bwd = run[tag]
-        times[tag, "fwd"].append(window_ms(fwd, 5))
-        times[tag, "bwd"].append(window_ms(bwd, 3))
-    for k in ("fwd", "bwd"):
-        par = sum(times["parent", k]) / len(times["parent", k])
-        this = sum(times["this", k]) / len(times["this", k])
-        summary["ms"][k] = {"parent": times["parent", k],
-                            "this": times["this", k], "ratio": this / par}
-        print(f"kernel {7 if k == 'fwd' else 8} ({k}) 'highest', flagship "
-              f"shape: parent {par:.3f} ms, this {this:.3f} ms, ratio "
-              f"{this / par:.4f} (turns parent, this, this, parent)",
-              flush=True)
+    # 'highest', and 'fast' where both libraries take a mode
+    with_mode = {tag: takes_mode(sources[tag]) for tag in libs}
+    modes = [0, 2] if all(with_mode.values()) else [0]
+    summary["bit_equal"] = {}
+    for mode in modes:
+        run = {tag: runner(so, with_mode[tag], mode)
+               for tag, so in libs.items()}
+        outs = {tag: [t.clone() for t in fwd()] + [t.clone() for t in bwd()]
+                for tag, (fwd, bwd) in run.items()}
+        torch.cuda.synchronize()
+        summary["bit_equal"][names[mode]] = all(
+            torch.equal(a, b) for a, b in zip(outs["parent"], outs["this"]))
+        del outs
+        order = ["parent", "this", "this", "parent"] * args.turns
+        times = {(tag, k): [] for tag in run for k in ("fwd", "bwd")}
+        for tag in order:
+            fwd, bwd = run[tag]
+            times[tag, "fwd"].append(window_ms(fwd, 5))
+            times[tag, "bwd"].append(window_ms(bwd, 3))
+        for k in ("fwd", "bwd"):
+            par = sum(times["parent", k]) / len(times["parent", k])
+            this = sum(times["this", k]) / len(times["this", k])
+            summary["ms"][f"{k}_{names[mode]}"] = {
+                "parent": times["parent", k], "this": times["this", k],
+                "ratio": this / par}
+            print(f"kernel {7 if k == 'fwd' else 8} ({k}) '{names[mode]}', "
+                  f"flagship shape: parent {par:.3f} ms, this {this:.3f} ms, "
+                  f"ratio {this / par:.4f} (turns parent, this, this, "
+                  f"parent); outputs bit-equal "
+                  f"{summary['bit_equal'][names[mode]]}", flush=True)
+        del run
     print(json.dumps(summary), flush=True)
     return summary
 

@@ -14,8 +14,7 @@ PyTorch has no trace, so each step reads the matmul precision mode
 (ops/precision.py) when it is built and runs every call inside
 `matmul_precision_scope` of that mode: a step keeps the mode it was built
 under, whatever the mode is when it is called, as a JAX step keeps the
-mode it was traced with. The training step takes 'highest' and 'fast'
-(kernels 7 and 8 have no 'high' yet).
+mode it was traced with. The training step takes every mode.
 """
 
 from __future__ import annotations
@@ -26,8 +25,7 @@ from typing import Callable, Dict, Iterator, Optional
 import torch
 
 from ..losses import flow_mixture_loss
-from ..ops.precision import (get_matmul_precision, matmul_precision_scope,
-                             require_training_mode)
+from ..ops.precision import get_matmul_precision, matmul_precision_scope
 from ..parallel import dist
 
 
@@ -97,7 +95,10 @@ def make_train_step(model, optimizer, pnll_weight: float = 1.0,
     backward through the `train_decode` kernels (True) or through the
     decoder's modules under autograd (False); None takes the kernels on
     a CUDA tensor and the modules on a CPU tensor. True on a CPU tensor
-    raises: the kernels run only on the card.
+    raises: the kernels run only on the card. "plain" takes the
+    `train_decode` wrappers whatever the device: the kernels on a CUDA
+    tensor, their plain versions on a CPU tensor (a CPU run of the
+    kernel path's arithmetic, as tools/train_quality_ab.py makes it).
 
     Data-parallel (inside a process group of several ranks,
     parallel/dist.py): the clouds are this rank's shard of the global
@@ -109,11 +110,10 @@ def make_train_step(model, optimizer, pnll_weight: float = 1.0,
     on every rank, and the metrics its means.
 
     The matmul precision mode current at build time holds for every call:
-    'highest' or 'fast' (kernels 7 and 8, or the modules, in that mode;
-    the gradients keep it); 'high' raises ValueError (kernels 7 and 8
-    have no 'high' yet).
+    'highest', 'high' or 'fast' (kernels 7 and 8, or the modules, in that
+    mode; the gradients keep it).
     """
-    precision_mode = require_training_mode("make_train_step")
+    precision_mode = get_matmul_precision()
 
     def train_step(g_clouds: torch.Tensor, p_clouds: torch.Tensor,
                    generator: Optional[torch.Generator] = None,
@@ -123,7 +123,7 @@ def make_train_step(model, optimizer, pnll_weight: float = 1.0,
                    ) -> Dict[str, torch.Tensor]:
         on_card = p_clouds.device.type == "cuda"
         fused = on_card if fused_decoder is None else bool(fused_decoder)
-        if fused and not on_card:
+        if fused_decoder is True and not on_card:
             raise ValueError("fused_decoder=True needs CUDA tensors: the "
                              "train_decode kernels run only on the card")
         posterior_eps = _global_posterior_eps(model, g_clouds, generator,

@@ -280,14 +280,17 @@ def test_multi_process_is_refused(tmp_path, flags):
 @pytest.mark.parametrize("key", ["matmul_precision",
                                  "eval_matmul_precision"])
 def test_precision_other_than_highest_is_refused(workdir, key):
-    """train_ae refuses 'high' under `matmul_precision` (kernels 7 and 8
-    have no 'high' yet), before it reads anything; it does not read
+    """train_ae takes 'high' under `matmul_precision` (its training:
+    tests/test_torch_port_train_precision.py) and refuses a name that is
+    no mode before it reads anything; it does not read
     `eval_matmul_precision`, which the JAX training scripts do not read
-    either ('fast' training: tests/test_torch_port_train_precision.py)."""
+    either."""
     config = dict(load_config(os.path.join(workdir["exp"], "config.yaml")),
                   **{key: "high"})
     if key == "matmul_precision":
-        with pytest.raises(ValueError, match="highest"):
-            train_ae.run(config, None, None, "cpu")
+        assert training_precision(config) == "high"
+        with pytest.raises(ValueError, match="must be one of"):
+            train_ae.run(dict(config, matmul_precision="tf32"), None, None,
+                         "cpu")
     else:
         assert training_precision(config) == "highest"

@@ -416,10 +416,60 @@ def _rel_norm(got, want):
     return ((got - want).norm() / want.norm()).item()
 
 
+# chip_smoke.py's TRAIN_MODE_BOUNDS: p0, the logvar sum and the saved
+# states (atol, relative norm), the statistics (atol, rtol), kernel 8's dp
+# in norm and every gradient by its own largest entry, the mode's effect
+# on p0 and dW1
+REDUCED_BOUNDS = {
+    "fast": dict(atol=5e-2, norm=1e-2, stats=(1e-4, 1e-3), dp_norm=1e-2,
+                 grad=3e-2, gap=0.5),
+    "high": dict(atol=2e-4, norm=3e-5, stats=(1e-6, 1e-5), dp_norm=1e-3,
+                 grad=3e-2, gap=0.9),
+}
+
+
+def _reduced_kernels(device, f, B, N, mode):
+    lim = REDUCED_BOUNDS[mode]
+    packed, ab, p = _train_decode_inputs(device, f, B, N, f + 2)
+    gen = torch.Generator(device=device).manual_seed(f)
+    dp0 = torch.randn(p.shape, device=device, generator=gen)
+    dlv = torch.randn(p.shape, device=device, generator=gen)
+    before = (train_decode_fwd.launches_by_mode[mode],
+              train_decode_bwd.launches_by_mode[mode])
+    out = {}
+    for m in ("highest", mode):
+        got = train_decode_fwd(packed, ab, p, m)
+        want = train_decode_fwd_plain(packed, ab, p, m)
+        kb = train_decode_bwd(packed, ab, *got[2:], dp0, dlv, m)
+        pb = train_decode_bwd_plain(packed, ab, *want[2:], dp0, dlv, m)
+        out[m] = (got, want, kb, pb)
+    got, want, kb, pb = out[mode]
+    for a, b in zip(got[:3], want[:3]):
+        torch.testing.assert_close(a, b, rtol=0, atol=lim["atol"])
+        assert _rel_norm(a, b) <= lim["norm"]
+    s_atol, s_rtol = lim["stats"]
+    torch.testing.assert_close(got[3], want[3], rtol=s_rtol, atol=s_atol)
+    hg, hw, hkb, hpb = out["highest"]
+    assert _effect_gap(got[0], hg[0], want[0], hw[0]) <= lim["gap"]
+    assert _effect_gap(kb[1]["w1"], hkb[1]["w1"], pb[1]["w1"],
+                       hpb[1]["w1"]) <= lim["gap"]
+    same = train_decode_bwd_plain(packed, ab, *got[2:], dp0, dlv, mode)
+    assert _rel_norm(kb[0], same[0]) <= lim["dp_norm"]
+    for k, w in same[1].items():
+        assert _rel_err(kb[1][k], w) < lim["grad"], k
+    assert _rel_err(kb[2], same[2]) < lim["grad"]
+    again = train_decode_fwd(packed, ab, p, mode)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    again = train_decode_bwd(packed, ab, *got[2:], dp0, dlv, mode)
+    assert torch.equal(kb[0], again[0])
+    assert (train_decode_fwd.launches_by_mode[mode] - before[0],
+            train_decode_bwd.launches_by_mode[mode] - before[1]) == (2, 2)
+
+
 @pytest.mark.parametrize("f,B,N", [(8, 3, 333), (37, 4, 700), (64, 2, 129)])
 def test_train_decode_fast_kernels(device, f, B, N):
     """Kernels 7 and 8 at 'fast' against their 'fast' plain versions, with
-    chip_smoke.py's bounds (check_train_decode_fast): two sum orders can
+    chip_smoke.py's bounds (check_train_decode_mode): two sum orders can
     put an operand on either side of a bf16 rounding boundary, where it
     moves a bf16 step, and the couplings carry that on. p0, the logvar
     sum and the saved states within 5e-2 and 1e-2 in norm, the statistics
@@ -429,45 +479,21 @@ def test_train_decode_fast_kernels(device, f, B, N):
     plain version's in rms, each version's 'highest' on its own
     residuals; two launches bit-equal; the launches counted under
     'fast'."""
-    packed, ab, p = _train_decode_inputs(device, f, B, N, f + 2)
-    gen = torch.Generator(device=device).manual_seed(f)
-    dp0 = torch.randn(p.shape, device=device, generator=gen)
-    dlv = torch.randn(p.shape, device=device, generator=gen)
-    fast = (train_decode_fwd.launches_by_mode["fast"],
-            train_decode_bwd.launches_by_mode["fast"])
-    out = {}
-    for mode in ("highest", "fast"):
-        got = train_decode_fwd(packed, ab, p, mode)
-        want = train_decode_fwd_plain(packed, ab, p, mode)
-        kb = train_decode_bwd(packed, ab, *got[2:], dp0, dlv, mode)
-        pb = train_decode_bwd_plain(packed, ab, *want[2:], dp0, dlv, mode)
-        out[mode] = (got, want, kb, pb)
-    got, want, kb, pb = out["fast"]
-    for a, b in zip(got[:3], want[:3]):
-        torch.testing.assert_close(a, b, rtol=0, atol=5e-2)
-        assert _rel_norm(a, b) <= 1e-2
-    torch.testing.assert_close(got[3], want[3], rtol=1e-3, atol=1e-4)
-    hg, hw, hkb, hpb = out["highest"]
-    assert _effect_gap(got[0], hg[0], want[0], hw[0]) <= 0.5
-    assert _effect_gap(kb[1]["w1"], hkb[1]["w1"], pb[1]["w1"],
-                       hpb[1]["w1"]) <= 0.5
-    same = train_decode_bwd_plain(packed, ab, *got[2:], dp0, dlv, "fast")
-    assert _rel_norm(kb[0], same[0]) <= 1e-2
-    for k, w in same[1].items():
-        assert _rel_err(kb[1][k], w) < 3e-2, k
-    assert _rel_err(kb[2], same[2]) < 3e-2
-    again = train_decode_fwd(packed, ab, p, "fast")
-    assert all(torch.equal(a, b) for a, b in zip(got, again))
-    again = train_decode_bwd(packed, ab, *got[2:], dp0, dlv, "fast")
-    assert torch.equal(kb[0], again[0])
-    assert (train_decode_fwd.launches_by_mode["fast"] - fast[0],
-            train_decode_bwd.launches_by_mode["fast"] - fast[1]) == (2, 2)
+    _reduced_kernels(device, f, B, N, "fast")
 
 
-def test_train_step_fast_runs_through_the_kernels(device):
-    """A make_train_step step built at 'fast' launches kernels 7 and 8 in
-    that mode, whatever mode is current when it is called, and gives
-    finite metrics that differ from the 'highest' step's."""
+@pytest.mark.parametrize("f,B,N", [(8, 3, 333), (37, 4, 700), (64, 2, 129)])
+def test_train_decode_high_kernels(device, f, B, N):
+    """Kernels 7 and 8 at 'high' against their 'high' plain versions, as
+    the test above with REDUCED_BOUNDS["high"] (chip_smoke.py's)."""
+    _reduced_kernels(device, f, B, N, "high")
+
+
+@pytest.mark.parametrize("other", ["fast", "high"])
+def test_train_step_fast_runs_through_the_kernels(device, other):
+    """A make_train_step step built at 'fast' (or 'high') launches kernels
+    7 and 8 in that mode, whatever mode is current when it is called, and
+    gives finite metrics that differ from the 'highest' step's."""
     import copy
 
     config = dict(n_components=2, g_latent_space_size=12, g_prior_n_flows=2,
@@ -482,7 +508,7 @@ def test_train_step_fast_runs_through_the_kernels(device):
     clouds = 0.3 * torch.randn(4, 3, 300, device=device, generator=gen)
     eps = torch.randn(4, 12, device=device, generator=gen)
     losses = {}
-    for mode in ("highest", "fast"):
+    for mode in ("highest", other):
         model = copy.deepcopy(base).to(device)
         with matmul_precision_scope(mode):
             step = make_train_step(model, make_optimizer(
@@ -491,4 +517,4 @@ def test_train_step_fast_runs_through_the_kernels(device):
         losses[mode] = float(step(clouds, clouds, posterior_eps=eps)["loss"])
         assert train_decode_fwd.launches_by_mode[mode] == before[mode] + 1
     assert all(torch.isfinite(torch.tensor(v)) for v in losses.values())
-    assert losses["fast"] != losses["highest"]
+    assert losses[other] != losses["highest"]

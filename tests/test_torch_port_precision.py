@@ -70,14 +70,13 @@ from go_with_the_flows_tpu_torch.ops.kernels.point_decode import (
     point_decode,
     point_decode_plain,
 )
-from go_with_the_flows_tpu_torch.ops.kernels.train_decode import (
-    fused_train_decode)
 from go_with_the_flows_tpu_torch.ops.layers import Linear, SharedDot
 from go_with_the_flows_tpu_torch.ops.precision import (
     bf16_round,
     get_matmul_precision,
     matmul_precision_scope,
     mxdot,
+    resolve,
 )
 from go_with_the_flows_tpu_torch.optim import make_optimizer
 from go_with_the_flows_tpu_torch.tools import eval_precision_ab
@@ -368,20 +367,18 @@ def test_a_step_keeps_the_mode_it_was_built_under(tiny_model, kind):
 
 @pytest.mark.parametrize("mode", ["high", "fast", "default"])
 def test_training_refuses_other_modes(tiny_model, mode):
-    """'high' training is refused, naming the next slice; 'fast' (and its
-    alias 'default') and 'highest' build."""
+    """Training takes every mode: 'high', 'fast' (and its alias
+    'default') and 'highest' build a train step; only a name that is no
+    mode is refused."""
     opt = make_optimizer(list(tiny_model.parameters()), epoch_length=1,
                          cycle_length=1, min_lr=1e-4, max_lr=1e-4,
                          beta1=0.9, min_beta2=0.99, max_beta2=0.99, wd=0.0)
     with matmul_precision_scope(mode):
-        if mode == "high":
-            with pytest.raises(ValueError, match="next slice"):
-                make_train_step(tiny_model, opt)
-            with pytest.raises(ValueError, match="next slice"):
-                fused_train_decode({}, torch.zeros(1), torch.zeros(1))
-        else:
-            make_train_step(tiny_model, opt)
+        make_train_step(tiny_model, opt)
+        assert resolve(None) == ("fast" if mode == "default" else mode)
     make_train_step(tiny_model, opt)  # 'highest' builds
+    with pytest.raises(ValueError, match="must be one of"):
+        resolve("tf32")
 
 
 def test_metrics_are_bit_equal_across_modes():
@@ -494,5 +491,20 @@ def test_eval_ab_run_prints_every_jax_key(capsys):
             assert np.isfinite(results[mode][key][0])
     assert results["highest"]["max_point_drift_vs_first_mode"][0] == 0.0
     assert results["fast"]["max_point_drift_vs_first_mode"][0] > 0.0
-    assert "# trains at 'highest'" in out
+    assert "# trains at" not in out
     json.dumps(results)
+
+
+def test_eval_ab_trains_at_high(monkeypatch):
+    """The tool trains its model at 'high', as the JAX tool does."""
+    seen = []
+    real = eval_precision_ab.make_train_step
+
+    def build(*args, **kwargs):
+        seen.append(get_matmul_precision())
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(eval_precision_ab, "make_train_step", build)
+    eval_precision_ab.train(TINY, 64, 1, 4, "cpu")
+    assert seen == ["high"]
+    assert get_matmul_precision() == "highest"

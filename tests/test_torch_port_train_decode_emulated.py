@@ -1,5 +1,5 @@
 """The train-decode kernels' CUDA source (kernels 7 and 8,
-go_with_the_flows_tpu_torch/csrc/train_decode.cu) built by g++ against a
+go_with_the_flows_tpu_torch/csrc/train_decode*.cu*) built by g++ against a
 CPU stand-in for CUDA (tests/cuda_cpu_emulation.h) and run on the CPU
 through its C entry points, against the plain PyTorch versions: the
 kernels' indexing, padding, ragged segments, partial-row layout and
@@ -20,10 +20,16 @@ process, in lockstep, their exchange a plain sum of the two shards'
 partial sums, against the single entry on the whole batch.
 
 The 'fast' instantiations (MODE 2: bf16-rounded operands, fp32 sums; the
-weights rounded by `kernel_weights_train`) run against the 'fast' plain
-versions at f=5 and f=33, with the mode in force (their effect against
-the plain versions'), and in their SPMD form against the single entries;
-the entry points take the mode before the stream."""
+weights rounded by `kernel_weights_train`) and the 'high' ones (MODE 1:
+three bf16 products of the operands' hi and lo parts, the weights split
+by `kernel_weights_train`) run against the plain versions of their mode
+at f=5 and f=33, with the mode in force (their effect against the plain
+versions'), and in their SPMD form against the single entries; the entry
+points take the mode before the stream.
+
+The source is a header of kernels (train_decode.cuh) and four units that
+include it (the entry points and one per mode), each compiled by its own
+g++, all at once, as build.py runs nvcc."""
 
 import ctypes
 import os
@@ -48,8 +54,13 @@ from go_with_the_flows_tpu_torch.ops.kernels.train_decode import (
 from go_with_the_flows_tpu_torch.models.mixture import FlowMixtureModel
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-SOURCE = os.path.join(os.path.dirname(HERE), "go_with_the_flows_tpu_torch",
-                      "csrc", "train_decode.cu")
+CSRC = os.path.join(os.path.dirname(HERE), "go_with_the_flows_tpu_torch",
+                    "csrc")
+# the kernels (a header) and the units that include it: the entry points
+# and each precision mode's instantiations
+HEADER = "train_decode.cuh"
+UNITS = ("train_decode.cu", "train_decode_highest.cu", "train_decode_high.cu",
+         "train_decode_fast.cu")
 
 
 def _emulated_source(text: str) -> str:
@@ -72,22 +83,43 @@ def _emulated_source(text: str) -> str:
     return text
 
 
+def build_emulated(csrc, out):
+    """The sources in `csrc` rewritten for the emulation into `out`, each
+    unit compiled by its own g++, all at once, and linked into
+    out/libtrain_decode.so; returns its path."""
+    gxx = shutil.which("g++")
+    for name in (HEADER,) + UNITS:
+        with open(os.path.join(csrc, name)) as f:
+            text = _emulated_source(f.read())
+        (out / (name if name == HEADER else name[:-3] + ".cpp")).write_text(
+            text)
+    objs = [out / (name[:-3] + ".o") for name in UNITS]
+    procs = [subprocess.Popen([gxx, "-std=c++20", "-O1", "-fPIC", "-c",
+                               "-I", HERE, "-I", str(out), "-o", str(obj),
+                               str(out / (name[:-3] + ".cpp"))],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for name, obj in zip(UNITS, objs)]
+    logs = [p.communicate()[0] for p in procs]
+    so = out / "libtrain_decode.so"
+    for name, p, log in zip(UNITS, procs, logs):
+        if p.returncode != 0:
+            raise RuntimeError(f"g++ failed on the emulated {name}:\n"
+                               f"{log[-4000:]}")
+    linked = subprocess.run([gxx, "-shared", "-o", str(so)]
+                            + [str(o) for o in objs] + ["-lpthread"],
+                            capture_output=True, text=True)
+    if linked.returncode != 0:
+        raise RuntimeError(f"linking the emulated units failed:\n"
+                           f"{linked.stderr[-4000:]}")
+    return so
+
+
 @pytest.fixture(scope="module")
 def lib(tmp_path_factory):
-    gxx = shutil.which("g++")
-    if gxx is None:
+    if shutil.which("g++") is None:
         pytest.skip("needs g++ to build the CUDA source against the emulation")
-    out = tmp_path_factory.mktemp("emulated")
-    cpp = out / "train_decode.cpp"
-    with open(SOURCE) as f:
-        cpp.write_text(_emulated_source(f.read()))
-    so = out / "libtrain_decode.so"
-    built = subprocess.run([gxx, "-std=c++20", "-O1", "-shared", "-fPIC",
-                            "-I", HERE, "-o", str(so), str(cpp), "-lpthread"],
-                           capture_output=True, text=True)
-    if built.returncode != 0:
-        raise RuntimeError(f"g++ failed on the emulated source:\n"
-                           f"{built.stderr[-4000:]}")
+    so = build_emulated(CSRC, tmp_path_factory.mktemp("emulated"))
     lib = ctypes.CDLL(str(so))
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.gwtf_train_decode_fwd.argtypes = [P] * 13 + [I] * 6 + [P]
@@ -312,12 +344,14 @@ def test_emulated_train_decode_spmd(lib, f, B, N):
 # ------------------------------------------------------------------ #
 
 FAST = 2  # the kernels' MODE for 'fast' (point_decode.KERNEL_MODES)
+HIGH = 1
 
 
-def _fast_weights(packed):
-    """The packed arrays as the 'fast' kernels read them: W1 and W2
-    rounded for the forward, W0 too for the backward."""
-    kw = kernel_weights_train(dict(packed), "fast")
+def _mode_weights(packed, mode):
+    """The packed arrays as the kernels of `mode` read them: W1 and W2
+    rounded (at 'high' split) for the forward, W0 too for the
+    backward."""
+    kw = kernel_weights_train(dict(packed), mode)
     fwd = [packed["w0"], packed["bn0_scale"], packed["bn0_bias"], kw["w1"],
            kw["w2"], packed["b2"]]
     return fwd, [kw["w0"]] + fwd[1:]
@@ -353,7 +387,7 @@ def test_emulated_train_decode_fast(lib, f, B, N):
     Two launches of each give equal bits."""
     packed, ab, p = _inputs(f, B, N, f + 3)
     K, C = p.shape[0], packed["w1"].shape[1]
-    fws, bws = _fast_weights(packed)
+    fws, bws = _mode_weights(packed, "fast")
     hws = [packed[k] for k in _KERNEL_KEYS]
 
     def fwd(ws, mode):
@@ -384,7 +418,7 @@ def test_emulated_train_decode_fast(lib, f, B, N):
     dlv = torch.randn(p.shape, generator=gen)
 
     def bwd(ws, mode, xsave, stats):
-        out = [torch.empty_like(dp0)] + [torch.empty_like(w) for w in ws] + [
+        out = [torch.empty_like(dp0)] + [torch.empty_like(w) for w in hws] + [
             torch.empty_like(ab)]
         work = torch.full((lib.gwtf_train_decode_workspace(1, K, B, C, N, f),),
                           float("nan"))
@@ -410,22 +444,26 @@ def test_emulated_train_decode_fast(lib, f, B, N):
         assert torch.equal(a, b)
 
 
-def test_emulated_train_decode_spmd_fast(lib):
-    """Kernels 7 and 8 at 'fast' in their SPMD form on two shards (f=13,
-    B=4, N=130) against the single entries at 'fast' on the whole batch,
-    with test_emulated_train_decode_fast's bounds (the shards' sums come
-    in another order, which can move an operand a bf16 step)."""
+def _spmd_mode(lib, mode, atol, off_share, stats_rtol, dp_rel, grad_rel):
+    """Kernels 7 and 8 in `mode` in their SPMD form on two shards (f=13,
+    B=4, N=130) against the single entries in `mode` on the whole batch:
+    p0, the logvar sum and the saved states within `atol` with at most
+    `off_share` of them beyond 1e-4, the statistics `stats_rtol` (atol
+    1e-4); dp within `dp_rel`, the weight gradients summed over the
+    shards and dab within `grad_rel`, each of its largest entry."""
+    code = {"high": HIGH, "fast": FAST}[mode]
     f, B, N = 13, 4, 130
     packed, ab, p = _inputs(f, B, N, f + 4)
     K, C = p.shape[0], packed["w1"].shape[1]
-    fws, bws = _fast_weights(packed)
+    fws, bws = _mode_weights(packed, mode)
+    hws = [packed[k] for k in _KERNEL_KEYS]
     whole = [torch.empty_like(p), torch.empty_like(p),
              p.new_empty(K, C, B, 3, N), p.new_empty(K, C, 4, 2 * f)]
     work = torch.full((lib.gwtf_train_decode_workspace(0, K, B, C, N, f),),
                       float("nan"))
     args = [p] + fws + [ab] + whole + [work]
     assert lib.gwtf_train_decode_fwd(*(t.data_ptr() for t in args), K, B, C,
-                                     N, f, FAST, None) == 0
+                                     N, f, code, None) == 0
     fwd, gens = [], []
     for ps, abs_ in zip(_shards(p, 1, B), _shards(ab, 1, B)):
         b = ps.shape[1]
@@ -435,40 +473,153 @@ def test_emulated_train_decode_spmd_fast(lib):
             (lib.gwtf_train_decode_workspace(0, K, b, C, N, f),), float("nan"))
         fwd.append(out)
         gens.append(_spmd_fwd(lib, [ps] + fws + [abs_] + out + [work],
-                              (K, b, C, N, f), B * N, None, FAST))
+                              (K, b, C, N, f), B * N, None, code))
     _lockstep(gens)
     for i, dim in enumerate((1, 1, 2)):
         got = torch.cat([o[i] for o in fwd], dim)
-        torch.testing.assert_close(got, whole[i], rtol=0, atol=5e-3)
-        assert _off_share(got, whole[i]) <= 5e-3
+        torch.testing.assert_close(got, whole[i], rtol=0, atol=atol)
+        assert _off_share(got, whole[i]) <= off_share
     for o in fwd:
-        torch.testing.assert_close(o[3], whole[3], rtol=1e-3, atol=1e-4)
+        torch.testing.assert_close(o[3], whole[3], rtol=stats_rtol,
+                                   atol=1e-4)
 
     _, _, xsave, stats = whole
     gen = torch.Generator().manual_seed(f)
     dp0 = torch.randn(p.shape, generator=gen)
     dlv = torch.randn(p.shape, generator=gen)
-    want = [torch.empty_like(dp0)] + [torch.empty_like(w) for w in bws] + [
+    want = [torch.empty_like(dp0)] + [torch.empty_like(w) for w in hws] + [
         torch.empty_like(ab)]
     work = torch.full((lib.gwtf_train_decode_workspace(1, K, B, C, N, f),),
                       float("nan"))
     args = [xsave, stats] + bws + [ab, dp0, dlv] + want + [work]
     assert lib.gwtf_train_decode_bwd(*(t.data_ptr() for t in args), K, B, C,
-                                     N, f, FAST, None) == 0
+                                     N, f, code, None) == 0
     bwd, gens = [], []
     for xs, abs_, d0, dl in zip(_shards(xsave, 2, B), _shards(ab, 1, B),
                                 _shards(dp0, 1, B), _shards(dlv, 1, B)):
         b = d0.shape[1]
         out = [torch.empty_like(d0)] + [torch.full_like(w, float("nan"))
-                                        for w in bws] + [
+                                        for w in hws] + [
             torch.empty_like(abs_)]
         work = torch.full(
             (lib.gwtf_train_decode_workspace(2, K, b, C, N, f),), float("nan"))
         bwd.append(out)
         gens.append(_spmd_bwd(lib, [xs, stats] + bws + [abs_, d0, dl] + out
-                              + [work], (K, b, C, N, f), B * N, None, FAST))
+                              + [work], (K, b, C, N, f), B * N, None, code))
     _lockstep(gens)
-    assert _rel_err(torch.cat([o[0] for o in bwd], 1), want[0]) < 1e-2
+    assert _rel_err(torch.cat([o[0] for o in bwd], 1), want[0]) < dp_rel
     for i, k in enumerate(_KERNEL_KEYS, 1):
-        assert _rel_err(bwd[0][i] + bwd[1][i], want[i]) < 3e-2, k
-    assert _rel_err(torch.cat([o[-1] for o in bwd], 1), want[-1]) < 3e-2
+        assert _rel_err(bwd[0][i] + bwd[1][i], want[i]) < grad_rel, k
+    assert _rel_err(torch.cat([o[-1] for o in bwd], 1), want[-1]) < grad_rel
+
+
+def test_emulated_train_decode_spmd_fast(lib):
+    """Kernels 7 and 8 at 'fast' in their SPMD form against the single
+    entries (`_spmd_mode`), with test_emulated_train_decode_fast's bounds
+    (the shards' sums come in another order, which can move an operand a
+    bf16 step)."""
+    _spmd_mode(lib, "fast", 5e-3, 5e-3, 1e-3, 1e-2, 3e-2)
+
+
+
+# ------------------------------------------------------------------ #
+# 'high' (MODE 1)                                                     #
+# ------------------------------------------------------------------ #
+
+# 'high' against its plain version: kernel 7's p0, logvar sum and saved
+# states atol, its statistics rtol (atol 1e-5), kernel 8's bound relative
+# to each output's largest entry by f, and the mode's effect on each (as
+# _mode_gap) for kernel 7 and for kernel 8
+HIGH_FWD_ATOL = 5e-5
+HIGH_STATS_RTOL = 2e-4
+HIGH_BWD_REL = {5: 4e-6, 33: 1.2e-5}
+HIGH_FWD_GAP = 0.5
+HIGH_BWD_GAP = 0.05
+
+
+@pytest.mark.parametrize("f,B,N", [(5, 2, 600), (33, 1, 600)])
+def test_emulated_train_decode_high(lib, f, B, N):
+    """Kernels 7 and 8 at 'high' (the hi parts of W0, W1 and W2 followed
+    by their lo parts, `kernel_weights_train`; x, a, fz, dy, dh2 and dh0
+    split in the kernels) against their 'high' plain versions, at f=5
+    (padded to 8) and f=33 (to 40), two 512-point segments, the last
+    ragged. Measured: kernel 7's outputs within 7.0e-6 (its 'highest'
+    instantiation 2.4e-7 off its own plain version; the mode's effect
+    itself 1.1e-5 to 1.7e-5), the statistics within 4.3e-5 relative, the
+    mode's effect within 0.08-0.23 of the plain version's (a kernel that
+    ignores the mode reads 1); kernel 8 within 1.4e-6 (f=5) and 3.7e-6
+    (f=33) of each output's largest entry, its effect of the mode within
+    1.1e-2 (the effect itself 3e-5 to 2e-2). HIGH_FWD_ATOL and the others
+    hold them with a margin of 3 to 7, HIGH_BWD_REL of 3. Two launches
+    give equal bits. Copies of the source with one product's term gone
+    fail: one whose hidden pass drops lo(W1) hi(a) misses the forward's
+    bounds (a third of p0 off by more than 5e-5), one whose B1 takes dh2
+    unsplit (its fp32 value for hi + lo and for hi) misses HIGH_BWD_REL
+    at f=5 (the bn0 gradients 8.5e-6 off, dp 4e-6), though its outputs
+    differ from the 'high' ones only by the terms below 2^-16 that 'high'
+    leaves out."""
+    packed, ab, p = _inputs(f, B, N, f + 5)
+    K, C = p.shape[0], packed["w1"].shape[1]
+    fws, bws = _mode_weights(packed, "high")
+    hws = [packed[k] for k in _KERNEL_KEYS]
+
+    def fwd(ws, mode):
+        got = [torch.empty_like(p), torch.empty_like(p),
+               p.new_empty(K, C, B, 3, N), p.new_empty(K, C, 4, 2 * f)]
+        work = torch.full((lib.gwtf_train_decode_workspace(0, K, B, C, N, f),),
+                          float("nan"))
+        args = [p] + ws + [ab] + got + [work]
+        assert lib.gwtf_train_decode_fwd(*(t.data_ptr() for t in args), K, B,
+                                         C, N, f, mode, None) == 0
+        return got
+
+    got, hi = fwd(fws, HIGH), fwd(hws, 0)
+    want = train_decode_fwd_plain(packed, ab, p, "high")
+    want_hi = train_decode_fwd_plain(packed, ab, p, "highest")
+    for i in range(3):
+        torch.testing.assert_close(got[i], want[i], rtol=0,
+                                   atol=HIGH_FWD_ATOL)
+    for i in range(2):
+        assert _mode_gap(got[i], hi[i], want[i], want_hi[i]) <= HIGH_FWD_GAP
+    torch.testing.assert_close(got[3], want[3], rtol=HIGH_STATS_RTOL,
+                               atol=1e-5)
+    for a, b in zip(got, fwd(fws, HIGH)):
+        assert torch.equal(a, b)
+
+    _, _, xsave, stats = want
+    gen = torch.Generator().manual_seed(f)
+    dp0 = torch.randn(p.shape, generator=gen)
+    dlv = torch.randn(p.shape, generator=gen)
+
+    def bwd(ws, mode, xsave, stats):
+        out = [torch.empty_like(dp0)] + [torch.empty_like(w) for w in hws] + [
+            torch.empty_like(ab)]
+        work = torch.full((lib.gwtf_train_decode_workspace(1, K, B, C, N, f),),
+                          float("nan"))
+        args = [xsave, stats] + ws + [ab, dp0, dlv] + out + [work]
+        assert lib.gwtf_train_decode_bwd(*(t.data_ptr() for t in args), K, B,
+                                         C, N, f, mode, None) == 0
+        return out
+
+    kb = bwd(bws, HIGH, xsave, stats)
+    dp, grads, dab = train_decode_bwd_plain(packed, ab, xsave, stats, dp0,
+                                            dlv, "high")
+    kb_hi = bwd(hws, 0, *hi[2:])
+    dp_hi, grads_hi, dab_hi = train_decode_bwd_plain(
+        packed, ab, *want_hi[2:], dp0, dlv, "highest")
+    plain = [dp] + [grads[k] for k in _KERNEL_KEYS] + [dab]
+    plain_hi = [dp_hi] + [grads_hi[k] for k in _KERNEL_KEYS] + [dab_hi]
+    for a, b, a_hi, b_hi in zip(kb, plain, kb_hi, plain_hi):
+        assert _rel_err(a, b) < HIGH_BWD_REL[f]
+        assert _mode_gap(a, a_hi, b, b_hi) <= HIGH_BWD_GAP
+    for a, b in zip(kb, bwd(bws, HIGH, xsave, stats)):
+        assert torch.equal(a, b)
+
+
+def test_emulated_train_decode_spmd_high(lib):
+    """Kernels 7 and 8 at 'high' in their SPMD form against the single
+    entries at 'high' (`_spmd_mode`): the saved states within 1e-5
+    (measured 2.0e-6), the statistics rtol 1e-4 (measured 3.6e-5 of the
+    larger of the value and 1e-4), dp and the gradients within 1e-6
+    (measured 0 and 7e-8)."""
+    _spmd_mode(lib, "high", 1e-5, 0.0, 1e-4, 1e-6, 1e-6)
