@@ -18,7 +18,10 @@ non-zero at the first failure:
      kernels 1, 2, 3 and 6 keep no stack frame; kernels 7 and 8 by
      precision mode ('highest', 'high' and 'fast', each pass at FP
      8-64): the hidden and update passes spill in no mode, B1 and B2 at
-     most 128 registers with no spill in every mode;
+     most 128 registers with no spill in every mode; their SASS
+     (`cuobjdump -sass`): kernel 8's head, B1 and B2 at 'high' and 'fast'
+     hold HMMA instructions at every FP (their W1 products on the tensor
+     cores), no 'highest' function of kernels 7 and 8 does;
   2. kernels: each kernel against its plain PyTorch version at the main
      path's shapes (jiggled BatchNorm statistics), with times, kernel 1
      in each matmul precision mode against the plain version of that
@@ -28,7 +31,8 @@ non-zero at the first failure:
      against the plain versions of their mode (check_train_decode_mode:
      9 narrow couplings, a ragged N, a small batch and the flagship
      shape, timed beside 'highest' in one window, the mode in force on p0
-     and dW1); the EMD
+     and dW1; the bf16 torch.bmm times of kernel 8's W1 and dW1 products
+     and its cache traffic at the HBM rate as yardsticks); the EMD
      kernels also at ragged and unequal sizes and at the SVR protocol's
      2500 points, the EMD backward through autograd, and the EMD grid
      against the paired EMD kernel bit for bit;
@@ -48,7 +52,8 @@ non-zero at the first failure:
      at 'fast' and at 'high': one step kernels against modules (the loss
      and the gradient in norm: not one function outside 'highest'),
      twenty kernel-path steps built under the mode whose losses fall,
-     their launches counted by mode, and their ms/step;
+     their launches counted by mode, and their ms/step; kernel 8 by pass
+     in each mode in one window (profiled calls in turns);
   5. loop: the flagship model through the train-and-validate path at
      B=64 on seeded in-memory clouds served by the port's DataLoader:
      `train` for one epoch of 4 steps (kernels 7 and 8) with its
@@ -80,7 +85,7 @@ non-zero at the first failure:
      ms/step in turns, peak memory, and a profiled step's busy time, the
      ResNet's share of it and kernels 7 and 8; kernels 7 and 8 at 'fast'
      and 'high' at the SVR shapes and two SVR train steps built under
-     each;
+     each, and one more profiled (the card's busy time);
   7. cli: the four command-line entry points' `run` functions (cli/
      train_ae, evaluate_ae, reconstruct_ae, train_svr), their arguments
      parsed as scripts/*.sh give them, on in-memory ShapeNet layouts
@@ -437,6 +442,7 @@ def phase_build():
         say(f"    ptxas point_decode_kernel {mode}: registers by FP "
             + ", ".join(f"{fp} {r}" for fp, r in sorted(set(rows))))
     check_train_decode_ptxas(report)
+    check_train_decode_hmma(build.LIB_PATH)
 
 
 # kernels 7 and 8's passes templated on <FP, MODE>
@@ -480,6 +486,44 @@ def check_train_decode_ptxas(report):
                     or any(s for _, s in got.values())):
                 fail(f"{kernel}_kernel {mode}: above 128 registers or "
                      "spilling")
+
+
+# kernel 8's passes whose W1 products are on the tensor cores at 'high'
+# and 'fast' (csrc/mma_bf16.cuh)
+TENSOR_CORE_PASSES = ("bwd_head_kernel", "bwd_hidden_kernel",
+                      "bwd_dw1_kernel")
+
+
+def check_train_decode_hmma(lib_path):
+    """The SASS (`cuobjdump -sass`) of kernels 7 and 8: the head, B1 and
+    B2 at 'high' and 'fast' (MODE 1, 2) hold HMMA instructions at every
+    FP 8-64, and no 'highest' (MODE 0) function of the two kernels
+    holds one."""
+    from go_with_the_flows_tpu_torch.tools.train_decode_ab import (
+        kernel_key, sass_functions)
+
+    hmma = {}
+    for name, lines in sass_functions(lib_path).items():
+        key = kernel_key(name)
+        if key is not None:
+            hmma[key] = sum(1 for line in lines if "HMMA" in line)
+    if not hmma:
+        fail("cuobjdump -sass shows no function of kernels 7 and 8")
+    for kernel in TENSOR_CORE_PASSES:
+        for mode in (1, 2):
+            got = {fp: n for (k, fp, m), n in hmma.items()
+                   if k == kernel and m == mode}
+            say(f"    SASS {kernel} {MODES[mode]}: HMMA by FP "
+                + ", ".join(f"{fp} {n}" for fp, n in sorted(got.items())))
+            if sorted(got) != list(range(8, 72, 8)) or min(got.values()) < 1:
+                fail(f"{kernel} {MODES[mode]}: not every FP 8-64 holds "
+                     "HMMA instructions")
+    highest = sorted(f"{k}<{fp}>" for (k, fp, m), n in hmma.items()
+                     if m == 0 and n)
+    say(f"    SASS: {sum(1 for k in hmma if k[2] == 0)} 'highest' functions "
+        f"of kernels 7 and 8, {len(highest)} with HMMA")
+    if highest:
+        fail(f"'highest' functions hold HMMA instructions: {highest}")
 
 
 def check_close(what, got, want, atol, rtol=0.0):
@@ -1064,35 +1108,86 @@ def check_train_decode_mode(config, B, N, seed, timed, mode,
     return max(errs), bwd_err, times
 
 
-def w1_bmm_ms(K, n, f, C):
+def w1_bmm_ms(K, n, f, C, dtype=None):
     """C times one torch.bmm of one coupling's hidden W1 product, (2K, f,
-    f) by (2K, f, n) (random values), at fp32 'highest': the library
-    yardstick of kernel 1 and of kernel 7's hidden pass (their W1
-    products alone, without the FiLM, the BatchNorms, the cache and the
-    sums), which the port never calls."""
+    f) by (2K, f, n) (random values), at fp32 'highest' (or in `dtype`,
+    torch.bfloat16 for the 'high' and 'fast' rows): the library yardstick
+    of kernel 1 and of kernel 7's hidden pass (their W1 products alone,
+    without the FiLM, the BatchNorms, the cache and the sums), and of
+    kernel 8's head and B1 (one W1 product each), which the port never
+    calls."""
     import torch
 
     if torch.get_float32_matmul_precision() != "highest":
         fail("the fp32 matmul precision is not 'highest'")
     gen = torch.Generator(device="cuda").manual_seed(0)
-    w1 = torch.randn(2 * K, f, f, device="cuda", generator=gen)
-    a = torch.randn(2 * K, f, n, device="cuda", generator=gen)
+    dt = dtype or torch.float32
+    w1 = torch.randn(2 * K, f, f, device="cuda", generator=gen).to(dt)
+    a = torch.randn(2 * K, f, n, device="cuda", generator=gen).to(dt)
     return C * cuda_ms(lambda: torch.bmm(w1, a), 10)
 
 
-def dw1_bmm_ms(K, n, f, C):
+def dw1_bmm_ms(K, n, f, C, dtype=None):
     """C times one torch.bmm of one coupling's dW1 operands, (2K, f, n) and
     (2K, n, f) (random values: the time does not depend on them), at fp32
-    'highest': the library yardstick of kernel 8's dW1 pass, which the
-    port never calls."""
+    'highest' (or in `dtype`): the library yardstick of kernel 8's dW1
+    pass, which the port never calls."""
     import torch
 
     if torch.get_float32_matmul_precision() != "highest":
         fail("the fp32 matmul precision is not 'highest'")
     gen = torch.Generator(device="cuda").manual_seed(0)
-    dh2 = torch.randn(2 * K, f, n, device="cuda", generator=gen)
-    a = torch.randn(2 * K, n, f, device="cuda", generator=gen)
+    dt = dtype or torch.float32
+    dh2 = torch.randn(2 * K, f, n, device="cuda", generator=gen).to(dt)
+    a = torch.randn(2 * K, n, f, device="cuda", generator=gen).to(dt)
     return C * cuda_ms(lambda: torch.bmm(dh2, a), 10)
+
+
+# kernel 8's cache traffic by pass, floats a point and coupling, as f's
+# linear coefficients: the head writes n1, dn1 (2f each) and the scale
+# (3) and reads xsave, dp and dlv (3 each); B1 reads n1, dn1 and xsave,
+# writes dn0 (2f); B2 reads n1, dn1 and xsave; the input pass reads dn0,
+# xsave, the scale and dp and writes dp
+KERNEL8_CACHE_FLOATS = {"head": (4, 12), "B1": (6, 3), "B2": (4, 3),
+                        "input": (2, 12)}
+
+
+def cache_floor_ms(K, B, N, C, f):
+    """{pass: ms} the port's own cache traffic of kernel 8 takes at the
+    HBM rate over C couplings of K B N points (each byte once), and "all":
+    the floor of a kernel 8 that keeps its caches, which the TPU kernel
+    holds in VMEM (csrc/train_decode.cuh's header)."""
+    out = {name: 1e3 * 4.0 * (a * f + b) * K * B * N * C / HBM_BYTES
+           for name, (a, b) in KERNEL8_CACHE_FLOATS.items()}
+    out["all"] = sum(out.values())
+    return out
+
+
+def bf16_bmm_yardsticks(config, B, N):
+    """Prints the bf16 torch.bmm times of kernel 8's products at 'fast'
+    and 'high' for `config`'s decoder over its C couplings, B clouds of N
+    points: the W1 product (the head's h2 = W1 a and B1's da = W1^T dh2
+    have its shape), the dW1 product, and their sum for the three passes
+    (one bmm each at 'fast', three at 'high', which bf16 operands of hi
+    and lo parts would take); returns them in ms."""
+    import torch
+
+    packed, _, _ = train_decode_inputs(config, 1, 8, 0)
+    K, C, _, f = packed["w1"].shape[:4]
+    n = B * N
+    tag = f"train_decode K={K} B={B} N={N} C={C} f={f}"
+    w1 = w1_bmm_ms(K, n, f, C, torch.bfloat16)
+    dw1 = dw1_bmm_ms(K, n, f, C, torch.bfloat16)
+    say(f"    {tag}: bf16 torch.bmm yardsticks over {C} couplings: W1 "
+        f"product {w1:.3f} ms, dW1 product {dw1:.3f} ms; kernel 8's three "
+        f"(head, B1, B2) {2 * w1 + dw1:.3f} ms at 'fast', "
+        f"{3 * (2 * w1 + dw1):.3f} ms at 'high'")
+    floor = cache_floor_ms(K, B, N, C, f)
+    say(f"    {tag}: kernel 8's cache traffic at {HBM_BYTES / 1e12:g} TB/s "
+        "(its floor while it keeps its caches): " + "; ".join(
+            f"{k} {v:.3f} ms" for k, v in floor.items()))
+    return {"w1": w1, "dw1": dw1, "fast": 2 * w1 + dw1,
+            "high": 3 * (2 * w1 + dw1)}
 
 
 def path_bounds(K, B, N, C, f):
@@ -1212,6 +1307,7 @@ def phase_kernels():
             FLAGSHIP_AIRPLANE, BATCH, N_POINTS, seeds[2], timed=True,
             mode=mode)
         reduced[mode] = (max(fwd_errs + [fe]), max(bwd_errs + [be]), times)
+    bf16_bmm_yardsticks(FLAGSHIP_AIRPLANE, BATCH, N_POINTS)
 
     B, N = BATCH, N_POINTS
     pairs = B * N * N
@@ -1529,6 +1625,57 @@ def passes_of(rows, passes):
         hit = [(t, n) for t, n, name in rows if any(x in name for x in names)]
         out[label] = (sum(t for t, _ in hit), sum(n for _, n in hit))
     return out
+
+
+def kernel8_passes_by_mode(turns=2):
+    """Kernel 8 at the flagship shape (B=64, N=2048) by pass in each mode,
+    in one window: each mode's backward on its own forward's residuals,
+    called in turns 'highest', 'high', 'fast', 'fast', 'high', 'highest'
+    (`turns` times), each call profiled alone; prints and returns
+    {mode: {pass: ms a call}}, the mean over the mode's calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from go_with_the_flows_tpu_torch.ops.kernels.train_decode import (
+        train_decode_bwd, train_decode_fwd)
+    from go_with_the_flows_tpu_torch.utils.config import FLAGSHIP_AIRPLANE
+
+    packed, ab, p = train_decode_inputs(FLAGSHIP_AIRPLANE, BATCH, N_POINTS, 19)
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    dp0 = torch.randn(p.shape, device="cuda", generator=gen)
+    dlv = torch.randn(p.shape, device="cuda", generator=gen)
+    residuals = {m: train_decode_fwd(packed, ab, p, m)[2:] for m in MODES}
+
+    def run(m):
+        train_decode_bwd(packed, ab, *residuals[m], dp0, dlv, m)
+
+    for m in MODES:
+        run(m)
+    torch.cuda.synchronize()
+    passes = TRAIN_DECODE_PASSES["kernel 8 (train_decode_bwd)"]
+    split = {m: {label: [] for label in passes} for m in MODES}
+    for _ in range(turns):
+        for m in MODES + MODES[::-1]:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                run(m)
+                torch.cuda.synchronize()
+            for label, (t, _) in passes_of(device_kernels(prof),
+                                           passes).items():
+                split[m][label].append(t)
+    means = {m: {label: sum(v) / len(v) for label, v in split[m].items()}
+             for m in MODES}
+    for m in MODES:
+        say(f"    kernel 8 at '{m}' by pass, flagship shape, one window "
+            f"({2 * turns} profiled calls a mode in turns): " + "; ".join(
+                f"{label} {t:.3f} ms" for label, t in means[m].items())
+            + f"; all {sum(means[m].values()):.3f} ms")
+    K, C, _, f = packed["w1"].shape[:4]
+    floor = cache_floor_ms(K, BATCH, N_POINTS, C, f)
+    say("    kernel 8's cache traffic by pass at the HBM rate: " + "; ".join(
+        f"{k} {v:.3f} ms" for k, v in floor.items()))
+    del residuals
+    return means
 
 
 def host_ops(prof):
@@ -1877,6 +2024,9 @@ def phase_train(card):
                     for label, (t, n) in passes_of(rows, passes).items()))
         del step_m
         torch.cuda.empty_cache()
+
+    kernel8_passes_by_mode()
+    torch.cuda.empty_cache()
 
     # the plain path, at the largest batch that fits on the card
     for B in (BATCH, BATCH // 2, BATCH // 4):
@@ -2362,6 +2512,7 @@ def check_svr_kernels():
     reduced = {mode: check_train_decode_mode(decoder, B, N, seed, timed=True,
                                              mode=mode)
                for mode, seed in (("fast", 34), ("high", 35))}
+    bf16_bmm_yardsticks(decoder, B, N)
     gen = torch.Generator(device="cuda").manual_seed(33)
     a = 0.3 * torch.randn(B, N, 3, device="cuda", generator=gen)
     b = 0.3 * torch.randn(B, N, 3, device="cuda", generator=gen)
@@ -2704,6 +2855,14 @@ def phase_svr(card, pd_err):
             fail(f"the '{mode}' SVR steps: losses {m_loss}, launches "
                  f"{all_n}, of them in the mode {m_n}")
         launches.update(m_n)
+        # one more step profiled: the card's busy time in the mode
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            mode_step(b["cloud"], b["eval_cloud"], state.generator,
+                      images=b["image"])
+            torch.cuda.synchronize()
+        say(f"    profiled '{mode}' SVR step: device busy "
+            f"{sum(r[0] for r in device_kernels(prof)):.2f} ms")
         del mode_step
 
     say("    SVR-shape kernels (K={}, B={}, N={}, C={}, f={}): ".format(*dims)

@@ -1,0 +1,176 @@
+// One warp's tensor-core product step, mma.sync m16n8k16 with bf16
+// operands and fp32 accumulators, on operands that sit in shared memory as
+// fp32 words: a bf16-rounded value (its low half zeros), or at 'high' a
+// value's two bf16 parts packed in one word (train_decode.cuh's
+// pack_split: hi's bits in the upper half, lo's in the lower). Included by
+// train_decode.cuh after <cuda_runtime.h>.
+//
+// A is 16 x 16 (rows r, depth k), element (r, k) at a[r * as + k]; B is
+// 16 x 8 (depth k, columns n), element (k, n) at b[n * bs + k]: both with
+// the depth consecutive, so that a fragment register, two neighbouring
+// depths, comes from two words by one byte permutation (prmt) each for
+// the hi parts and the lo parts. The fragments and the accumulator follow
+// the PTX ISA's m16n8k16 layout: lane = 4 g + t holds A's (g, 2t..2t+1),
+// (g + 8, 2t..), (g, 2t + 8..), (g + 8, 2t + 8..), B's (2t..2t+1, g) and
+// (2t + 8.., g), and c = C's (g, 2t), (g, 2t + 1), (g + 8, 2t),
+// (g + 8, 2t + 1).
+//
+// mma_step<HIGH>(c, A, B) adds A B to c: one product of the hi parts, or
+// at 'high' (HIGH) three into the same accumulators, hi hi + hi lo + lo
+// hi, which is train_kernel.py's `_mxdot` at precision 'high' (the lo lo
+// term left out). KHALF marks a step whose depths 8-15 are padding and
+// MHALF a tile whose rows 8-15 are: they are zeros, and no word of them is
+// read. WIDE reads a register's two words as one 8-byte load: the tile's
+// address must be 8-byte aligned and its stride even.
+//
+// Without a card (the CPU emulation of tests/cuda_cpu_emulation.h) a
+// fragment is the tile's address, and mma_step forms each of the lane's
+// four accumulator elements from the tiles, in the same C layout, with
+// fp32 FMAs on the bf16 values: no shuffle and no barrier. The emulation
+// checks the tiling, the padding, the epilogues' indexing and the WIDE
+// tiles' alignment; only the card checks the fragments and the
+// instruction itself.
+
+#pragma once
+
+namespace {
+
+#ifdef __CUDA_ARCH__
+struct MmaA {
+  unsigned h[4], l[4];  // hi and lo bf16 pairs
+};
+struct MmaB {
+  unsigned h[2], l[2];
+};
+
+// words p[0], p[1] (one 8-byte load at WIDE) as two bf16 pairs: their hi
+// parts (p[0]'s in the low half) and their lo parts
+template <bool WIDE>
+__device__ __forceinline__ void mma_pairs(const float* p, unsigned& hi,
+                                          unsigned& lo) {
+  unsigned x, y;
+  if constexpr (WIDE) {
+    const float2 v = *reinterpret_cast<const float2*>(p);
+    x = __float_as_uint(v.x);
+    y = __float_as_uint(v.y);
+  } else {
+    x = __float_as_uint(p[0]);
+    y = __float_as_uint(p[1]);
+  }
+  hi = __byte_perm(x, y, 0x7632);
+  lo = __byte_perm(x, y, 0x5410);
+}
+
+template <bool HIGH, bool KHALF = false, bool MHALF = false,
+          bool WIDE = false>
+__device__ __forceinline__ MmaA mma_load_a(const float* a, int as) {
+  const int lane = threadIdx.x & 31;
+  const float* r0 = a + (lane >> 2) * as + 2 * (lane & 3);
+  const float* r8 = r0 + 8 * as;
+  const float* at[4] = {r0, r8, r0 + 8, r8 + 8};
+  MmaA f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f.h[i] = f.l[i] = 0u;
+    if (!((KHALF && i >= 2) || (MHALF && (i & 1))))
+      mma_pairs<WIDE>(at[i], f.h[i], f.l[i]);
+  }
+  return f;
+}
+
+template <bool HIGH, bool KHALF = false, bool WIDE = false>
+__device__ __forceinline__ MmaB mma_load_b(const float* b, int bs) {
+  const int lane = threadIdx.x & 31;
+  const float* c0 = b + (lane >> 2) * bs + 2 * (lane & 3);
+  MmaB f;
+  f.h[1] = f.l[1] = 0u;
+  mma_pairs<WIDE>(c0, f.h[0], f.l[0]);
+  if (!KHALF) mma_pairs<WIDE>(c0 + 8, f.h[1], f.l[1]);
+  return f;
+}
+
+__device__ __forceinline__ void mma_bf16(float c[4], const unsigned a[4],
+                                         const unsigned b[2]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+template <bool HIGH>
+__device__ __forceinline__ void mma_step(float c[4], const MmaA& a,
+                                         const MmaB& b) {
+  mma_bf16(c, a.h, b.h);
+  if constexpr (HIGH) {
+    mma_bf16(c, a.h, b.l);
+    mma_bf16(c, a.l, b.h);
+  }
+}
+#else
+// `bad`: a WIDE tile whose pairs are not 8-byte aligned (its address or
+// its stride), which makes the step's accumulators NaN
+struct MmaA {
+  const float* p;
+  int s;
+  bool khalf, mhalf, bad;
+};
+struct MmaB {
+  const float* p;
+  int s;
+  bool khalf, bad;
+};
+
+__device__ __forceinline__ bool mma_misaligned(const float* p, int s) {
+  return (reinterpret_cast<unsigned long long>(p) & 7) || (s & 1);
+}
+
+template <bool HIGH, bool KHALF = false, bool MHALF = false,
+          bool WIDE = false>
+__device__ __forceinline__ MmaA mma_load_a(const float* a, int as) {
+  return MmaA{a, as, KHALF, MHALF, WIDE && mma_misaligned(a, as)};
+}
+
+template <bool HIGH, bool KHALF = false, bool WIDE = false>
+__device__ __forceinline__ MmaB mma_load_b(const float* b, int bs) {
+  return MmaB{b, bs, KHALF, WIDE && mma_misaligned(b, bs)};
+}
+
+// a word's hi part (HI), or its lo part, as an fp32 value
+template <bool HI>
+__device__ __forceinline__ float mma_part(float w) {
+  const unsigned u = __float_as_uint(w);
+  return __uint_as_float(HI ? u & 0xffff0000u : u << 16);
+}
+
+// c + the sum over k < depth of A's part (AH) of a[k] times B's of b[k]
+template <bool AH, bool BH>
+__device__ __forceinline__ float mma_dot(const float* a, const float* b,
+                                         int depth, float c) {
+  for (int k = 0; k < depth; ++k)
+    c = fmaf(mma_part<AH>(a[k]), mma_part<BH>(b[k]), c);
+  return c;
+}
+
+template <bool HIGH>
+__device__ __forceinline__ void mma_step(float c[4], const MmaA& a,
+                                         const MmaB& b) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int depth = a.khalf || b.khalf ? 8 : 16;
+  for (int i = 0; i < 4; ++i) {
+    const int r = g + 8 * (i >> 1), n = 2 * t + (i & 1);
+    if (a.bad || b.bad) c[i] = __uint_as_float(0x7fc00000u);
+    if (a.mhalf && r >= 8) continue;
+    const float* ar = a.p + r * a.s;
+    const float* bn = b.p + n * b.s;
+    // the products in the card's order: hi hi, then at 'high' hi lo and
+    // lo hi
+    c[i] = mma_dot<true, true>(ar, bn, depth, c[i]);
+    if constexpr (HIGH) {
+      c[i] = mma_dot<true, false>(ar, bn, depth, c[i]);
+      c[i] = mma_dot<false, true>(ar, bn, depth, c[i]);
+    }
+  }
+}
+#endif
+
+}  // namespace

@@ -22,12 +22,13 @@ functions depends on the file's path), with the library's flags
     counts differ;
   * time: kernel 7 (`gwtf_train_decode_fwd`) and kernel 8
     (`gwtf_train_decode_bwd`) of both libraries at 'highest' (and at
-    'fast', the weights rounded, where both take a mode) on the
-    flagship's inputs (K=4, B=64, N=2048, 11 flows of f=37: random
-    weights from seed 19, as chip_smoke.py's phase 2 makes them), in
-    turns parent, this, this, parent (`--turns` times), each the mean of
-    CUDA-event windows; both libraries' outputs must be equal bit for
-    bit; the ratio this / parent per kernel.
+    'high' and 'fast', the weights split or rounded, where both take a
+    mode) on the flagship's inputs (K=4, B=64, N=2048, 11 flows of f=37:
+    random weights from seed 19, as chip_smoke.py's phase 2 makes them),
+    in turns parent, this, this, parent (`--turns` times), each the mean
+    of CUDA-event windows; whether both libraries' outputs are equal bit
+    for bit, by kernel and mode (kernel 8's backward on each library's
+    own forward); the ratio this / parent per kernel.
 
 `--control` compiles the parent a second time and prints which kernels'
 SASS differ between its two builds. The parent's C entries may predate
@@ -52,11 +53,13 @@ _CSRC = os.path.join("go_with_the_flows_tpu_torch", "csrc")
 
 def source_files(csrc):
     """The kernels' source files in a csrc directory: train_decode.cu, and
-    the header and the per-mode units where the source is split."""
+    the header and the per-mode units where the source is split, and the
+    tensor-core step's header where the kernels include it."""
     import glob
 
     return sorted(glob.glob(os.path.join(csrc, "train_decode*.cu"))
-                  + glob.glob(os.path.join(csrc, "train_decode*.cuh")))
+                  + glob.glob(os.path.join(csrc, "train_decode*.cuh"))
+                  + glob.glob(os.path.join(csrc, "mma_bf16.cuh")))
 
 
 def compile_all(sources, out_dir):
@@ -309,18 +312,20 @@ def main(argv=None):
         summary["control_differs"] = [f"{k}<{fp}>[{names[m]}]"
                                       for k, fp, m, _ in again]
 
-    # 'highest', and 'fast' where both libraries take a mode
+    # 'highest', and 'high' and 'fast' where both libraries take a mode
     with_mode = {tag: takes_mode(sources[tag]) for tag in libs}
-    modes = [0, 2] if all(with_mode.values()) else [0]
+    modes = [0, 1, 2] if all(with_mode.values()) else [0]
     summary["bit_equal"] = {}
     for mode in modes:
         run = {tag: runner(so, with_mode[tag], mode)
                for tag, so in libs.items()}
-        outs = {tag: [t.clone() for t in fwd()] + [t.clone() for t in bwd()]
+        outs = {tag: ([t.clone() for t in fwd()], [t.clone() for t in bwd()])
                 for tag, (fwd, bwd) in run.items()}
         torch.cuda.synchronize()
-        summary["bit_equal"][names[mode]] = all(
-            torch.equal(a, b) for a, b in zip(outs["parent"], outs["this"]))
+        for i, k in enumerate(("fwd", "bwd")):
+            summary["bit_equal"][f"{k}_{names[mode]}"] = all(
+                torch.equal(a, b) for a, b in zip(outs["parent"][i],
+                                                  outs["this"][i]))
         del outs
         order = ["parent", "this", "this", "parent"] * args.turns
         times = {(tag, k): [] for tag in run for k in ("fwd", "bwd")}
@@ -338,7 +343,8 @@ def main(argv=None):
                   f"flagship shape: parent {par:.3f} ms, this {this:.3f} ms, "
                   f"ratio {this / par:.4f} (turns parent, this, this, "
                   f"parent); outputs bit-equal "
-                  f"{summary['bit_equal'][names[mode]]}", flush=True)
+                  f"{summary['bit_equal'][f'{k}_{names[mode]}']}",
+                  flush=True)
         del run
     print(json.dumps(summary), flush=True)
     return summary

@@ -2,8 +2,8 @@
 // that g++ can build them and their kernels can run on the CPU in the
 // tests (tests/test_torch_port_*_emulated.py). Each CUDA thread
 // of a block is a std::thread; the blocks of a launch run one after
-// another; a barrier stands for __syncthreads, and shuffles exchange
-// through a per-block array between two barriers. It checks the kernels'
+// another; a barrier stands for __syncthreads and __syncwarp, and
+// shuffles exchange through a per-block array between two barriers. It checks the kernels'
 // indexing and control flow, not their speed or the GPU's rounding.
 #pragma once
 #include <algorithm>
@@ -103,6 +103,11 @@ inline thread_local EmuBlock* emu_block;
 inline thread_local float* emu_dyn;
 
 inline void __syncthreads() { emu_block->bar->arrive_and_wait(); }
+// the warp's barrier waits on the whole block: every thread of the block
+// must reach it, as for a shuffle
+inline void __syncwarp(unsigned = 0xffffffffu) {
+  emu_block->bar->arrive_and_wait();
+}
 // Thread t's v as thread `from` (of the same block) gave it: every
 // thread of the block must reach the call. The value travels as its bits,
 // so a float or an int comes back unchanged.

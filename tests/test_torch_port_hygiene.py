@@ -201,10 +201,11 @@ def test_kernel_sources_are_the_three_cuda_files():
     """Named for the three files of the first slice; the EMD slice added
     the fourth, the training slice the fifth, which later became a
     header of kernels and four units that include it (the entry points
-    and one per precision mode, so that their nvcc runs go on at once)."""
+    and one per precision mode, so that their nvcc runs go on at once);
+    that header includes the tensor-core step's (mma_bf16.cuh)."""
     names = sorted(os.path.basename(s) for s in build.sources())
-    assert names == ["emd.cu", "nn_distance.cu", "pairwise_cd.cu",
-                     "point_decode.cu", "train_decode.cu",
+    assert names == ["emd.cu", "mma_bf16.cuh", "nn_distance.cu",
+                     "pairwise_cd.cu", "point_decode.cu", "train_decode.cu",
                      "train_decode.cuh", "train_decode_fast.cu",
                      "train_decode_high.cu", "train_decode_highest.cu"]
     assert build.BUILD_DIR.endswith(os.path.join("go_with_the_flows_tpu_torch",

@@ -22,7 +22,9 @@ partial sums, against the single entry on the whole batch.
 The 'fast' instantiations (MODE 2: bf16-rounded operands, fp32 sums; the
 weights rounded by `kernel_weights_train`) and the 'high' ones (MODE 1:
 three bf16 products of the operands' hi and lo parts, the weights split
-by `kernel_weights_train`) run against the plain versions of their mode
+by `kernel_weights_train`; kernel 8's W1 products on the tensor-core step
+of csrc/mma_bf16.cuh, whose emulation forms each lane's accumulators
+from the shared tiles) run against the plain versions of their mode
 at f=5 and f=33, with the mode in force (their effect against the plain
 versions'), and in their SPMD form against the single entries; the entry
 points take the mode before the stream.
@@ -56,9 +58,10 @@ from go_with_the_flows_tpu_torch.models.mixture import FlowMixtureModel
 HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(os.path.dirname(HERE), "go_with_the_flows_tpu_torch",
                     "csrc")
-# the kernels (a header) and the units that include it: the entry points
-# and each precision mode's instantiations
-HEADER = "train_decode.cuh"
+# the kernels (a header, which includes the tensor-core step's) and the
+# units that include it: the entry points and each precision mode's
+# instantiations
+HEADERS = ("train_decode.cuh", "mma_bf16.cuh")
 UNITS = ("train_decode.cu", "train_decode_highest.cu", "train_decode_high.cu",
          "train_decode_fast.cu")
 
@@ -88,10 +91,10 @@ def build_emulated(csrc, out):
     unit compiled by its own g++, all at once, and linked into
     out/libtrain_decode.so; returns its path."""
     gxx = shutil.which("g++")
-    for name in (HEADER,) + UNITS:
+    for name in HEADERS + UNITS:
         with open(os.path.join(csrc, name)) as f:
             text = _emulated_source(f.read())
-        (out / (name if name == HEADER else name[:-3] + ".cpp")).write_text(
+        (out / (name if name in HEADERS else name[:-3] + ".cpp")).write_text(
             text)
     objs = [out / (name[:-3] + ".o") for name in UNITS]
     procs = [subprocess.Popen([gxx, "-std=c++20", "-O1", "-fPIC", "-c",
@@ -378,12 +381,14 @@ def test_emulated_train_decode_fast(lib, f, B, N):
     1e-3, atol 1e-4 (measured 1e-6); the mode's effect (the output less
     the 'highest' kernel's) within 0.05 of the plain version's in rms
     (measured 0.015). Kernel 8 on the plain forward's residuals of its
-    mode: dp and every packed array's and ab's gradient within 1e-3 of
-    their own largest entry (measured at most 7e-5), and the mode's
-    effect on each within 1e-2 of the plain version's, each mode on its
-    own forward's residuals (measured at most 3.8e-4; a copy of the
-    source whose B1 forms da from dh2 unrounded reads 2.2e-3 and 0.052,
-    one whose hidden pass leaves a unrounded fails the forward's bounds).
+    mode, its W1 products on the emulated tensor-core step
+    (csrc/mma_bf16.cuh): dp and every packed array's and ab's gradient
+    within 1e-3 of their own largest entry (measured at most 6.9e-5), and
+    the mode's effect on each within 1e-2 of the plain version's, each
+    mode on its own forward's residuals (measured at most 3.7e-4; a copy
+    of the source whose B1 stages dh2 unrounded for its product reads
+    7.2e-3 and 0.42, one whose hidden pass leaves a unrounded fails the
+    forward's bounds).
     Two launches of each give equal bits."""
     packed, ab, p = _inputs(f, B, N, f + 3)
     K, C = p.shape[0], packed["w1"].shape[1]
@@ -547,17 +552,17 @@ def test_emulated_train_decode_high(lib, f, B, N):
     instantiation 2.4e-7 off its own plain version; the mode's effect
     itself 1.1e-5 to 1.7e-5), the statistics within 4.3e-5 relative, the
     mode's effect within 0.08-0.23 of the plain version's (a kernel that
-    ignores the mode reads 1); kernel 8 within 1.4e-6 (f=5) and 3.7e-6
-    (f=33) of each output's largest entry, its effect of the mode within
-    1.1e-2 (the effect itself 3e-5 to 2e-2). HIGH_FWD_ATOL and the others
-    hold them with a margin of 3 to 7, HIGH_BWD_REL of 3. Two launches
-    give equal bits. Copies of the source with one product's term gone
-    fail: one whose hidden pass drops lo(W1) hi(a) misses the forward's
-    bounds (a third of p0 off by more than 5e-5), one whose B1 takes dh2
-    unsplit (its fp32 value for hi + lo and for hi) misses HIGH_BWD_REL
-    at f=5 (the bn0 gradients 8.5e-6 off, dp 4e-6), though its outputs
-    differ from the 'high' ones only by the terms below 2^-16 that 'high'
-    leaves out."""
+    ignores the mode reads 1); kernel 8, its W1 products three bf16
+    products on the emulated tensor-core step, within 1.7e-6 (f=5) and
+    3.9e-6 (f=33) of each output's largest entry, its effect of the mode
+    within 1.2e-2 (the effect itself 3e-5 to 2e-2). HIGH_FWD_ATOL and the
+    others hold them with a margin of 3 to 7, HIGH_BWD_REL of 2.4 and
+    3.1. Two launches give equal bits. Copies of the source with a
+    product's operand wrong fail: one whose hidden pass drops lo(W1) hi(a)
+    misses the forward's bounds (a third of p0 off by more than 5e-5),
+    one whose B1 stages dh2 as its fp32 word for its product, not as its
+    packed parts (the step reads the word's low mantissa bits as lo),
+    gives NaN."""
     packed, ab, p = _inputs(f, B, N, f + 5)
     K, C = p.shape[0], packed["w1"].shape[1]
     fws, bws = _mode_weights(packed, "high")
