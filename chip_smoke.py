@@ -488,17 +488,19 @@ def check_train_decode_ptxas(report):
                      "spilling")
 
 
-# kernel 8's passes whose W1 products are on the tensor cores at 'high'
-# and 'fast' (csrc/mma_bf16.cuh)
-TENSOR_CORE_PASSES = ("bwd_head_kernel", "bwd_hidden_kernel",
+# kernels 7 and 8's passes whose W1 products are on the tensor cores at
+# 'high' and 'fast' (csrc/mma_bf16.cuh): kernel 7's hidden pass and its
+# update pass, which replays h2, and kernel 8's head, B1 and B2
+TENSOR_CORE_PASSES = ("fwd_hidden_kernel", "fwd_update_kernel",
+                      "bwd_head_kernel", "bwd_hidden_kernel",
                       "bwd_dw1_kernel")
 
 
 def check_train_decode_hmma(lib_path):
-    """The SASS (`cuobjdump -sass`) of kernels 7 and 8: the head, B1 and
-    B2 at 'high' and 'fast' (MODE 1, 2) hold HMMA instructions at every
-    FP 8-64, and no 'highest' (MODE 0) function of the two kernels
-    holds one."""
+    """The SASS (`cuobjdump -sass`) of kernels 7 and 8: their
+    TENSOR_CORE_PASSES at 'high' and 'fast' (MODE 1, 2) hold HMMA
+    instructions at every FP 8-64, and no 'highest' (MODE 0) function of
+    the two kernels holds one."""
     from go_with_the_flows_tpu_torch.tools.train_decode_ab import (
         kernel_key, sass_functions)
 
@@ -1150,15 +1152,26 @@ def dw1_bmm_ms(K, n, f, C, dtype=None):
 # xsave, the scale and dp and writes dp
 KERNEL8_CACHE_FLOATS = {"head": (4, 12), "B1": (6, 3), "B2": (4, 3),
                         "input": (2, 12)}
+# kernel 7's by mode, as KERNEL8_CACHE_FLOATS: at 'highest' the h2 cache,
+# written by the hidden pass and read by the update pass (2f each), and
+# the state: the hidden pass reads x and writes xsave, the update pass
+# reads and writes x and the logvar sum (3 each); at 'high' and 'fast'
+# the update pass recomputes h2 and the state is all
+KERNEL7_CACHE_FLOATS = {
+    "highest": {"h2 cache": (4, 0), "state": (0, 18)},
+    "high": {"state": (0, 18)},
+    "fast": {"state": (0, 18)},
+}
 
 
-def cache_floor_ms(K, B, N, C, f):
-    """{pass: ms} the port's own cache traffic of kernel 8 takes at the
-    HBM rate over C couplings of K B N points (each byte once), and "all":
-    the floor of a kernel 8 that keeps its caches, which the TPU kernel
+def cache_floor_ms(K, B, N, C, f, floats=None):
+    """{pass: ms} the port's own cache traffic of kernel 8 (or the
+    `floats` of another, KERNEL7_CACHE_FLOATS[mode]) takes at the HBM
+    rate over C couplings of K B N points (each byte once), and "all":
+    the floor of a kernel that keeps its caches, which the TPU kernel
     holds in VMEM (csrc/train_decode.cuh's header)."""
     out = {name: 1e3 * 4.0 * (a * f + b) * K * B * N * C / HBM_BYTES
-           for name, (a, b) in KERNEL8_CACHE_FLOATS.items()}
+           for name, (a, b) in (floats or KERNEL8_CACHE_FLOATS).items()}
     out["all"] = sum(out.values())
     return out
 
@@ -1169,7 +1182,9 @@ def bf16_bmm_yardsticks(config, B, N):
     points: the W1 product (the head's h2 = W1 a and B1's da = W1^T dh2
     have its shape), the dW1 product, and their sum for the three passes
     (one bmm each at 'fast', three at 'high', which bf16 operands of hi
-    and lo parts would take); returns them in ms."""
+    and lo parts would take), and kernel 7's W1 product (once at 'fast',
+    three times at 'high'); also kernels 7 and 8's cache floors
+    (`cache_floor_ms`); returns the yardsticks in ms."""
     import torch
 
     packed, _, _ = train_decode_inputs(config, 1, 8, 0)
@@ -1182,12 +1197,19 @@ def bf16_bmm_yardsticks(config, B, N):
         f"product {w1:.3f} ms, dW1 product {dw1:.3f} ms; kernel 8's three "
         f"(head, B1, B2) {2 * w1 + dw1:.3f} ms at 'fast', "
         f"{3 * (2 * w1 + dw1):.3f} ms at 'high'")
+    say(f"    {tag}: kernel 7's W1 product (the hidden pass's, which the "
+        f"update pass replays at 'high' and 'fast') as bf16 torch.bmm: "
+        f"{w1:.3f} ms at 'fast', {3 * w1:.3f} ms at 'high'")
     floor = cache_floor_ms(K, B, N, C, f)
     say(f"    {tag}: kernel 8's cache traffic at {HBM_BYTES / 1e12:g} TB/s "
         "(its floor while it keeps its caches): " + "; ".join(
             f"{k} {v:.3f} ms" for k, v in floor.items()))
+    for m in MODES:
+        floor = cache_floor_ms(K, B, N, C, f, KERNEL7_CACHE_FLOATS[m])
+        say(f"    {tag}: kernel 7's h2 cache and state traffic at '{m}': "
+            + "; ".join(f"{k} {v:.3f} ms" for k, v in floor.items()))
     return {"w1": w1, "dw1": dw1, "fast": 2 * w1 + dw1,
-            "high": 3 * (2 * w1 + dw1)}
+            "high": 3 * (2 * w1 + dw1), "fwd_fast": w1, "fwd_high": 3 * w1}
 
 
 def path_bounds(K, B, N, C, f):
@@ -1627,12 +1649,13 @@ def passes_of(rows, passes):
     return out
 
 
-def kernel8_passes_by_mode(turns=2):
-    """Kernel 8 at the flagship shape (B=64, N=2048) by pass in each mode,
-    in one window: each mode's backward on its own forward's residuals,
-    called in turns 'highest', 'high', 'fast', 'fast', 'high', 'highest'
-    (`turns` times), each call profiled alone; prints and returns
-    {mode: {pass: ms a call}}, the mean over the mode's calls."""
+def train_decode_passes_by_mode(turns=2):
+    """Kernels 7 and 8 at the flagship shape (B=64, N=2048) by pass in
+    each mode, in one window: each mode's forward, then its backward on
+    that forward's residuals, called in turns 'highest', 'high', 'fast',
+    'fast', 'high', 'highest' (`turns` times), each call profiled alone;
+    prints and returns {kernel: {mode: {pass: ms a call}}}, the mean over
+    the mode's calls, by TRAIN_DECODE_PASSES' kernel names."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1645,32 +1668,45 @@ def kernel8_passes_by_mode(turns=2):
     dp0 = torch.randn(p.shape, device="cuda", generator=gen)
     dlv = torch.randn(p.shape, device="cuda", generator=gen)
     residuals = {m: train_decode_fwd(packed, ab, p, m)[2:] for m in MODES}
-
-    def run(m):
-        train_decode_bwd(packed, ab, *residuals[m], dp0, dlv, m)
-
+    calls = {
+        "kernel 7 (train_decode_fwd)":
+            lambda m: train_decode_fwd(packed, ab, p, m),
+        "kernel 8 (train_decode_bwd)":
+            lambda m: train_decode_bwd(packed, ab, *residuals[m], dp0, dlv,
+                                       m),
+    }
     for m in MODES:
-        run(m)
+        for call in calls.values():
+            call(m)
     torch.cuda.synchronize()
-    passes = TRAIN_DECODE_PASSES["kernel 8 (train_decode_bwd)"]
-    split = {m: {label: [] for label in passes} for m in MODES}
+    split = {what: {m: {label: [] for label in TRAIN_DECODE_PASSES[what]}
+                    for m in MODES} for what in calls}
     for _ in range(turns):
         for m in MODES + MODES[::-1]:
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                run(m)
-                torch.cuda.synchronize()
-            for label, (t, _) in passes_of(device_kernels(prof),
-                                           passes).items():
-                split[m][label].append(t)
-    means = {m: {label: sum(v) / len(v) for label, v in split[m].items()}
-             for m in MODES}
-    for m in MODES:
-        say(f"    kernel 8 at '{m}' by pass, flagship shape, one window "
-            f"({2 * turns} profiled calls a mode in turns): " + "; ".join(
-                f"{label} {t:.3f} ms" for label, t in means[m].items())
-            + f"; all {sum(means[m].values()):.3f} ms")
+            for what, call in calls.items():
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    call(m)
+                    torch.cuda.synchronize()
+                for label, (t, _) in passes_of(
+                        device_kernels(prof),
+                        TRAIN_DECODE_PASSES[what]).items():
+                    split[what][m][label].append(t)
+    means = {what: {m: {label: sum(v) / len(v) for label, v in by.items()}
+                    for m, by in modes.items()}
+             for what, modes in split.items()}
     K, C, _, f = packed["w1"].shape[:4]
+    for what, modes in means.items():
+        for m, by in modes.items():
+            say(f"    {what} at '{m}' by pass, flagship shape, one window "
+                f"({2 * turns} profiled calls a mode in turns): "
+                + "; ".join(f"{label} {t:.3f} ms" for label, t in by.items())
+                + f"; all {sum(by.values()):.3f} ms")
+    for m in MODES:
+        floor = cache_floor_ms(K, BATCH, N_POINTS, C, f,
+                               KERNEL7_CACHE_FLOATS[m])
+        say(f"    kernel 7's h2 cache and state traffic at '{m}' at the HBM "
+            "rate: " + "; ".join(f"{k} {v:.3f} ms" for k, v in floor.items()))
     floor = cache_floor_ms(K, BATCH, N_POINTS, C, f)
     say("    kernel 8's cache traffic by pass at the HBM rate: " + "; ".join(
         f"{k} {v:.3f} ms" for k, v in floor.items()))
@@ -2025,7 +2061,7 @@ def phase_train(card):
         del step_m
         torch.cuda.empty_cache()
 
-    kernel8_passes_by_mode()
+    train_decode_passes_by_mode()
     torch.cuda.empty_cache()
 
     # the plain path, at the largest batch that fits on the card

@@ -23,6 +23,14 @@
 // read. WIDE reads a register's two words as one 8-byte load: the tile's
 // address must be 8-byte aligned and its stride even.
 //
+// Operands may also sit as bf16 pairs, two neighbouring depths in one
+// 32-bit word (the lower depth in the lower half, as cvt.rn.bf16x2.f32
+// and the fragments have them): a row of hi pairs and, at 'high', a plane
+// of lo pairs `lo` words on. mma_load_a_pairs and mma_load_b_pairs read a
+// fragment register as one word, with no byte permutation: half the bytes
+// of the fp32 words at 'fast'. Kernel 7's forward passes stage a and W1
+// so (train_decode.cuh's warp_product_pairs).
+//
 // Without a card (the CPU emulation of tests/cuda_cpu_emulation.h) a
 // fragment is the tile's address, and mma_step forms each of the lane's
 // four accumulator elements from the tiles, in the same C layout, with
@@ -89,6 +97,37 @@ __device__ __forceinline__ MmaB mma_load_b(const float* b, int bs) {
   return f;
 }
 
+// bf16 pairs (above): A's rows of `as` words, B's columns of `bs` words,
+// a pointing at the step's first pair (depth 16 ks: word 8 ks of the row)
+template <bool HIGH, bool KHALF = false>
+__device__ __forceinline__ MmaA mma_load_a_pairs(const unsigned* a, int as,
+                                                 int lo) {
+  const int lane = threadIdx.x & 31;
+  const unsigned* r0 = a + (lane >> 2) * as + (lane & 3);
+  const unsigned* at[4] = {r0, r0 + 8 * as, r0 + 4, r0 + 8 * as + 4};
+  MmaA f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const bool pad = KHALF && i >= 2;
+    f.h[i] = pad ? 0u : *at[i];
+    f.l[i] = pad || !HIGH ? 0u : at[i][lo];
+  }
+  return f;
+}
+
+template <bool HIGH, bool KHALF = false>
+__device__ __forceinline__ MmaB mma_load_b_pairs(const unsigned* b, int bs,
+                                                 int lo) {
+  const int lane = threadIdx.x & 31;
+  const unsigned* c0 = b + (lane >> 2) * bs + (lane & 3);
+  MmaB f;
+  f.h[0] = c0[0];
+  f.h[1] = KHALF ? 0u : c0[4];
+  f.l[0] = HIGH ? c0[lo] : 0u;
+  f.l[1] = HIGH && !KHALF ? c0[lo + 4] : 0u;
+  return f;
+}
+
 __device__ __forceinline__ void mma_bf16(float c[4], const unsigned a[4],
                                          const unsigned b[2]) {
   asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
@@ -108,16 +147,20 @@ __device__ __forceinline__ void mma_step(float c[4], const MmaA& a,
 }
 #else
 // `bad`: a WIDE tile whose pairs are not 8-byte aligned (its address or
-// its stride), which makes the step's accumulators NaN
+// its stride), which makes the step's accumulators NaN. `lo` >= 0: a tile
+// of bf16 pairs (p a row's first pair, s its stride in words), its lo
+// plane `lo` words on; -1: fp32 words
 struct MmaA {
   const float* p;
   int s;
   bool khalf, mhalf, bad;
+  int lo;
 };
 struct MmaB {
   const float* p;
   int s;
   bool khalf, bad;
+  int lo;
 };
 
 __device__ __forceinline__ bool mma_misaligned(const float* p, int s) {
@@ -127,12 +170,26 @@ __device__ __forceinline__ bool mma_misaligned(const float* p, int s) {
 template <bool HIGH, bool KHALF = false, bool MHALF = false,
           bool WIDE = false>
 __device__ __forceinline__ MmaA mma_load_a(const float* a, int as) {
-  return MmaA{a, as, KHALF, MHALF, WIDE && mma_misaligned(a, as)};
+  return MmaA{a, as, KHALF, MHALF, WIDE && mma_misaligned(a, as), -1};
 }
 
 template <bool HIGH, bool KHALF = false, bool WIDE = false>
 __device__ __forceinline__ MmaB mma_load_b(const float* b, int bs) {
-  return MmaB{b, bs, KHALF, WIDE && mma_misaligned(b, bs)};
+  return MmaB{b, bs, KHALF, WIDE && mma_misaligned(b, bs), -1};
+}
+
+template <bool HIGH, bool KHALF = false>
+__device__ __forceinline__ MmaA mma_load_a_pairs(const unsigned* a, int as,
+                                                 int lo) {
+  return MmaA{reinterpret_cast<const float*>(a), as, KHALF, false, false,
+              HIGH ? lo : 0};
+}
+
+template <bool HIGH, bool KHALF = false>
+__device__ __forceinline__ MmaB mma_load_b_pairs(const unsigned* b, int bs,
+                                                 int lo) {
+  return MmaB{reinterpret_cast<const float*>(b), bs, KHALF, false,
+              HIGH ? lo : 0};
 }
 
 // a word's hi part (HI), or its lo part, as an fp32 value
@@ -151,6 +208,30 @@ __device__ __forceinline__ float mma_dot(const float* a, const float* b,
   return c;
 }
 
+// depth k's part (HI) of a row of bf16 pairs (its lo plane `lo` words on)
+template <bool HI>
+__device__ __forceinline__ float mma_pair_part(const float* row, int lo,
+                                               int k) {
+  const unsigned w = __float_as_uint(row[(HI ? 0 : lo) + k / 2]);
+  return __uint_as_float(k & 1 ? w & 0xffff0000u : w << 16);
+}
+
+// mma_dot of a row of A and a column of B, each fp32 words or bf16 pairs
+template <bool AH, bool BH>
+__device__ __forceinline__ float mma_dot_any(const MmaA& a, const float* ar,
+                                             const MmaB& b, const float* bn,
+                                             int depth, float c) {
+  if (a.lo < 0 && b.lo < 0) return mma_dot<AH, BH>(ar, bn, depth, c);
+  for (int k = 0; k < depth; ++k) {
+    const float x = a.lo < 0 ? mma_part<AH>(ar[k])
+                             : mma_pair_part<AH>(ar, a.lo, k);
+    const float y = b.lo < 0 ? mma_part<BH>(bn[k])
+                             : mma_pair_part<BH>(bn, b.lo, k);
+    c = fmaf(x, y, c);
+  }
+  return c;
+}
+
 template <bool HIGH>
 __device__ __forceinline__ void mma_step(float c[4], const MmaA& a,
                                          const MmaB& b) {
@@ -164,10 +245,10 @@ __device__ __forceinline__ void mma_step(float c[4], const MmaA& a,
     const float* bn = b.p + n * b.s;
     // the products in the card's order: hi hi, then at 'high' hi lo and
     // lo hi
-    c[i] = mma_dot<true, true>(ar, bn, depth, c[i]);
+    c[i] = mma_dot_any<true, true>(a, ar, b, bn, depth, c[i]);
     if constexpr (HIGH) {
-      c[i] = mma_dot<true, false>(ar, bn, depth, c[i]);
-      c[i] = mma_dot<false, true>(ar, bn, depth, c[i]);
+      c[i] = mma_dot_any<true, false>(a, ar, b, bn, depth, c[i]);
+      c[i] = mma_dot_any<false, true>(a, ar, b, bn, depth, c[i]);
     }
   }
 }

@@ -69,9 +69,9 @@ _SIGNATURES = {
 }
 # entry points that return something else than a cudaError_t
 _OTHER_SIGNATURES = {
-    # which (0 forward, 1 backward, 2 SPMD backward), K, B, C, N, f ->
-    # floats of scratch
-    "gwtf_train_decode_workspace": ([_I] * 6, ctypes.c_longlong),
+    # which (0 forward, 1 backward, 2 SPMD backward), K, B, C, N, f, mode
+    # -> floats of scratch
+    "gwtf_train_decode_workspace": ([_I] * 7, ctypes.c_longlong),
     # N -> row chunks of one launch (a scratch is needed above 1)
     "gwtf_nn_distance_chunks": ([_I], _I),
     "gwtf_emd_backward_chunks": ([_I], _I),

@@ -478,14 +478,16 @@ def train_decode_fwd(packed, ab, p, mode=None):
     xsave = p.new_empty(K, C, B, 3, N)
     stats = p.new_empty(K, C, 4, 2 * f)
     lib = build.library()
-    work = p.new_empty(lib.gwtf_train_decode_workspace(0, K, B, C, N, f))
+    code_mode = KERNEL_MODES[mode]
+    # at 'high' and 'fast' no h2 cache: the update pass replays h2
+    work = p.new_empty(lib.gwtf_train_decode_workspace(0, K, B, C, N, f,
+                                                       code_mode))
     # the statistics read the fp32 W0; the products W1 and W2 of the mode
     # (at 'high' their hi parts followed by their lo parts)
     ws = [packed["w0"], packed["bn0_scale"], packed["bn0_bias"], kw["w1"],
           kw["w2"], packed["b2"]]
     args = [p] + ws + [ab, p0, lv, xsave, stats, work]
     stream = build.stream_handle(p.device)
-    code_mode = KERNEL_MODES[mode]
     with torch.cuda.device(p.device):
         if dist.active():
             _drive(_spmd_fwd(lib, args, (K, B, C, N, f),
@@ -604,12 +606,12 @@ def train_decode_bwd(packed, ab, xsave, stats, dp0, dlv, mode=None):
     dab = torch.empty_like(ab)
     lib = build.library()
     spmd = dist.active()
+    code_mode = KERNEL_MODES[mode]
     work = dp0.new_empty(lib.gwtf_train_decode_workspace(
-        2 if spmd else 1, K, B, C, N, f))
+        2 if spmd else 1, K, B, C, N, f, code_mode))
     args = ([xsave, stats] + ws + [ab, dp0, dlv, dp]
             + [grads[k] for k in _KERNEL_KEYS] + [dab, work])
     stream = build.stream_handle(dp0.device)
-    code_mode = KERNEL_MODES[mode]
     with torch.cuda.device(dp0.device):
         if spmd:
             _drive(_spmd_bwd(lib, args, (K, B, C, N, f),

@@ -27,14 +27,14 @@ functions depends on the file's path), with the library's flags
     random weights from seed 19, as chip_smoke.py's phase 2 makes them),
     in turns parent, this, this, parent (`--turns` times), each the mean
     of CUDA-event windows; whether both libraries' outputs are equal bit
-    for bit, by kernel and mode (kernel 8's backward on each library's
-    own forward); the ratio this / parent per kernel.
+    for bit, by kernel and mode (kernel 8 of both on the same residuals,
+    the parent's forward's); the ratio this / parent per kernel.
 
 `--control` compiles the parent a second time and prints which kernels'
 SASS differ between its two builds. The parent's C entries may predate
-the `mode` argument: the tool reads
-the parent source to call them either way. A last line holds the summary
-as JSON.
+the `mode` argument, and its workspace entry the mode after the sizes:
+the tool reads the parent source to call them either way. A last line
+holds the summary as JSON.
 """
 
 from __future__ import annotations
@@ -181,6 +181,14 @@ def takes_mode(csrc):
     return "int f, int mode" in text or "GWTF_DIMS, int mode" in text
 
 
+def workspace_takes_mode(csrc):
+    """Whether the source's gwtf_train_decode_workspace takes the mode
+    after the sizes (the forward keeps its h2 cache at 'highest' only)."""
+    text = "".join(open(f).read() for f in source_files(csrc))
+    return re.search(r"gwtf_train_decode_workspace\([^)]*int f,\s*int mode\)",
+                     text) is not None
+
+
 def flagship_inputs():
     import torch
 
@@ -200,10 +208,10 @@ def flagship_inputs():
     return packed, ab.detach().contiguous(), p
 
 
-def runner(so, with_mode, mode=0):
+def runner(so, with_mode, mode=0, ws_mode=False):
     """fwd(), bwd() of one library in `mode` (a kernel MODE; 'highest'
     when the library takes none) on the flagship inputs, each returning
-    its outputs."""
+    its outputs; `ws_mode`: its workspace entry takes the mode."""
     import torch
 
     from ..ops.kernels.point_decode import KERNEL_MODES
@@ -214,11 +222,12 @@ def runner(so, with_mode, mode=0):
     extra = [I] if with_mode else []
     lib.gwtf_train_decode_fwd.argtypes = [P] * 13 + [I] * 5 + extra + [P]
     lib.gwtf_train_decode_bwd.argtypes = [P] * 20 + [I] * 5 + extra + [P]
-    lib.gwtf_train_decode_workspace.argtypes = [I] * 6
+    lib.gwtf_train_decode_workspace.argtypes = [I] * (7 if ws_mode else 6)
     lib.gwtf_train_decode_workspace.restype = ctypes.c_longlong
     name = next(k for k, v in KERNEL_MODES.items() if v == mode)
     packed, ab, p = flagship_inputs()
     kw = kernel_weights_train(packed, name)
+    ws_arg = [mode] if ws_mode else []
     mode = [mode] if with_mode else []
     K, B, _, N = p.shape
     C, f = packed["w1"].shape[1], packed["w1"].shape[-1]
@@ -229,13 +238,15 @@ def runner(so, with_mode, mode=0):
     stream = torch.cuda.current_stream().cuda_stream
     fwd_out = [torch.empty_like(p), torch.empty_like(p),
                p.new_empty(K, C, B, 3, N), p.new_empty(K, C, 4, 2 * f)]
-    fwd_work = p.new_empty(lib.gwtf_train_decode_workspace(0, K, B, C, N, f))
+    fwd_work = p.new_empty(lib.gwtf_train_decode_workspace(0, K, B, C, N, f,
+                                                           *ws_arg))
     gen = torch.Generator(device="cuda").manual_seed(19)
     dp0 = torch.randn(p.shape, device="cuda", generator=gen)
     dlv = torch.randn(p.shape, device="cuda", generator=gen)
     bwd_out = [torch.empty_like(dp0)] + [torch.empty_like(w) for w in ws] + [
         torch.empty_like(ab)]
-    bwd_work = p.new_empty(lib.gwtf_train_decode_workspace(1, K, B, C, N, f))
+    bwd_work = p.new_empty(lib.gwtf_train_decode_workspace(1, K, B, C, N, f,
+                                                           *ws_arg))
 
     def fwd():
         args = [p] + fws + [ab] + fwd_out + [fwd_work]
@@ -245,9 +256,9 @@ def runner(so, with_mode, mode=0):
             raise RuntimeError(f"{so}: forward error {code}")
         return fwd_out
 
-    def bwd():
-        args = [fwd_out[2], fwd_out[3]] + bws + [ab, dp0, dlv] + bwd_out + [
-            bwd_work]
+    def bwd(res=None):
+        xsave, stats = res or fwd_out[2:]
+        args = [xsave, stats] + bws + [ab, dp0, dlv] + bwd_out + [bwd_work]
         code = lib.gwtf_train_decode_bwd(*(t.data_ptr() for t in args), K, B,
                                          C, N, f, *mode, stream)
         if code:
@@ -314,13 +325,18 @@ def main(argv=None):
 
     # 'highest', and 'high' and 'fast' where both libraries take a mode
     with_mode = {tag: takes_mode(sources[tag]) for tag in libs}
+    ws_mode = {tag: workspace_takes_mode(sources[tag]) for tag in libs}
     modes = [0, 1, 2] if all(with_mode.values()) else [0]
     summary["bit_equal"] = {}
     for mode in modes:
-        run = {tag: runner(so, with_mode[tag], mode)
+        run = {tag: runner(so, with_mode[tag], mode, ws_mode[tag])
                for tag, so in libs.items()}
-        outs = {tag: ([t.clone() for t in fwd()], [t.clone() for t in bwd()])
-                for tag, (fwd, bwd) in run.items()}
+        # kernel 8 of both on the same residuals, the parent's forward's
+        outs = {tag: [[t.clone() for t in fwd()]] for tag, (fwd, _) in
+                run.items()}
+        res = outs["parent"][0][2:]
+        for tag, (_, bwd) in run.items():
+            outs[tag].append([t.clone() for t in bwd(res)])
         torch.cuda.synchronize()
         for i, k in enumerate(("fwd", "bwd")):
             summary["bit_equal"][f"{k}_{names[mode]}"] = all(

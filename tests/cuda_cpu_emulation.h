@@ -130,6 +130,12 @@ inline T __shfl_xor_sync(unsigned, T v, int m) {
 }
 
 template <class T>
+inline T __shfl_sync(unsigned, T v, int src) {
+  const int t = threadIdx.x;
+  return emu_shuffle(v, (t & ~31) | (src & 31));
+}
+
+template <class T>
 inline T __shfl_down_sync(unsigned, T v, int d) {
   const int t = threadIdx.x;
   const T r = emu_shuffle(v, (t & 31) + d < 32 ? t + d : t);

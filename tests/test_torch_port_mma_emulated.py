@@ -1,4 +1,4 @@
-"""The tensor-core product step of kernel 8's 'high' and 'fast' passes
+"""The tensor-core product step of kernels 7 and 8's 'high' and 'fast' passes
 (go_with_the_flows_tpu_torch/csrc/mma_bf16.cuh: mma.sync m16n8k16, bf16
 operands, fp32 accumulators) built by g++ against the CPU stand-in for
 CUDA (tests/cuda_cpu_emulation.h) and run on the CPU, a std::thread per
@@ -16,6 +16,10 @@ and with M = 24 rows (the last 16-row tile half padding). Words past the
 depth and rows past M are NaN: a step that read one would return NaN.
 A copy of the header whose accumulator elements take a wrong (row,
 column) must fail the same comparison.
+
+The same step on operands staged as bf16 pairs (a row of hi pairs and,
+at 'high', a plane of lo pairs: kernel 7's forward at 'high' and 'fast')
+is held the same way.
 
 Without a card the step computes each lane's accumulator elements from
 the tiles in fp32 FMAs; only the card checks the fragments and the
@@ -76,6 +80,51 @@ void product(const float* a, int as, const float* b, int bs, float* c,
     }
 }
 
+// the same product from bf16 pairs (mma_load_a_pairs, mma_load_b_pairs):
+// rows of `as` (`bs`) words, lo planes `alo` (`blo`) words on; M a
+// multiple of 16
+template <int FP, bool HIGH>
+void product_pairs(const unsigned* a, int as, int alo, const unsigned* b,
+                   int bs, int blo, float* c, int M, int N) {
+  constexpr int KS = (FP + 15) / 16;
+  constexpr bool KH = FP % 16 != 0;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  for (int mt = 0; mt < M / 16; ++mt)
+    for (int nt = 0; nt < N / 8; ++nt) {
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+      for (int ks = 0; ks < KS; ++ks) {
+        const bool kh = KH && ks == KS - 1;
+        const unsigned* ap = a + 16 * mt * as + 8 * ks;
+        const unsigned* bp = b + 8 * nt * bs + 8 * ks;
+        const MmaA fa = kh ? mma_load_a_pairs<HIGH, true>(ap, as, alo)
+                           : mma_load_a_pairs<HIGH>(ap, as, alo);
+        const MmaB fb = kh ? mma_load_b_pairs<HIGH, true>(bp, bs, blo)
+                           : mma_load_b_pairs<HIGH>(bp, bs, blo);
+        mma_step<HIGH>(acc, fa, fb);
+      }
+      for (int e = 0; e < 4; ++e)
+        c[(16 * mt + g + 8 * (e >> 1)) * N + 8 * nt + 2 * t + (e & 1)] =
+            acc[e];
+    }
+}
+
+extern "C" int mma_product_pairs(const unsigned* a, int as, int alo,
+                                 const unsigned* b, int bs, int blo,
+                                 float* c, int M, int N, int FP, int high) {
+  emu_launch(dim3(1), dim3(32), 0, nullptr, [&] {
+#define PAIRS(D)                                                        \
+  if (FP == D) {                                                        \
+    if (high)                                                           \
+      product_pairs<D, true>(a, as, alo, b, bs, blo, c, M, N);          \
+    else                                                                \
+      product_pairs<D, false>(a, as, alo, b, bs, blo, c, M, N);         \
+  }
+    PAIRS(8) PAIRS(24) PAIRS(40)
+#undef PAIRS
+  });
+  return FP == 8 || FP == 24 || FP == 40 ? 0 : 1;
+}
+
 template <int FP>
 int run(const float* a, int as, const float* b, int bs, float* c, int M,
         int N, int high) {
@@ -118,6 +167,8 @@ def build(header_dir, out):
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.mma_product.argtypes = [P, I, P, I, P, I, I, I, I]
     lib.mma_product.restype = I
+    lib.mma_product_pairs.argtypes = [P, I, I, P, I, I, P, I, I, I, I]
+    lib.mma_product_pairs.restype = I
     return lib
 
 
@@ -203,3 +254,50 @@ def test_mma_step_layout_mutant(gxx, tmp_path):
         got, want = _product(mutant, 24, 32, 16, high, seed=5)
         err = ((got.double() - want).abs().max() / want.abs().max()).item()
         assert err > 1e-2, err
+
+
+def _pairs(parts, depth):
+    """bf16 values (r x depth) as rows of bf16 pairs, depth 2j in word j's
+    lower half, each row depth / 2 + 4 words, the padding words NaN in
+    both halves; (int32 array, row stride)."""
+    bits = (parts.view(torch.int32) >> 16) & 0xFFFF
+    words = bits[:, 0::2] | (bits[:, 1::2] << 16)
+    out = torch.full((parts.shape[0], depth // 2 + 4), -1, dtype=torch.int32)
+    out[:, :depth // 2] = words
+    return out, depth // 2 + 4
+
+
+@pytest.mark.parametrize("high", [False, True], ids=["fast", "high"])
+@pytest.mark.parametrize("depth", [8, 24, 40])
+def test_mma_step_pairs_emulated(lib, depth, high):
+    """The step on operands staged as bf16 pairs (`mma_load_a_pairs`,
+    `mma_load_b_pairs`: a row of hi pairs, at 'high' a plane of lo pairs
+    after it, as kernel 7's forward passes stage a and W1): C = A B^T of
+    32 x depth and 16 x depth operands and of 16 x depth and 40 x depth
+    ones against float64 products of the same bf16 parts, within 1e-6 of
+    C's largest entry; the padding pairs past the depth are NaN and must
+    not be read."""
+    for M, N in ((32, 16), (16, 40)):
+        rng = np.random.default_rng(depth + M + 100)
+        a = torch.from_numpy(rng.standard_normal((M, depth)).astype(
+            np.float32))
+        b = torch.from_numpy(rng.standard_normal((N, depth)).astype(
+            np.float32))
+        _, ah, al = _operand(a, high)
+        _, bh, bl = _operand(b, high)
+        (pa, a_s), (pal, _) = _pairs(ah, depth), _pairs(al, depth)
+        (pb, b_s), (pbl, _) = _pairs(bh, depth), _pairs(bl, depth)
+        sa = torch.cat([pa, pal]).contiguous()   # lo plane M rows on
+        sb = torch.cat([pb, pbl]).contiguous()
+        c = torch.full((M, N), float("nan"))
+        assert lib.mma_product_pairs(sa.data_ptr(), a_s, M * a_s,
+                                     sb.data_ptr(), b_s, N * b_s,
+                                     c.data_ptr(), M, N, depth,
+                                     int(high)) == 0
+        ah, al, bh, bl = (x.double() for x in (ah, al, bh, bl))
+        want = ah @ bh.T
+        if high:
+            want = want + ah @ bl.T + al @ bh.T
+        assert not torch.isnan(c).any()
+        err = ((c.double() - want).abs().max() / want.abs().max()).item()
+        assert err < 1e-6, (M, N, err)
