@@ -19,9 +19,12 @@ non-zero at the first failure:
      precision mode ('highest', 'high' and 'fast', each pass at FP
      8-64): the hidden and update passes spill in no mode, B1 and B2 at
      most 128 registers with no spill in every mode; their SASS
-     (`cuobjdump -sass`): kernel 8's head, B1 and B2 at 'high' and 'fast'
-     hold HMMA instructions at every FP (their W1 products on the tensor
-     cores), no 'highest' function of kernels 7 and 8 does;
+     (`cuobjdump -sass`): kernel 7's hidden and update passes and kernel
+     8's head, B1 and B2 at 'high' and 'fast' hold HMMA instructions at
+     every FP (their W1 products on the tensor cores), no 'highest'
+     function of kernels 7 and 8 does; kernel 1 at 'high' and 'fast' holds
+     HMMA at every FP in both directions (its three products on the
+     tensor cores), none of its 'highest' instantiations does;
   2. kernels: each kernel against its plain PyTorch version at the main
      path's shapes (jiggled BatchNorm statistics), with times, kernel 1
      in each matmul precision mode against the plain version of that
@@ -42,7 +45,9 @@ non-zero at the first failure:
      points, then the EMD between the samples and their references as a
      differentiable loss, with all six kernel launch counters read around
      them; a small-input check against the CPU path; sample+CD clouds/s
-     at B=64 and B=1024 for the kernel path and the plain path;
+     at B=64 and B=1024 for the kernel path and the plain path, and at
+     B=1024 with the sample step built under each precision mode, in
+     turns, beside kernel 1 alone in each mode;
   4. train: the flagship model's training step (make_train_step) at
      B=64: one step from one state through the train-decode kernels and
      through the decoder's modules (the plain path), compared; twenty
@@ -72,10 +77,11 @@ non-zero at the first failure:
   6. svr: configs/config_SVR.yaml's model (FlowMixtureSVRModel: K=4, 11
      flows of f=33, freevar, g=512, a ResNet-18 on 224 x 224 images) at
      B=128, N=2500 on seeded ellipsoid clouds and noise images served by
-     the DataLoader: kernels 1, 2, 7 and 8 against their plain versions
-     at those shapes and kernel 5 on 8 of the 128 pairs, timed with
-     their bounds; one train step through the kernels against one
-     through the decoder's modules (at the largest batch that fits);
+     the DataLoader: kernels 1 (in each precision mode), 2, 7 and 8
+     against their plain versions at those shapes and kernel 5 on 8 of
+     the 128 pairs, timed with their bounds; one train step through the
+     kernels against one through the decoder's modules (at the largest
+     batch that fits);
      `train` for 4 steps, `evaluate_val` over 2 batches and
      reconstruction-mode `evaluate` (CD, EMD, F1) over 2 batches, with
      the five kernels' launch counters read around them; the meters
@@ -443,6 +449,7 @@ def phase_build():
             + ", ".join(f"{fp} {r}" for fp, r in sorted(set(rows))))
     check_train_decode_ptxas(report)
     check_train_decode_hmma(build.LIB_PATH)
+    check_point_decode_hmma(build.LIB_PATH)
 
 
 # kernels 7 and 8's passes templated on <FP, MODE>
@@ -526,6 +533,40 @@ def check_train_decode_hmma(lib_path):
         f"of kernels 7 and 8, {len(highest)} with HMMA")
     if highest:
         fail(f"'highest' functions hold HMMA instructions: {highest}")
+
+
+def check_point_decode_hmma(lib_path):
+    """The SASS of kernel 1 (`point_decode_kernel<FP, INVERSE, MODE>`):
+    at 'high' and 'fast' (MODE 1, 2) every FP 8-64 in both directions
+    holds HMMA instructions (its three products on the tensor cores), and
+    no 'highest' (MODE 0) instantiation holds one."""
+    from go_with_the_flows_tpu_torch.tools.train_decode_ab import (
+        sass_functions)
+
+    hmma = {}
+    for name, lines in sass_functions(lib_path).items():
+        m = re.search(r"point_decode_kernelILi(\d+)ELb([01])ELi(\d)E", name)
+        if m:
+            hmma[int(m.group(3)), int(m.group(1)), int(m.group(2))] = sum(
+                1 for line in lines if "HMMA" in line)
+    for mode in (1, 2):
+        for inverse in (0, 1):
+            got = {fp: n for (m, fp, i), n in hmma.items()
+                   if m == mode and i == inverse}
+            say(f"    SASS point_decode_kernel {MODES[mode]} "
+                f"{'inverse' if inverse else 'direct'}: HMMA by FP "
+                + ", ".join(f"{fp} {n}" for fp, n in sorted(got.items())))
+            if sorted(got) != list(range(8, 72, 8)) or min(got.values()) < 1:
+                fail(f"point_decode_kernel {MODES[mode]}: not every FP 8-64 "
+                     "holds HMMA instructions")
+    highest = sorted(f"<{fp}, {i}>" for (m, fp, i), n in hmma.items()
+                     if m == 0 and n)
+    say(f"    SASS point_decode_kernel: "
+        f"{sum(1 for k in hmma if k[0] == 0)} 'highest' instantiations, "
+        f"{len(highest)} with HMMA")
+    if highest or sum(1 for k in hmma if k[0] == 0) != 16:
+        fail(f"point_decode_kernel 'highest': 16 instantiations without "
+             f"HMMA expected; with HMMA: {highest}")
 
 
 def check_close(what, got, want, atol, rtol=0.0):
@@ -617,6 +658,12 @@ def check_point_decode(config, B, N, seed, timed, modes=("highest",)):
         say(f"    point_decode K={K} B={B} N={N} C={C} f={f}: its W1 "
             f"products alone as torch.bmm of (2K, f, f) W1 and (2K, f, BN) "
             f"h0, fp32 highest: {w1:.3f} ms for all {C} couplings")
+        if len(modes) > 1:
+            w1 = w1_bmm_ms(K, B * N, f, C, torch.bfloat16)
+            times["bf16_bmm"] = w1
+            say(f"    point_decode K={K} B={B} N={N} C={C} f={f}: its W1 "
+                f"products as bf16 torch.bmm: {w1:.3f} ms at 'fast' (one "
+                f"pass), {3 * w1:.3f} ms at 'high' (three)")
     return {m: max(e) for m, e in errs.items()}, times
 
 
@@ -1610,7 +1657,51 @@ def phase_slice(card):
             f"({kernel:.2f} ms; the decode alone {decode:.2f} ms, "
             f"{100.0 * decode / kernel:.1f} %), plain path "
             f"{rates[B][1]:.1f} clouds/s ({plain:.2f} ms) [{card}]")
+    sample_cd_by_mode(model, rng, gen, card)
     return launches
+
+
+def sample_cd_by_mode(model, rng, gen, card, B=1024, turns=2):
+    """Sample+CD at B clouds with the sample step built under each matmul
+    precision mode (kernel 1 in that mode), timed in turns (the modes in
+    order, then in reverse, `turns` times; 3 calls a window), beside the
+    decode alone in each mode."""
+    import torch
+
+    from go_with_the_flows_tpu_torch.ops.kernels.point_decode import (
+        film_alpha_beta, point_decode)
+    from go_with_the_flows_tpu_torch.ops.precision import (
+        matmul_precision_scope)
+    from go_with_the_flows_tpu_torch.train.step import make_sample_step
+
+    g_in = torch.from_numpy(reference_clouds(rng, B)).cuda()
+    ref = torch.from_numpy(
+        reference_clouds(rng, B).transpose(0, 2, 1).copy()).cuda()
+    packed = model.pack_decoder()
+    ab = film_alpha_beta(packed, torch.randn(
+        B, model.g_latent_space_size, device="cuda", generator=gen))
+    base = torch.randn(model.n_components, B, 3, N_POINTS, device="cuda",
+                       generator=gen)
+    steps = {}
+    for mode in MODES:
+        with matmul_precision_scope(mode):
+            steps[mode] = make_sample_step(model, N_POINTS, "generating")
+    ms = {m: [] for m in MODES}
+    decode = {m: [] for m in MODES}
+    for _ in range(turns):
+        for m in MODES + MODES[::-1]:
+            ms[m].append(cuda_ms(
+                lambda: kernel_sample_cd(steps[m], g_in, ref, gen), 3))
+            with matmul_precision_scope(m):
+                decode[m].append(cuda_ms(
+                    lambda: point_decode(packed, ab, base), 3))
+    for m in MODES:
+        mean = sum(ms[m]) / len(ms[m])
+        dec = sum(decode[m]) / len(decode[m])
+        say(f"    sample+CD B={B} '{m}': {1000.0 * B / mean:.1f} clouds/s "
+            f"({mean:.2f} ms: " + ", ".join(f"{t:.2f}" for t in ms[m])
+            + f"; the decode alone {dec:.2f} ms, {100.0 * dec / mean:.1f} "
+            f"%) [{card}]")
 
 
 def device_kernels(prof):
@@ -2541,7 +2632,8 @@ def check_svr_kernels():
 
     B, N = SVR_RUN["batch_size"], SVR_RUN["cloud_size"]
     decoder = model_config_kwargs(SVR_SHAPENETALL13)
-    pd_errs, pd_times = check_point_decode(decoder, B, N, 30, timed=True)
+    pd_errs, pd_times = check_point_decode(decoder, B, N, 30, timed=True,
+                                           modes=MODES)
     nn_err, nn_times = check_nn_distance(B, N, N, 31, timed=True)
     f_err, b_err, td_times = check_train_decode(decoder, B, N, 32,
                                                 timed=True)
@@ -2559,8 +2651,8 @@ def check_svr_kernels():
     say(f"    emd B={B} N={N} M={N}: cost kernel {emd_ms:.3f} ms")
     bounds = path_bounds(*pd_times["dims"])
     measured = {
-        "point_decode": (pd_errs["highest"],
-                         pd_times["highest", "direct"][0]),
+        **{"point_decode" + ("" if m == "highest" else "_" + m): (
+            pd_errs[m], pd_times[m, "direct"][0]) for m in MODES},
         "nn_distance": (nn_err, nn_times[0]),
         "emd_cost": (emd_err, emd_ms),
         "train_decode_fwd": (f_err, td_times["train_decode_fwd"][0]),
@@ -2904,7 +2996,7 @@ def phase_svr(card, pd_err):
     say("    SVR-shape kernels (K={}, B={}, N={}, C={}, f={}): ".format(*dims)
         + "; ".join(
         f"{name} {ms:.3f} ms, bound {bounds[name][0]:.3f} ms "
-        f"({bounds[name][1]}), {launches[name]} launches in phase 6"
+        f"({bounds[name][1]}), {launches.get(name, 0)} launches in phase 6"
         for name, (_, ms) in measured.items()) + f" [{card}]")
     return launches, loop_ms
 

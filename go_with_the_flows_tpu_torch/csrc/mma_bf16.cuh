@@ -2,8 +2,10 @@
 // operands and fp32 accumulators, on operands that sit in shared memory as
 // fp32 words: a bf16-rounded value (its low half zeros), or at 'high' a
 // value's two bf16 parts packed in one word (train_decode.cuh's
-// pack_split: hi's bits in the upper half, lo's in the lower). Included by
-// train_decode.cuh after <cuda_runtime.h>.
+// pack_split: hi's bits in the upper half, lo's in the lower). Included
+// after <cuda_runtime.h> by train_decode.cuh (kernels 7 and 8) and
+// point_decode.cu (kernel 1), which share the precision modes' MODE
+// numbers, bf16 rounding and the bf16 pair layout of W1 below.
 //
 // A is 16 x 16 (rows r, depth k), element (r, k) at a[r * as + k]; B is
 // 16 x 8 (depth k, columns n), element (k, n) at b[n * bs + k]: both with
@@ -29,7 +31,14 @@
 // of lo pairs `lo` words on. mma_load_a_pairs and mma_load_b_pairs read a
 // fragment register as one word, with no byte permutation: half the bytes
 // of the fp32 words at 'fast'. Kernel 7's forward passes stage a and W1
-// so (train_decode.cuh's warp_product_pairs).
+// so (warp_product_pairs).
+//
+// Register fragments (FragA, FragB; frag_mma): operands that a warp forms
+// in its registers in the layout above, never in shared memory, such as
+// kernel 1's, whose products feed one another's A fragments from their
+// accumulators (C's n-tiles 2 ks and 2 ks + 1 are A's k-step ks). KHALF
+// there is the m16n8k8 instruction: registers 2 and 3 of A and 1 of B are
+// not read.
 //
 // Without a card (the CPU emulation of tests/cuda_cpu_emulation.h) a
 // fragment is the tile's address, and mma_step forms each of the lane's
@@ -37,11 +46,32 @@
 // fp32 FMAs on the bf16 values: no shuffle and no barrier. The emulation
 // checks the tiling, the padding, the epilogues' indexing and the WIDE
 // tiles' alignment; only the card checks the fragments and the
-// instruction itself.
+// instruction itself. A register fragment there is the lane's words: the
+// warp's lanes exchange them (emu_warp_exchange, a barrier of the warp)
+// and each lane forms its accumulator elements from the fragments' PTX
+// layout, so that the layout of what a kernel puts in its registers is
+// checked too.
 
 #pragma once
 
 namespace {
+
+constexpr int kHighest = 0, kHigh = 1, kFast = 2;  // MODE (ops/precision.py)
+
+// v rounded to the nearest bf16 (ties to even), as an fp32 value: one
+// cvt on the card; bitwise where there is no card (the CPU emulation)
+__device__ __forceinline__ float bf16_round(float v) {
+#ifdef __CUDA_ARCH__
+  unsigned short r;
+  asm("cvt.rn.bf16.f32 %0, %1;" : "=h"(r) : "f"(v));
+  return __uint_as_float(static_cast<unsigned>(r) << 16);
+#else
+  const unsigned u = __float_as_uint(v);
+  if ((u & 0x7fffffffu) > 0x7f800000u) return v;  // NaN
+  return __uint_as_float((u + 0x7fffu + ((u >> 16) & 1u)) & 0xffff0000u);
+#endif
+}
+
 
 #ifdef __CUDA_ARCH__
 struct MmaA {
@@ -143,6 +173,33 @@ __device__ __forceinline__ void mma_step(float c[4], const MmaA& a,
   if constexpr (HIGH) {
     mma_bf16(c, a.h, b.l);
     mma_bf16(c, a.l, b.h);
+  }
+}
+
+// the m16n8k8 step (KHALF): A's registers 0 and 1, B's register 0
+__device__ __forceinline__ void mma_bf16_k8(float c[4], const unsigned a[4],
+                                            const unsigned b[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(b[0]));
+}
+
+using FragA = MmaA;
+using FragB = MmaB;
+
+// c += A B of register fragments, three products at 'high' as mma_step
+template <bool HIGH, bool KHALF = false>
+__device__ __forceinline__ void frag_mma(float c[4], const FragA& a,
+                                         const FragB& b) {
+  if constexpr (KHALF) {
+    mma_bf16_k8(c, a.h, b.h);
+    if constexpr (HIGH) {
+      mma_bf16_k8(c, a.h, b.l);
+      mma_bf16_k8(c, a.l, b.h);
+    }
+  } else {
+    mma_step<HIGH>(c, a, b);
   }
 }
 #else
@@ -252,6 +309,168 @@ __device__ __forceinline__ void mma_step(float c[4], const MmaA& a,
     }
   }
 }
+
+struct FragA {
+  unsigned h[4], l[4];
+};
+struct FragB {
+  unsigned h[2], l[2];
+};
+
+// element k (0 or 1) of a bf16 pair, as an fp32 value
+__device__ __forceinline__ float mma_pair_elem(unsigned w, int k) {
+  return __uint_as_float(k ? w & 0xffff0000u : w << 16);
+}
+
+// c += A B of the warp's register fragments: the lanes hand in their
+// words (A's hi and lo pairs, then B's), and each lane forms its four
+// accumulator elements from them in the PTX layout, in the card's order
+template <bool HIGH, bool KHALF = false>
+__device__ __forceinline__ void frag_mma(float c[4], const FragA& a,
+                                         const FragB& b) {
+#ifdef GWTF_CPU_EMULATION  // tests/cuda_cpu_emulation.h; not nvcc's host pass
+  const unsigned mine[12] = {a.h[0], a.h[1], a.h[2], a.h[3],
+                             a.l[0], a.l[1], a.l[2], a.l[3],
+                             b.h[0], b.h[1], b.l[0], b.l[1]};
+  const unsigned* w = emu_warp_exchange(mine, 12);
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int depth = KHALF ? 8 : 16;
+  // A's (r, k) and B's (k, n), their hi or lo part (kEmuWords words a lane)
+  auto A = [&](bool hi, int r, int k) {
+    const int from = (r & 7) * 4 + ((k & 7) >> 1);
+    return mma_pair_elem(w[from * kEmuWords + (hi ? 0 : 4) + (r >> 3) +
+                           2 * (k >> 3)],
+                         k & 1);
+  };
+  auto Bv = [&](bool hi, int k, int n) {
+    const int from = n * 4 + ((k & 7) >> 1);
+    return mma_pair_elem(w[from * kEmuWords + (hi ? 8 : 10) + (k >> 3)],
+                         k & 1);
+  };
+  for (int i = 0; i < 4; ++i) {
+    // C's (r, n) in the lane's element i (the C layout above)
+    const int r = (i & 2 ? 8 : 0) + g, n = (i & 1) + 2 * t;
+    for (int k = 0; k < depth; ++k)
+      c[i] = fmaf(A(true, r, k), Bv(true, k, n), c[i]);
+    if constexpr (HIGH) {
+      for (int k = 0; k < depth; ++k)
+        c[i] = fmaf(A(true, r, k), Bv(false, k, n), c[i]);
+      for (int k = 0; k < depth; ++k)
+        c[i] = fmaf(A(false, r, k), Bv(true, k, n), c[i]);
+    }
+  }
 #endif
+}
+#endif
+
+// Kernels 1 and 7 at 'high' and 'fast' take their W1 products' operands
+// as bf16 pairs (above), half the shared-memory bytes of fp32 words at
+// 'fast' and no byte permutations: W1 (stage_w1_pairs; kernel 1's layout,
+// ops/kernels/point_decode.py) as rows of
+// w1_pair_stride words a feature o, [h][o][j] = depths 2j, 2j + 1, FP / 2
+// padded to 4 mod 8 so that a B fragment's 32 words fall in 32 banks, its
+// lo plane at 'high' w1_pair_words / 2 words on; a as a row of hi pairs
+// and at 'high' one of lo pairs (train_decode.cuh's hidden_h2).
+template <int FP>
+__host__ __device__ constexpr int w1_pair_stride() {
+  return (FP / 2) % 8 == 4 ? FP / 2 : FP / 2 + 4;
+}
+template <int FP, int MODE>
+__host__ __device__ constexpr int w1_pair_words() {
+  return (MODE == kHigh ? 2 : 1) * 2 * FP * w1_pair_stride<FP>();
+}
+
+// the bf16 pair of two values that are bf16 already (held as fp32): v's
+// bits in the lower half, w's in the upper
+__device__ __forceinline__ unsigned bf16_bits_pair(float v, float w) {
+  return (__float_as_uint(v) >> 16) | (__float_as_uint(w) & 0xffff0000u);
+}
+
+// v and w rounded to bf16 (ties to even) as a pair, v in the lower half:
+// one cvt on the card
+__device__ __forceinline__ unsigned bf16x2_round(float v, float w) {
+#ifdef __CUDA_ARCH__
+  unsigned r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(r) : "f"(w), "f"(v));
+  return r;
+#else
+  return bf16_bits_pair(bf16_round(v), bf16_round(w));
+#endif
+}
+
+// W1 of coupling kc as bf16 pairs (above), zero padded, by a block of T
+// threads; w1 the rounded W1, at 'high' its hi parts followed by its lo
+// parts `lo` floats on
+template <int FP, int MODE, int T>
+__device__ void stage_w1_pairs(unsigned* s, const float* w1, long long kc,
+                               int f, long long lo) {
+  constexpr int WS = w1_pair_stride<FP>(), PLANE = 2 * FP * WS;
+  const float* g = w1 + kc * 2 * f * f;
+  for (int idx = threadIdx.x; idx < PLANE; idx += T) {
+    const int h = idx / (FP * WS), o = (idx / WS) % FP, i = 2 * (idx % WS);
+    const float* row = g + (h * f + o) * f;
+    const bool on0 = o < f && i < f, on1 = o < f && i + 1 < f;
+    s[idx] = bf16_bits_pair(on0 ? row[i] : 0.f, on1 ? row[i + 1] : 0.f);
+    if constexpr (MODE == kHigh)
+      s[PLANE + idx] = bf16_bits_pair(on0 ? row[lo + i] : 0.f,
+                                      on1 ? row[lo + i + 1] : 0.f);
+  }
+}
+
+// 'high' and 'fast', kernel 7: the warp's 32 rows of a (bf16 pairs from
+// word 0 of each row, at 'high' the lo pairs from word FP / 2) times head
+// h's W1 (w: its pairs, its lo plane wl words on) on the tensor cores:
+// h2 = W1 a, each 16 x 8 accumulator tile handed to ep(m, nt, c): rows
+// 16 m + g and 16 m + g + 8 (g = lane / 4) and columns 8 nt + 2 t and 8
+// nt + 2 t + 1 (t = lane % 4), c in the C layout above. A B fragment
+// serves both 16-row halves up to FP = 40; above, the two halves'
+// accumulators spilled beside the passes' own registers. Depths past FP
+// are padding.
+template <int FP, int MODE, class Ep>
+__device__ __forceinline__ void warp_product_pairs(const float* rows,
+                                                   int rs,
+                                                   const unsigned* w, int wl,
+                                                   Ep&& ep) {
+  constexpr int KS = (FP + 15) / 16, NT = FP / 8, WS = w1_pair_stride<FP>();
+  constexpr bool KH = FP % 16 != 0, HIGH = MODE == kHigh;
+  constexpr int MB = FP > 40 ? 1 : 2;  // halves a B fragment serves
+  const unsigned* ar = reinterpret_cast<const unsigned*>(rows);
+  __syncwarp();  // the rows' a are written
+#pragma unroll
+  for (int m0 = 0; m0 < 2; m0 += MB) {
+    float c[MB][NT][4];
+#pragma unroll
+    for (int mb = 0; mb < MB; ++mb)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) c[mb][nt][i] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      const bool pad = KH && ks == KS - 1;
+      MmaA a[MB];
+#pragma unroll
+      for (int mb = 0; mb < MB; ++mb) {
+        const unsigned* ap = ar + 16 * (m0 + mb) * rs + 8 * ks;
+        a[mb] = pad ? mma_load_a_pairs<HIGH, true>(ap, rs, FP / 2)
+                    : mma_load_a_pairs<HIGH>(ap, rs, FP / 2);
+      }
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const unsigned* bp = w + 8 * nt * WS + 8 * ks;
+        const MmaB b = pad ? mma_load_b_pairs<HIGH, true>(bp, WS, wl)
+                           : mma_load_b_pairs<HIGH>(bp, WS, wl);
+#pragma unroll
+        for (int mb = 0; mb < MB; ++mb) mma_step<HIGH>(c[mb][nt], a[mb], b);
+      }
+    }
+    __syncwarp();  // the halves' a are read before their h2 lands
+#pragma unroll
+    for (int mb = 0; mb < MB; ++mb)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) ep(m0 + mb, nt, c[mb][nt]);
+  }
+  __syncwarp();
+}
 
 }  // namespace

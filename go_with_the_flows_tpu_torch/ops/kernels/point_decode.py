@@ -30,7 +30,8 @@ The kernel reads its own layout of the same numbers, padded to FP (f
 rounded up to a multiple of 8) so that it stages them by plain 16-byte
 copies: `kernel_weights` (made once by `pack_point_decoder`, under the
 key "kernel", through `kernel_layout`, which also keeps the other modes'
-layouts) and `kernel_film` (made per call from ab); see
+layouts: at 'fast' and 'high' the products' operands as bf16 pairs, for
+the tensor cores) and `kernel_film` (made per call from ab); see
 csrc/point_decode.cu.
 
 `pack_point_decoder` and `film_alpha_beta` are small products that stay
@@ -38,9 +39,10 @@ plain PyTorch, as the JAX package leaves them to XLA.
 
 The three products (W0 x, W1 h0, W2 h1) follow the matmul precision mode
 (ops/precision.py), as the TPU kernel's `_mxdot` does: the plain version
-forms them with `mxdot`, the kernel in an instantiation of that mode,
-from a layout of the weights rounded ('fast') or split into hi and lo
-parts ('high') once per pack (`kernel_layout`). film_alpha_beta, the
+forms them with `mxdot`, the kernel in an instantiation of that mode
+(at 'fast' and 'high' on the tensor cores), from a layout of the weights
+rounded ('fast') or split into hi and lo parts ('high') once per pack
+(`kernel_layout`). film_alpha_beta, the
 FiLM affines, the softsign, exp and sqrt and the affine update stay fp32
 in every mode, as on the TPU.
 """
@@ -53,7 +55,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import precision
-from ..precision import bf16_round, bf16_split, mxdot
+from ..precision import bf16_split, mxdot
 from . import build
 
 BN_EPS = 1e-5  # ops/layers.py BatchNorm
@@ -142,27 +144,73 @@ def _layout(w0, b0, w1, w2, b2) -> torch.Tensor:
                      + [b2.flatten(-2)], -1)
 
 
+def pair_stride(FP: int) -> int:
+    """WS: the words of a row of bf16 pairs of FP depths, FP / 2 padded to
+    4 mod 8 (csrc/mma_bf16.cuh `w1_pair_stride`)."""
+    return FP // 2 if (FP // 2) % 8 == 4 else FP // 2 + 4
+
+
+def bf16_pairs(t: torch.Tensor) -> torch.Tensor:
+    """t (..., 2 m), bf16 values held in fp32, as (..., m) int32 words of
+    bf16 pairs: depth 2 i in the lower half of word i, 2 i + 1 in the
+    upper (the mma fragments' order)."""
+    bits = t.to(torch.bfloat16).view(torch.int16).to(torch.int64) & 0xFFFF
+    words = bits[..., 0::2] | (bits[..., 1::2] << 16)
+    return (words - ((words >> 31) << 32)).to(torch.int32)
+
+
+def _pair_planes(w0, w1, w2, FP: int) -> list:
+    """One plane each of W1 (..., 2, FP, WS), W0 (..., 2, FP, 2) and W2
+    (..., 2, 4, WS) as bf16 pair words, flattened per coupling."""
+    f, WS = w1.shape[-1], pair_stride(FP)
+    w1 = F.pad(w1, (0, 2 * WS - f, 0, FP - f))
+    w0 = F.pad(w0, (0, 1, 0, FP - f))
+    w2 = F.pad(w2, (0, 2 * WS - f, 0, 1))
+    return [bf16_pairs(t).flatten(-3) for t in (w1, w0, w2)]
+
+
+def layout_words(f: int, mode: str) -> int:
+    """Words a coupling of the kernel layout of `mode` takes
+    (`kernel_weights`)."""
+    FP = padded_width(f)
+    if mode == "highest":
+        return 2 * FP * FP + 16 * FP + 8
+    planes = 2 if mode == "high" else 1
+    return planes * (2 * FP * pair_stride(FP) + 4 * FP
+                     + 8 * pair_stride(FP)) + 2 * FP + 8
+
+
 def kernel_weights(packed: Dict[str, torch.Tensor],
                    mode: str) -> torch.Tensor:
-    """The kernel's layout of the folded weights, (..., C, L) with L =
-    2 FP^2 + 16 FP + 8: per coupling W1 (2, FP, FP), then per head and row
-    {w0, b0} and {w2, 0} as 4 floats each, then b2 as (2, 4); zeros pad f
-    to FP. At 'fast' the weights (not the biases) are rounded to bf16; at
-    'high' the layout of their hi parts (with the biases) is followed by
-    that of their lo parts (biases 0), (..., C, 2 L)."""
+    """The kernel's layout of the folded weights in `mode`, (..., C, L),
+    zeros padding f to FP. At 'highest' L = 2 FP^2 + 16 FP + 8 floats: per
+    coupling W1 (2, FP, FP), then per head and row {w0, b0} and {w2, 0} as
+    4 floats each, then b2 as (2, 4). At 'fast' and 'high' the products'
+    operands are bf16 pairs in 32-bit words (`bf16_pairs`, held in a
+    float32 tensor): W1 (2, FP, WS) (rows the output features, WS =
+    `pair_stride(FP)`), W0 (2, FP, 2) ((w0x, w0y), (w0z, 0)), W2 (2, 4, WS)
+    (its three rows and a row of zeros), at 'fast' of the weights rounded
+    to bf16, at 'high' of their hi parts, each plane followed by that of
+    their lo parts; then fp32 b0 (2, FP) and b2 (2, 4). See
+    csrc/point_decode.cu (`Layout`, `TcLayout`)."""
     w0, b0, w1, w2, b2 = (packed[k] for k in ("w0", "b0", "w1", "w2", "b2"))
-    if mode == "fast":
-        w0, w1, w2 = (bf16_round(t) for t in (w0, w1, w2))
-    elif mode == "high":
+    if mode == "highest":
+        return _layout(w0, b0, w1, w2, b2).contiguous()
+    if mode not in ("high", "fast"):
+        raise ValueError(f"kernel_weights: unknown mode {mode!r}")
+    FP = padded_width(w1.shape[-1])
+    if mode == "high":
         (w0, w0l), (w1, w1l), (w2, w2l) = (bf16_split(t)
                                            for t in (w0, w1, w2))
-        return torch.cat([
-            _layout(w0, b0, w1, w2, b2),
-            _layout(w0l, torch.zeros_like(b0), w1l, w2l,
-                    torch.zeros_like(b2))], -1).contiguous()
-    elif mode != "highest":
-        raise ValueError(f"kernel_weights: unknown mode {mode!r}")
-    return _layout(w0, b0, w1, w2, b2).contiguous()
+        hi, lo = (_pair_planes(*ws, FP) for ws in ((w0, w1, w2),
+                                                   (w0l, w1l, w2l)))
+        planes = [hi[0], lo[0], hi[1], lo[1], hi[2], lo[2]]
+    else:  # bf16_pairs rounds
+        planes = _pair_planes(w0, w1, w2, FP)
+    biases = [F.pad(b0, (0, FP - b0.shape[-1])).flatten(-2),
+              F.pad(b2, (0, 1)).flatten(-2)]
+    words = planes + [t.contiguous().view(torch.int32) for t in biases]
+    return torch.cat(words, -1).view(torch.float32).contiguous()
 
 
 def kernel_layout(packed: Dict[str, torch.Tensor],
@@ -258,9 +306,8 @@ def point_decode(packed, ab, p, inverse: bool = False):
         raise ValueError(f"point_decode: ab shape {tuple(ab.shape)}, "
                          f"expected {(K, B, C, 2, 2 * f)}")
     FP = padded_width(f)
-    layouts = 2 if mode == "high" else 1
     args = [p, kernel_layout(packed, mode), kernel_film(ab)]
-    shapes = [(K, B, 3, N), (K, C, layouts * (2 * FP * FP + 16 * FP + 8)),
+    shapes = [(K, B, 3, N), (K, C, layout_words(f, mode)),
               (K, B, C, 4 * FP)]
     for t, shape in zip(args, shapes):
         if tuple(t.shape) != shape:

@@ -13,12 +13,17 @@ checkout's, built first) and prints:
 
   * kernel 1 at FP = 40 (f = 37) in the precision mode --mode (default
     'highest'; a build without modes is read as 'highest'), both
-    directions: issue slots, FFMA and
-    shared-memory loads (LDS) a point and coupling, from the coupling
-    loop's own instructions and f times each head's W1 row loop, divided
-    by the points a thread carries (P, as the source sets it unless
-    given); loops nested in the coupling loop that are not W1 row loops
-    (staging loops) are printed apart, by the iteration;
+    directions: at 'highest' (and in a build from before the tensor-core
+    modes) issue slots, FFMA and shared-memory loads (LDS) a point and
+    coupling, from the coupling loop's own instructions and f times each
+    head's W1 row loop, divided by the points a thread carries (P, as the
+    source sets it unless given); loops nested in the coupling loop that
+    are not W1 row loops (staging loops) are printed apart, by the
+    iteration; at 'high' and 'fast' (a thread a point, the products on
+    the tensor cores) the coupling loop's own instructions, HMMA, LDS and
+    SHFL, and each loop nested in it (the heads' loop, a loop over the
+    16-row halves, staging) apart, by the iteration: a warp's issue slots
+    for its 32 points;
   * kernels 2 (`nn_distance_kernel`, with and without the indices) and 3
     (`cd_stats_kernel`), or the kernels `--distance-kernels` names: issue
     slots, FMNMX, SHFL and LDS a point pair, from the innermost loops
@@ -41,7 +46,7 @@ import subprocess
 
 from ..ops.kernels import build
 
-OPS = ("FFMA", "FMUL", "FMNMX", "LDS", "SHFL", "BAR", "LDGSTS")
+OPS = ("FFMA", "FMUL", "FMNMX", "LDS", "SHFL", "BAR", "LDGSTS", "HMMA")
 MODES = ("highest", "high", "fast")  # kernel 1's MODE template argument
 
 
@@ -142,6 +147,30 @@ def point_decode_report(instr, P, f, FP, tag, mode="highest"):
           "(staging loops aside)")
 
 
+def point_decode_tc_report(instr, tag):
+    """Kernel 1 at 'high' and 'fast': the coupling loop (the outermost
+    loop that holds the block barrier) by its own instructions and its
+    nested loops, each by the iteration."""
+    every = loops(instr)
+    barred = [lp for lp in every if counts(body(instr, lp))["BAR"] > 0]
+    if not barred:
+        print(f"{tag}: no coupling loop found")
+        return
+    coupling = max(barred, key=lambda lp: lp[1] - lp[0])
+    nested = [lp for lp in every if inside(coupling, lp)]
+    outer_nested = [lp for lp in nested
+                    if not any(inside(o, lp) for o in nested)]
+    own = counts(body(instr, coupling, outer_nested))
+    print(f"{tag}: coupling loop's own {own['all']} instructions (a warp, "
+          f"32 points), {own['HMMA']} HMMA, {own['LDS']} LDS, "
+          f"{own['SHFL']} SHFL, {own['FFMA']} FFMA, {own['BAR']} BAR")
+    for lp in outer_nested:
+        c = counts(body(instr, lp))
+        print(f"{tag}: loop in the coupling loop at {lp[0]:#x}: {c['all']} "
+              f"instructions an iteration, {c['HMMA']} HMMA, {c['LDS']} LDS, "
+              f"{c['LDGSTS']} LDGSTS")
+
+
 def cd_stats_report(instr, tag):
     every = loops(instr)
     # the innermost loops that form distances (nested loops without FMUL,
@@ -172,15 +201,17 @@ def cd_stats_report(instr, tag):
 
 
 def points_a_thread(FP: int, mode: str = "highest") -> int:
-    """Kernel 1's points a thread at width FP in `mode`, as the source
-    sets them (half at 'high')."""
+    """Kernel 1's points a thread at width FP at 'highest', as the source
+    sets them ('high' and 'fast' take one)."""
+    if mode != "highest":
+        return 1
     with open(os.path.join(build.CSRC, "point_decode.cu")) as f:
         text = f.read()
     const = {name: int(value) for name, value in
              re.findall(r"constexpr int (k\w+) = (\d+);", text)}
     P = (const["kNarrowPoints"] if FP <= const["kNarrowFP"]
          else const["kWidePoints"])
-    return P // 2 if mode == "high" and P > 1 else P
+    return P
 
 
 def main() -> None:
@@ -216,7 +247,10 @@ def main() -> None:
                     == args.mode:
                 tag = (f"point_decode {args.mode} FP={FP} "
                        f"{'inverse' if m.group(2) == '1' else 'direct'}")
-                point_decode_report(instr, P, args.f, FP, tag, args.mode)
+                if any("HMMA" in t for _, t in instr):
+                    point_decode_tc_report(instr, tag)
+                else:
+                    point_decode_report(instr, P, args.f, FP, tag, args.mode)
             continue
         for kernel in args.distance_kernels:
             if kernel in name:

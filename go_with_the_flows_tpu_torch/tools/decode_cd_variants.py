@@ -7,6 +7,27 @@ of any path.
 
     python -m go_with_the_flows_tpu_torch.tools.decode_cd_variants
         [--out DIR] [--sources SRC ...]
+    python -m go_with_the_flows_tpu_torch.tools.decode_cd_variants
+        --modes [SPEC.json] [--parent DIR] [--turns 3] [--svr] [--out DIR]
+
+`--modes` times kernel 1 at 'fast' and 'high' (`time_modes`): the
+checkout's `point_decode.cu`, each variant of SPEC (a JSON object: a
+variant's name -> {"patch": [[old, new], ...]}, exact replacements in the
+checkout's source, each of which must occur) and with `--parent` the
+`point_decode.cu` of another tree (a parent unpacked with `git archive`;
+before the tensor-core design its modes read `parent_layout`), each built
+alone by `nvcc` beside its own csrc's headers, all at once. At the
+flagship shape (K=4, B=64, N=2048, C=33, f=37; `--svr`: also the SVR
+configuration's, B=128, N=2500, f=33), direct, it prints each library's
+ptxas registers and spills by mode and FP and its HMMA count a function,
+whether the parent's 'highest' SASS equals the checkout's instantiation
+by instantiation, the mean of CUDA-event windows of 10 launches in turns
+(the libraries in order, then in reverse, `--turns` times) in each mode,
+and each output's largest difference to the checkout's and to the plain
+version of its mode (a variant that removes a part, such as the W1
+product, computes something else: its time says what the part costs);
+the checkout's 'highest' beside them, and whether the parent's 'highest'
+output equals it bit for bit.
 
 Each variant is a copy of a source with other values of its layout
 constants (threads a block, points or rows a thread), built alone by
@@ -27,8 +48,10 @@ change the order of its column sums: it is held at rtol 1e-5 instead).
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import re
+import shutil
 import subprocess
 
 import torch
@@ -38,10 +61,15 @@ from ..ops.kernels.chamfer import nn_distance
 from ..ops.kernels.emd import emd_backward, emd_cost_kernel
 from ..ops.kernels.pairwise import pairwise_cd_stats
 from ..ops.kernels.point_decode import (
+    KERNEL_MODES,
+    _layout,
     film_alpha_beta,
     kernel_film,
+    kernel_layout,
     point_decode,
+    point_decode_plain,
 )
+from ..ops.precision import bf16_round, bf16_split, matmul_precision_scope
 
 VARIANTS = {
     "point_decode.cu": [dict(kBlockPoints=256, kNarrowPoints=1),
@@ -65,6 +93,7 @@ VARIANTS = {
                dict(kBwdThreads=128, kBwdRows=2),
                dict(kBwdThreads=64, kBwdRows=8)],
 }
+MODES = ("highest", "high", "fast")  # kernel 1's MODE: KERNEL_MODES' order
 # source -> (kernel whose ptxas lines are read, C entry points it holds)
 KERNELS = {
     "point_decode.cu": ("point_decode_kernel", ("gwtf_point_decode",)),
@@ -144,17 +173,20 @@ def cuda_ms(fn, reps=10):
     return start.elapsed_time(end) / reps
 
 
-def decode_inputs():
+def decode_inputs(config=None, B=64, N=2048):
+    """A decoder of `config` (default the flagship's) packed on the card
+    (random weights from seed 0), FiLM affines for B random latents and a
+    state p (K, B, 3, N)."""
     from ..models.mixture import FlowMixtureModel
     from ..utils.config import FLAGSHIP_AIRPLANE
 
     gen = torch.Generator().manual_seed(0)
-    model = FlowMixtureModel(**FLAGSHIP_AIRPLANE, generator=gen).cuda().eval()
+    model = FlowMixtureModel(**(config or FLAGSHIP_AIRPLANE),
+                             generator=gen).cuda().eval()
     packed = model.pack_decoder()
-    g = torch.randn(64, model.g_latent_space_size, generator=gen).cuda()
+    g = torch.randn(B, model.g_latent_space_size, generator=gen).cuda()
     ab = film_alpha_beta(packed, g)
-    p = 0.3 * torch.randn(model.n_components, 64, 3, 2048,
-                          generator=gen).cuda()
+    p = 0.3 * torch.randn(model.n_components, B, 3, N, generator=gen).cuda()
     return packed, ab, p
 
 
@@ -285,25 +317,212 @@ def time_emd_backward(built, stream, B=64, N=2048) -> None:
               f"within rtol 1e-5 of the checkout's {close}")
 
 
+def parent_layout(packed, mode: str) -> torch.Tensor:
+    """Kernel 1's weights at 'fast' and 'high' as the CUDA-core kernels
+    before the tensor-core design read them: the 'highest' layout of the
+    rounded weights, or of the hi parts followed by that of the lo parts
+    (biases 0)."""
+    w0, b0, w1, w2, b2 = (packed[k] for k in ("w0", "b0", "w1", "w2", "b2"))
+    if mode == "fast":
+        return _layout(*(bf16_round(w0), b0, bf16_round(w1),
+                         bf16_round(w2), b2)).contiguous()
+    (w0, w0l), (w1, w1l), (w2, w2l) = (bf16_split(t) for t in (w0, w1, w2))
+    return torch.cat([_layout(w0, b0, w1, w2, b2),
+                      _layout(w0l, torch.zeros_like(b0), w1l, w2l,
+                              torch.zeros_like(b2))], -1).contiguous()
+
+
+def build_mode_libraries(out: str, spec, parent=None):
+    """{name: (library, ptxas log, the source's text)}: 'checkout', each
+    variant of `spec` and 'parent' (the point_decode.cu of the tree
+    `parent`), each source in a copy of its csrc directory, one nvcc each,
+    all at once."""
+    jobs = {}
+
+    def start(name, csrc, patch=()):
+        d = os.path.join(out, name)
+        shutil.rmtree(d, ignore_errors=True)
+        shutil.copytree(csrc, d)
+        cu = os.path.join(d, "point_decode.cu")
+        with open(cu) as f:
+            text = f.read()
+        for old, new in patch:
+            if old not in text:
+                raise SystemExit(f"variant {name}: no {old[:60]!r} in the "
+                                 "source")
+            text = text.replace(old, new)
+        with open(cu, "w") as f:
+            f.write(text)
+        so = os.path.join(d, "libpoint_decode.so")
+        jobs[name] = (so, text, subprocess.Popen(
+            [build._nvcc(), *build.NVCC_FLAGS, "-shared", "-o", so, cu],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+
+    os.makedirs(out, exist_ok=True)
+    start("checkout", build.CSRC)
+    for name, v in spec.items():
+        start(name, build.CSRC, v.get("patch", []))
+    if parent:
+        start("parent", os.path.join(parent, "go_with_the_flows_tpu_torch",
+                                     "csrc"))
+    libs = {}
+    for name, (so, text, proc) in jobs.items():
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            if name == "checkout":
+                raise SystemExit(f"nvcc failed on {name}:\n{log[-3000:]}")
+            print(f"  {name}: nvcc failed, left out:\n{log[-1500:]}",
+                  flush=True)
+            continue
+        libs[name] = (build.load(so, ["gwtf_point_decode"]), log, text)
+    return libs
+
+
+def time_modes(libs, stream, turns: int, config=None, B=64, N=2048) -> None:
+    """Kernel 1 of each library at 'fast' and 'high' (and the checkout's
+    and the parent's at 'highest'), direct, timed in turns: see the
+    module's docstring."""
+    packed, ab, p = decode_inputs(config, B, N)
+    K = p.shape[0]
+    C, f = packed["w1"].shape[1], packed["w1"].shape[-1]
+    fp = (f + 7) // 8 * 8
+    film = kernel_film(ab)
+    print(f"point_decode modes K={K} B={B} N={N} C={C} f={f} (FP {fp})",
+          flush=True)
+    runs = {}
+    for name, (lib, log, text) in libs.items():
+        modes = ["fast", "high"] + (["highest"] if name in ("checkout",
+                                                            "parent") else [])
+        for mode in modes:
+            new = "TcLayout" in text or mode == "highest"
+            weights = (kernel_layout(packed, mode) if new
+                       else parent_layout(packed, mode))
+            out, lv = torch.empty_like(p), torch.empty_like(p)
+
+            def run(lib=lib, weights=weights, out=out, lv=lv, mode=mode,
+                    name=name):
+                check_code(name, lib.gwtf_point_decode(
+                    p.data_ptr(), weights.data_ptr(), film.data_ptr(),
+                    out.data_ptr(), lv.data_ptr(), K, B, C, N, f, 0,
+                    KERNEL_MODES[mode], stream))
+
+            runs[name, mode] = (run, out)
+    ms = {key: [] for key in runs}
+    names = list(libs)
+    for _ in range(turns):
+        for name in names + names[::-1]:
+            for (n, mode), (run, _) in runs.items():
+                if n == name:
+                    ms[n, mode].append(cuda_ms(run))
+    want = {}
+    for mode in ("fast", "high", "highest"):
+        with matmul_precision_scope(mode):
+            want[mode] = point_decode_plain(packed, ab, p)[0]
+    for (name, mode), (run, out) in runs.items():
+        run()
+        torch.cuda.synchronize()
+        ref = runs["checkout", mode][1]
+        mean = sum(ms[name, mode]) / len(ms[name, mode])
+        print(f"  {name:>16} {mode:>7}: {mean:.3f} ms ("
+              + ", ".join(f"{t:.3f}" for t in ms[name, mode]) + "); against "
+              f"the checkout's max |diff| {(out - ref).abs().max().item():.3g}"
+              f", against plain {mode} "
+              f"{(out - want[mode]).abs().max().item():.3g}"
+              + (f"; bit-equal {torch.equal(out, ref)}"
+                 if mode == "highest" else ""), flush=True)
+
+
+def _decode_key(name):
+    """(FP, INVERSE, MODE) of a mangled point_decode_kernel name (its
+    anonymous namespace's hash differs between two builds), else None."""
+    m = re.search(r"point_decode_kernelILi(\d+)ELb([01])ELi(\d)E", name)
+    return tuple(int(v) for v in m.groups()) if m else None
+
+
+def compare_highest_sass(libs) -> None:
+    """Each library's ptxas registers and spills of kernel 1 by mode and
+    FP and its HMMA count a function by mode; then the SASS (`cuobjdump
+    -sass`) of every 'highest' (MODE 0) instantiation in the parent's
+    library against the checkout's."""
+    from .train_decode_ab import opcode_delta, sass_functions
+
+    funcs = {}
+    for name, (lib, log, _) in libs.items():
+        funcs[name] = {_decode_key(fn): lines for fn, lines in
+                       sass_functions(lib._name).items() if _decode_key(fn)}
+        for mode in (2, 1):
+            print(f"  {name}: ptxas {MODES[mode]} registers (B spilled) by "
+                  "FP " + ", ".join(
+                      "{} {} ({})".format(fp, *ptxas(
+                          log, "point_decode_kernel",
+                          f"ILi{fp}ELb0ELi{mode}E")[:2])
+                      for fp in range(8, 72, 8)), flush=True)
+        hmma = {}
+        for (_, _, mode), lines in funcs[name].items():
+            hmma.setdefault(mode, []).append(sum("HMMA" in line
+                                                 for line in lines))
+        print(f"  {name}: HMMA a function by MODE " + "; ".join(
+            f"{m}: {min(v)}-{max(v)} over {len(v)}"
+            for m, v in sorted(hmma.items())), flush=True)
+    if "parent" not in funcs:
+        return
+    mine, theirs = funcs["checkout"], funcs["parent"]
+    highest = sorted(k for k in mine if k[2] == 0)
+    same = [k for k in highest if mine[k] == theirs.get(k)]
+    print(f"  'highest' SASS: {len(same)} of {len(highest)} instantiations "
+          "equal to the parent's", flush=True)
+    for k in highest:
+        if k not in same:
+            print(f"    <FP {k[0]}, INVERSE {k[1]}>: "
+                  f"{len(theirs.get(k, []))} -> {len(mine[k])} lines, "
+                  f"opcodes {opcode_delta(theirs.get(k, []), mine[k])}",
+                  flush=True)
+
+
 RUNNERS = {"point_decode.cu": time_point_decode,
            "nn_distance.cu": time_nn_distance,
            "pairwise_cd.cu": time_cd_stats,
            "emd.cu": time_emd_backward}
 
 
-def main() -> None:
+def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--out", default=os.path.join(build.BUILD_DIR,
                                                       "variants"))
     parser.add_argument("--sources", nargs="+", choices=list(VARIANTS),
                         default=list(VARIANTS))
-    args = parser.parse_args()
-    built = build_variants(args.out, args.sources)
+    parser.add_argument("--modes", nargs="?", const="", default=None,
+                        metavar="SPEC", help="time kernel 1 at 'fast' and "
+                        "'high', with the variants of SPEC (JSON) if given")
+    parser.add_argument("--parent", help="--modes: a tree whose "
+                        "point_decode.cu is timed too")
+    parser.add_argument("--turns", type=int, default=3)
+    parser.add_argument("--svr", action="store_true",
+                        help="--modes: also at the SVR configuration's shape")
+    args = parser.parse_args(argv)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
-    print(f"card: {card}")
     stream = torch.cuda.current_stream().cuda_stream
+    if args.modes is not None:
+        spec = {}
+        if args.modes:
+            with open(args.modes) as f:
+                spec = json.load(f)
+        libs = build_mode_libraries(os.path.join(args.out, "modes"), spec,
+                                    args.parent)
+        print(f"card: {card}")
+        compare_highest_sass(libs)
+        time_modes(libs, stream, args.turns)
+        if args.svr:
+            from ..utils.config import (SVR_RUN, SVR_SHAPENETALL13,
+                                        model_config_kwargs)
+            time_modes(libs, stream, args.turns,
+                       model_config_kwargs(SVR_SHAPENETALL13),
+                       SVR_RUN["batch_size"], SVR_RUN["cloud_size"])
+        return
+    built = build_variants(args.out, args.sources)
+    print(f"card: {card}")
     for src in args.sources:
         RUNNERS[src](built, stream)
 

@@ -3,15 +3,20 @@
 // tests (tests/test_torch_port_*_emulated.py). Each CUDA thread
 // of a block is a std::thread; the blocks of a launch run one after
 // another; a barrier stands for __syncthreads and __syncwarp, and
-// shuffles exchange through a per-block array between two barriers. It checks the kernels'
+// shuffles exchange through a per-block array between two barriers; a
+// warp's register fragments (csrc/mma_bf16.cuh's frag_mma) through a
+// per-warp array and a barrier of the warp. It checks the kernels'
 // indexing and control flow, not their speed or the GPU's rounding.
 #pragma once
 #include <algorithm>
 #include <barrier>
 #include <cmath>
 #include <cstring>
+#include <memory>
 #include <thread>
 #include <vector>
+
+#define GWTF_CPU_EMULATION 1
 
 #define __global__
 #define __device__
@@ -94,13 +99,18 @@ inline float __fmaf_rn(float a, float b, float c) { return std::fma(a, b, c); }
 
 inline thread_local dim3 threadIdx, blockIdx;
 inline dim3 gridDim, blockDim;
+constexpr int kEmuWords = 16;  // words a thread hands in to a warp exchange
 struct EmuBlock {
   std::barrier<>* bar;
   std::vector<float> lanes;  // one slot per thread, for the shuffles
   std::vector<float> dyn;    // the block's dynamic shared memory
+  // a barrier for each warp, and two rounds of kEmuWords words a thread
+  std::vector<std::unique_ptr<std::barrier<>>> warps;
+  std::vector<unsigned> words;
 };
 inline thread_local EmuBlock* emu_block;
 inline thread_local float* emu_dyn;
+inline thread_local int emu_round;  // which of the two rounds of words
 
 inline void __syncthreads() { emu_block->bar->arrive_and_wait(); }
 // the warp's barrier waits on the whole block: every thread of the block
@@ -142,6 +152,22 @@ inline T __shfl_down_sync(unsigned, T v, int d) {
   return r;
 }
 
+// Thread t hands in n <= kEmuWords words; once every thread of its warp
+// has, returns the warp's 32 rows of kEmuWords words (lane i's from row
+// i). Every thread of the warp must reach the call. Two rounds of words
+// take turns, so that one barrier an exchange suffices: a thread writes a
+// round again only after the whole warp has passed the next barrier, that
+// is, has read the round.
+inline const unsigned* emu_warp_exchange(const unsigned* mine, int n) {
+  const int t = threadIdx.x;
+  unsigned* round = emu_block->words.data() +
+                    (size_t)emu_round * blockDim.x * kEmuWords;
+  std::memcpy(round + (size_t)t * kEmuWords, mine, n * sizeof(unsigned));
+  emu_block->warps[t / 32]->arrive_and_wait();
+  emu_round ^= 1;
+  return round + (size_t)(t & ~31) * kEmuWords;
+}
+
 inline dim3 emu_dim(int x) { return dim3(x); }
 inline dim3 emu_dim(dim3 d) { return d; }
 
@@ -157,7 +183,11 @@ void emu_launch(dim3 grid, dim3 block, size_t smem, cudaStream_t, F f) {
         std::barrier<> bar(block.x);
         // shared memory starts as NaN, so a read before a write shows
         EmuBlock blk{&bar, std::vector<float>(block.x),
-                     std::vector<float>(smem / sizeof(float) + 4, NAN)};
+                     std::vector<float>(smem / sizeof(float) + 4, NAN), {},
+                     std::vector<unsigned>(2 * block.x * kEmuWords)};
+        for (unsigned w0 = 0; w0 < block.x; w0 += 32)
+          blk.warps.emplace_back(
+              new std::barrier<>(std::min(32u, block.x - w0)));
         std::vector<std::thread> threads;
         for (unsigned t = 0; t < block.x; ++t)
           threads.emplace_back([&, t] {
@@ -165,6 +195,7 @@ void emu_launch(dim3 grid, dim3 block, size_t smem, cudaStream_t, F f) {
             blockIdx = dim3(bx, by, bz);
             emu_block = &blk;
             emu_dyn = blk.dyn.data();
+            emu_round = 0;
             f();
           });
         for (auto& th : threads) th.join();

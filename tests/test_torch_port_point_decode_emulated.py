@@ -7,8 +7,12 @@ coupling (the cp.async copies land at once here), the coupling order of
 both directions, and the register tile of several points a thread with a
 partial last tile, without a card. Widths f=8 (no padding), f=37 (the
 flagship's, padded to 40), f=33 (the SVR configuration's, padded to 40)
-and f=45 (padded to 48, the other register tile), in each matmul
-precision mode (ops/precision.py) against the plain version of that mode.
+and f=45 (padded to 48, the other register tile), at 'highest' here; the
+same cases in the other matmul precision modes (ops/precision.py), each
+against the plain version of its mode, are in
+tests/test_torch_port_point_decode_modes_emulated.py, which builds its
+own library from the helpers here (`build_emulated`, `check_decode`), so
+that the two files run on two workers of the suite.
 Bounds as the card test's (tests/test_torch_port_cuda.py) and
 chip_smoke.py's: the CPU's float rounding differs from the GPU's, not
 the algorithm. atol 1e-4 at 'highest', 1e-5 at 'high' and 5e-3 at
@@ -69,18 +73,18 @@ def _emulated_source(text: str) -> str:
     return text
 
 
-@pytest.fixture(scope="module")
-def lib(tmp_path_factory):
+def build_emulated(source_text: str, out) -> ctypes.CDLL:
+    """`source_text` (point_decode.cu or a copy of it) rewritten for the
+    emulation and built by g++ into `out`, beside csrc's headers."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to build the CUDA source against the emulation")
-    out = tmp_path_factory.mktemp("emulated")
     cpp = out / "point_decode.cpp"
-    with open(SOURCE) as f:
-        cpp.write_text(_emulated_source(f.read()))
+    cpp.write_text(_emulated_source(source_text))
     so = out / "libpoint_decode.so"
     built = subprocess.run([gxx, "-std=c++20", "-O1", "-shared", "-fPIC",
-                            "-I", HERE, "-o", str(so), str(cpp), "-lpthread"],
+                            "-I", HERE, "-I", os.path.dirname(SOURCE), "-o",
+                            str(so), str(cpp), "-lpthread"],
                            capture_output=True, text=True)
     if built.returncode != 0:
         raise RuntimeError(f"g++ failed on the emulated source:\n"
@@ -90,6 +94,12 @@ def lib(tmp_path_factory):
     lib.gwtf_point_decode.argtypes = [P] * 5 + [I] * 7 + [P]
     lib.gwtf_point_decode.restype = ctypes.c_int
     return lib
+
+
+@pytest.fixture(scope="module")
+def lib(tmp_path_factory):
+    with open(SOURCE) as f:
+        return build_emulated(f.read(), tmp_path_factory.mktemp("emulated"))
 
 
 def _inputs(f, B, N, seed, K=2):
@@ -115,19 +125,12 @@ def _inputs(f, B, N, seed, K=2):
     return packed, ab, p
 
 
-# Blocks of 512 points: 128 threads x 4 points at f <= 40, 256 x 2 above.
-# N = 818 at f = 8 and 37: the second block's threads have their first
-# two points live, their third in 50 threads, their fourth in none;
-# N = 50: one block whose first points are partial; f = 45 (padded to
-# 48, 2 points a thread) at N = 600: the second block's first points
-# live in 88 threads, its second points in none
-@pytest.mark.parametrize("f,N", [(8, 818), (37, 818), (37, 50), (45, 600),
-                                 (33, 1250)])
-@pytest.mark.parametrize("inverse", [False, True])
-@pytest.mark.parametrize("mode", ["highest", "high", "fast"])
-def test_emulated_point_decode(lib, f, N, inverse, mode):
-    packed, ab, p = _inputs(f, 2, N, f + N)
-    K, B = p.shape[:2]
+def check_decode(lib, f, N, inverse, mode, B=2):
+    """The emulated kernel in `mode` against the plain version of that
+    mode, within the module's bounds; two launches bit-equal; away from
+    'highest' the mode in force."""
+    packed, ab, p = _inputs(f, B, N, f + N)
+    K = p.shape[0]
     C = packed["w1"].shape[1]
     film = kernel_film(ab)
 
@@ -160,3 +163,19 @@ def test_emulated_point_decode(lib, f, N, inverse, mode):
         if mode == "fast":
             assert ((a - b).abs() > 1e-4).float().mean().item() <= 2e-3
             assert 10 * (a - b).abs().max() <= (a - bh).abs().max()
+
+
+# 'highest' takes blocks of 512 points: 128 threads x 4 points at f <= 40,
+# 256 x 2 above. N = 818 at f = 8 and 37: the second block's threads have
+# their first two points live, their third in 50 threads, their fourth in
+# none; N = 50: one block whose first points are partial; f = 45 (padded
+# to 48, 2 points a thread) at N = 600: the second block's first points
+# live in 88 threads, its second points in none
+SHAPES = [(8, 818), (37, 818), (37, 50), (45, 600), (33, 1250)]
+
+
+@pytest.mark.parametrize("f,N", SHAPES)
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("mode", ["highest"])
+def test_emulated_point_decode(lib, f, N, inverse, mode):
+    check_decode(lib, f, N, inverse, mode)
