@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch + CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py              # phases 0-9, one card
+    python3 chip_smoke.py              # phases 0-10, one card
     python3 chip_smoke.py --cards 4    # the build, then the NCCL launch
 
 Runs from the root of a checkout, imports nothing of JAX, and exits
@@ -156,7 +156,16 @@ non-zero at the first failure:
      'high', kernels 7 and 8), B=64, S=64, one rep, its table printed;
      tools/train_quality_ab.run at 20 steps, B=16, S=16, one rep through
      its three variants (the modules at 'highest', kernels 7 and 8 at
-     'high' and at 'fast', each trained and scored at 'high').
+     'high' and at 'fast', each trained and scored at 'high');
+ 10. tools: tools/protocol_bench.run at the airplane protocol's size (405
+     generated against 405 reference clouds of 2048 points, CD, F1 and
+     EMD: the CD and EMD matrices, a cold and a warm protocol), its line
+     printed, an 8 x 8 corner of its CD and EMD matrices against the
+     plain versions at phase 2's tolerances; tools/train_breakdown.run at
+     B=64 in 'highest', 'high' and 'fast' (the training forward, the
+     gradient, the eval step and the train step, each on the host's clock
+     and as the card's busy time), its three lines printed, every value
+     finite and positive; kernels 1, 3, 4, 7 and 8 counted around each.
 
 With `--cards N` it runs only phases 0 and 1 and then cli/train_ae's
 data-parallel launch on N cards of the host (cli.run_ranks, one rank a
@@ -4854,6 +4863,113 @@ def phase_precision(card):
     return launches
 
 
+def phase_tools(card):
+    """Phase 10: tools/protocol_bench.run at the airplane protocol's size
+    (405 x 405 clouds of 2048 points, EMD on), its line printed and an 8
+    x 8 corner of its CD and EMD matrices held against the plain
+    versions; tools/train_breakdown.run at B=64 in all three modes, its
+    three lines printed, every value finite and positive. Returns the
+    launches of every kernel, kernels 1, 7 and 8 by mode."""
+    import math
+
+    import torch
+
+    from go_with_the_flows_tpu_torch.ops.kernels.pairwise import (
+        pairwise_cd_stats, pairwise_cd_stats_plain, pairwise_emd,
+        pairwise_emd_plain)
+    from go_with_the_flows_tpu_torch.ops.kernels.point_decode import (
+        point_decode)
+    from go_with_the_flows_tpu_torch.ops.kernels.train_decode import (
+        train_decode_bwd, train_decode_fwd)
+    from go_with_the_flows_tpu_torch.tools import (protocol_bench,
+                                                   train_breakdown)
+
+    say("[10] tools: protocol_bench at 405 x 405 clouds of 2048 points "
+        "with EMD; train_breakdown at B=64 in each mode")
+    wrappers = (point_decode, pairwise_cd_stats, pairwise_emd,
+                train_decode_fwd, train_decode_bwd)
+    moded = (point_decode, train_decode_fwd, train_decode_bwd)
+    launches = dict.fromkeys((w.__name__ for w in wrappers), 0)
+    launches.update({f"{w.__name__}_{m}": 0 for w in moded
+                     for m in ("high", "fast")})
+
+    def count(fn):
+        """fn() with the kernels' counters set to 0 before and added into
+        `launches` after (kernels 1, 7 and 8 by mode); the stage's own
+        counts by kernel."""
+        zero(wrappers)
+        for w in moded:
+            w.launches_by_mode.update(dict.fromkeys(w.launches_by_mode, 0))
+        out = fn()
+        torch.cuda.synchronize()
+        stage = read(wrappers)
+        for w in moded:
+            for mode in ("high", "fast"):
+                stage[w.__name__] -= w.launches_by_mode[mode]
+                stage[f"{w.__name__}_{mode}"] = w.launches_by_mode[mode]
+        for k, n in stage.items():
+            launches[k] += n
+        return out, stage
+
+    t0 = time.perf_counter()
+    matrices = {}
+    line, stage = count(lambda: protocol_bench.run(
+        405, 405, N_POINTS, emd=True, matrices=matrices))
+    print(json.dumps(line), flush=True)
+    protocol_s = time.perf_counter() - t0
+    for name in ("pairwise_cd_stats", "pairwise_emd"):
+        if stage[name] < 1:
+            fail(f"protocol_bench did not launch {name}")
+    times = [line[k] for k in ("cd_matrix_sec", "emd_matrix_sec",
+                               "protocol_sec", "warm_rep_sec")]
+    if not all(math.isfinite(t) and t > 0 for t in times) or not (
+            math.isfinite(line["mmd_cd"]) and 0 <= line["nna_cd"] <= 1):
+        fail(f"protocol_bench's line: {line}")
+    # an 8 x 8 corner of the same clouds' matrices through the plain
+    # versions, at check_pairwise's and check_pairwise_emd's tolerances
+    gen = torch.from_numpy(matrices["gen"][:8]).cuda()
+    ref = torch.from_numpy(matrices["ref"][:8]).cuda()
+    cdl, cdr, _, _ = pairwise_cd_stats_plain(gen, ref, 1e-3)
+    check_close("protocol CD matrix, 8 x 8 corner, vs plain",
+                torch.from_numpy(matrices["cd"][:8, :8]).cuda(), cdl + cdr,
+                0.0, 1e-5)
+    check_close("protocol EMD matrix (x N), 8 x 8 corner, vs plain",
+                N_POINTS * torch.from_numpy(matrices["emd"][:8, :8]).cuda(),
+                pairwise_emd_plain(gen, ref), 1e-5, 2e-4)
+    say(f"    protocol_bench: CD matrix {line['cd_matrix_sec']:.3f} s, EMD "
+        f"matrix {line['emd_matrix_sec']:.3f} s, cold protocol "
+        f"{line['protocol_sec']:.3f} s, warm {line['warm_rep_sec']:.3f} s, "
+        f"10 reps {line['protocol_min_10rep']:.3f} min; launches {stage} "
+        f"[{card}]")
+    del matrices
+
+    t0 = time.perf_counter()
+    lines, stage = count(lambda: train_breakdown.run(b=(BATCH,),
+                                                     modes=MODES, iters=10))
+    breakdown_s = time.perf_counter() - t0
+    if [(x["mode"], x["B"]) for x in lines] != [(m, BATCH) for m in MODES]:
+        fail(f"train_breakdown made the lines {lines}")
+    for x in lines:
+        bad = {k: v for k, v in x.items() if k not in ("mode", "B")
+               and not (math.isfinite(v) and v > 0)}
+        if bad:
+            fail(f"train_breakdown at '{x['mode']}': {bad}")
+        say(f"    train_breakdown '{x['mode']}' B={BATCH} (ms a call, host "
+            "clock / card busy): " + "; ".join(
+                f"{p} {x[p + '_ms']:.2f} / {x[p + '_device_ms']:.2f}"
+                for p in train_breakdown.PARTS)
+            + f"; {x['clouds_per_sec']:.1f} clouds/s [{card}]")
+    for mode in MODES:
+        tag = "" if mode == "highest" else "_" + mode
+        for name in ("point_decode", "train_decode_fwd", "train_decode_bwd"):
+            if stage[name + tag] < 1:
+                fail(f"train_breakdown did not launch {name} at '{mode}'")
+    say(f"    phase 10 seconds: protocol_bench {protocol_s:.1f}, "
+        f"train_breakdown {breakdown_s:.1f}; launches "
+        + ", ".join(f"{k} {n}" for k, n in launches.items() if n))
+    return launches
+
+
 def main() -> None:
     import argparse
 
@@ -4910,10 +5026,13 @@ def main() -> None:
     for name, n in phase_precision(card).items():
         launches[name] = launches.get(name, 0) + n
     marks.append(time.perf_counter())
+    for name, n in phase_tools(card).items():
+        launches[name] = launches.get(name, 0) + n
+    marks.append(time.perf_counter())
     say("phase seconds: " + ", ".join(
         f"{name} {b - a:.1f}" for name, a, b in
         zip(("build", "kernels", "slice", "train", "loop", "svr", "cli",
-             "dist", "precision"), marks, marks[1:])))
+             "dist", "precision", "tools"), marks, marks[1:])))
     if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
         fail("jax was imported")
 

@@ -17,6 +17,18 @@ unless it is given `--device cpu`. Each module splits into `main(argv)`
 datasets, or in-memory arrays handed in as `store`) and `run(config,
 datasets, device)`, which chip_smoke.py calls on the card.
 
+The offline preprocessing (counterparts of the root scripts
+preprocess_shapenetcore.py, preprocess_shapenetall.py and
+resample_shapenetcore.py, with their arguments) writes the h5 files the
+four read; it needs no card and takes no `--device`:
+
+    python -m go_with_the_flows_tpu_torch.cli.preprocess_shapenetcore \
+        DATA_DIR SAVE_DIR N_PROCESSES BATCH_SIZE
+    python -m go_with_the_flows_tpu_torch.cli.resample_shapenetcore H5_PATH
+    python -m go_with_the_flows_tpu_torch.cli.preprocess_shapenetall \
+        SNA_DATA_DIR SNC1_DATA_DIR SAVE_DIR N_PROCESSES BATCH_SIZE \
+        [--skip_copy]
+
 train_ae and train_svr train data-parallel as the reference's DDP
 launch does:
 `--distributed -n NODES -g PROCESSES_A_NODE -nr NODE --coordinator

@@ -15,7 +15,7 @@ tensorboard is installed. With --distributed every rank trains on its
 shard of each global batch of the config's batch_size (cli/__init__.py
 says how the ranks start); rank 0 logs and writes the checkpoints. Not
 ported: the TensorBoard reconstruction figures (`logging_img`,
-ROADMAP.md queue 1 item 6).
+ROADMAP.md queue 1 item 3).
 """
 
 from __future__ import annotations

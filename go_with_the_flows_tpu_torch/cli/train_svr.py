@@ -15,7 +15,7 @@ batch_size, its loader transforming only its own images (cli/__init__.py
 says how the ranks start); the ResNet's BatchNorms, like every other,
 take the global batch's statistics; rank 0 logs and writes the
 checkpoints. The TensorBoard SVR reconstruction figures (the JAX
-script's `svr_recon_fn`) are not ported (ROADMAP.md queue 1 item 6):
+script's `svr_recon_fn`) are not ported (ROADMAP.md queue 1 item 3):
 nothing takes their place.
 """
 

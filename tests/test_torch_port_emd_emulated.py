@@ -4,8 +4,8 @@ stand-in for CUDA (tests/cuda_cpu_emulation.h) and run on the CPU through
 its C entry points, against the plain PyTorch versions: the passes'
 indexing, the fused row pass's order of updates, ragged ends, unequal
 capacities, chunks of rows and the block's fixed-order sum, without a
-card. The emulation runs one std::thread per CUDA thread, so the clouds
-are small. Tolerances are the card tests' (tests/test_torch_port_cuda.py):
+card. The emulation runs every CUDA thread of a block in turn on one
+CPU thread, so the clouds are small. Tolerances are the card tests' (tests/test_torch_port_cuda.py):
 the CPU's exp2f and rsqrt differ from the card's special-function units,
 not the algorithm."""
 

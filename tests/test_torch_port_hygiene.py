@@ -109,6 +109,40 @@ def test_cli_and_data_modules_import_no_jax():
     assert int(out.stdout.strip()) == len(CLI_AND_DATA)
 
 
+PREPROCESS_AND_TOOLS = (
+    "data.objmesh", "data.png", "cli.preprocess_shapenetcore",
+    "cli.preprocess_shapenetall", "cli.resample_shapenetcore",
+    "tools.protocol_bench", "tools.train_breakdown",
+)
+
+
+def test_preprocessing_and_tools_import_without_jax_cv2_pandas_h5py():
+    """The offline preprocessing and the two measuring tools import, and
+    build their parsers, with jax, flax, cv2, pandas and h5py blocked
+    (None in sys.modules: importing them raises), as on the card's
+    machine, which lacks them; scipy, which the OBJ merge imports when it
+    runs, is not loaded by the import either."""
+    names = ["go_with_the_flows_tpu_torch." + n for n in PREPROCESS_AND_TOOLS]
+    code = (
+        "import importlib, sys\n"
+        "blocked = ('jax', 'flax', 'cv2', 'pandas', 'h5py')\n"
+        "for m in blocked:\n"
+        "    sys.modules[m] = None\n"
+        "names = sys.argv[1:]\n"
+        "for name in names:\n"
+        "    module = importlib.import_module(name)\n"
+        "    if hasattr(module, 'define_options_parser'):\n"
+        "        module.define_options_parser()\n"
+        "loaded = [m for m, v in sys.modules.items() if v is not None\n"
+        "          and m.split('.')[0] in blocked + %r + ('scipy',)]\n"
+        "assert not loaded, loaded\n"
+        "print(len(names))\n") % (FORBIDDEN,)
+    out = subprocess.run([sys.executable, "-c", code] + names, cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) == len(PREPROCESS_AND_TOOLS)
+
+
 def test_chip_smoke_imports_no_jax():
     """Every import statement of chip_smoke.py, those inside its
     functions included, names no forbidden module, and importing all of

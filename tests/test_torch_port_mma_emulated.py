@@ -1,8 +1,8 @@
 """The tensor-core product step of kernels 7 and 8's 'high' and 'fast' passes
 (go_with_the_flows_tpu_torch/csrc/mma_bf16.cuh: mma.sync m16n8k16, bf16
 operands, fp32 accumulators) built by g++ against the CPU stand-in for
-CUDA (tests/cuda_cpu_emulation.h) and run on the CPU, a std::thread per
-lane of one warp.
+CUDA (tests/cuda_cpu_emulation.h) and run on the CPU, the lanes of one
+warp taking turns on one CPU thread.
 
 A small kernel around the step (below) forms C = A B^T of an M x FP and
 an N x FP operand, staged as fp32 words the way the kernels stage them

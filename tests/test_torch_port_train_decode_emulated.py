@@ -3,8 +3,8 @@ go_with_the_flows_tpu_torch/csrc/train_decode*.cu*) built by g++ against a
 CPU stand-in for CUDA (tests/cuda_cpu_emulation.h) and run on the CPU
 through its C entry points, against the plain PyTorch versions: the
 kernels' indexing, padding, ragged segments, partial-row layout and
-reductions, without a card. The emulation runs one std::thread per CUDA
-thread, so the shapes are small: f=5 (padded to 8) with a ragged second
+reductions, without a card. The emulation runs every CUDA thread of a
+block in turn on one CPU thread, so the shapes are small: f=5 (padded to 8) with a ragged second
 512-point segment, f=13 (padded to 16) with B=1; the forward also at
 f=8 (the narrowest width, no padding) over three segments ragged in
 every tile size (B=3: 9 partial rows a component), and at f=45 (padded
