@@ -119,7 +119,13 @@ non-zero at the first failure:
      every metric is finite and the JSD in [0, 1], and sampled clouds
      lie on their meshes. It prints the loader's ms/batch by part, the CLI
      loop's ms/step beside phases 5's and 6's, whether the loader keeps
-     up with the step, and each evaluation's wall time;
+     up with the step, and each evaluation's wall time. train_ae and
+     train_svr run with `logging` and `logging_img` (train_svr's figures
+     after its 4th step): their TensorBoard event files, read back, hold
+     reconstruction/0..3 at epoch 0 and svr_reconstruction/0..3 at step
+     4, each a PNG of 256 x 512 (x 768 with the image) pixels painted in
+     every panel (viz/tb.py), kernel 1 launched once more in each for the
+     figures' batch;
   8. dist: data-parallel training of the flagship model on 2 ranks,
      spawned processes in a gloo process group sharing this one card
      (NCCL refuses two ranks on a card), at a global B=64 (32 a rank):
@@ -144,7 +150,13 @@ non-zero at the first failure:
      step against one process. The ranks'
      launches add to the kernels line, each kernel's as many as the
      steps and batches give, every launch of kernels 7 and 8 in its SPMD
-     form;
+     form; (i) the points axis: 2 ranks as a (data, points) = (1, 2)
+     grid, each the whole batch with half of every cloud's points, one
+     module-path flagship step at B=64, N=2048 against one process (the
+     loss rtol 1e-4, the flat gradient before the update within 1e-4 of
+     its largest entry, the running statistics rtol 1e-5 + atol 1e-6),
+     the fused path refused there with the JAX step's message, and the
+     step's ms beside the same step in one process and (b)'s;
   9. precision: the flagship's sample step, generating and autoencoding,
      built under each matmul precision mode and called under 'highest':
      kernel 1 launched in the step's mode once a call, no plain decode
@@ -157,6 +169,11 @@ non-zero at the first failure:
      tools/train_quality_ab.run at 20 steps, B=16, S=16, one rep through
      its three variants (the modules at 'highest', kernels 7 and 8 at
      'high' and at 'fast', each trained and scored at 'high');
+     tools/train_convergence_ab.run at 20 steps, B=32 (its three
+     variants, kernels 7 and 8 once a step in the fused ones) and
+     tools/svr_quality_ab.run at 20 steps (kernels 7 and 8 at 'highest'
+     and 'fast', kernel 1 at 'high', kernels 2 and 5 scoring), every loss
+     and metric finite;
  10. tools: tools/protocol_bench.run at the airplane protocol's size (405
      generated against 405 reference clouds of 2048 points, CD, F1 and
      EMD: the CD and EMD matrices, a cold and a warm protocol), its line
@@ -3381,6 +3398,54 @@ def check_interpolation(model, arrays, seed):
     return worst
 
 
+FIGURES = 4  # viz/tb.py's max_figures
+
+
+def check_figures(stage, logdir, prefix, steps, panels):
+    """Fail unless the TensorBoard event files in `logdir` hold the images
+    `prefix`/0..FIGURES-1, each written once at each of `steps`, each a
+    PNG of (PANEL, panels x PANEL) pixels (viz/tb.py) painted off the
+    white background in every panel; returns the painted share of the
+    first image. Read back with tensorboard's EventAccumulator and
+    decoded by the port's own PNG reader."""
+    import numpy as np
+
+    try:
+        from tensorboard.backend.event_processing.event_accumulator import (
+            IMAGES, EventAccumulator)
+    except ImportError as e:
+        fail(f"{stage}: tensorboard is not installed ({e})")
+    from go_with_the_flows_tpu_torch.data.png import decode_png
+    from go_with_the_flows_tpu_torch.viz.tb import BACKGROUND, PANEL
+
+    events = EventAccumulator(logdir, size_guidance={IMAGES: 0})
+    events.Reload()
+    tags = sorted(t for t in events.Tags()["images"]
+                  if t.startswith(prefix + "/"))
+    if tags != [f"{prefix}/{i}" for i in range(FIGURES)]:
+        fail(f"{stage}: figure tags {tags}, {prefix}/0..{FIGURES - 1} "
+             "expected")
+    share = None
+    for tag in tags:
+        written = events.Images(tag)
+        if [e.step for e in written] != list(steps):
+            fail(f"{stage}: {tag} written at steps "
+                 f"{[e.step for e in written]}, {list(steps)} expected")
+        for e in written:
+            rgb = decode_png(e.encoded_image_string)[..., :3]
+            painted = (rgb != BACKGROUND).any(axis=2)
+            if rgb.shape != (PANEL, panels * PANEL, 3) or not all(
+                    painted[:, i * PANEL:(i + 1) * PANEL].any()
+                    for i in range(panels)):
+                fail(f"{stage}: {tag} at step {e.step} is {rgb.shape} with "
+                     f"{int(painted.sum())} painted pixels; "
+                     f"({PANEL}, {panels * PANEL}, 3) painted in each panel "
+                     "expected")
+            if share is None:
+                share = float(painted.mean())
+    return share
+
+
 def phase_cli(card, loop_ms, svr_loop_ms):
     import importlib.util
     import tempfile
@@ -3428,15 +3493,16 @@ def phase_cli(card, loop_ms, svr_loop_ms):
 
     say(f"[7] cli: train_ae, evaluate_ae, reconstruct_ae and train_svr "
         f"(their run functions) on in-memory ShapeNet layouts of "
-        f"{20 * 4 ** SPHERE_LEVEL}-face meshes")
+        f"{20 * 4 ** SPHERE_LEVEL}-face meshes; the training CLIs with "
+        f"logging and logging_img (the TensorBoard figures)")
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
         # ---- the flagship: train_ae, evaluate_ae, reconstruct_ae ----
         yaml_path = os.path.join(tmp, "airplane.yaml")
         raw = load_config(os.path.join(
             ROOT, "configs", "config_generative_modeling_airplane.yaml"))
-        write_config(dict(raw, path2save=os.path.join(tmp, "results")),
-                     yaml_path)
+        write_config(dict(raw, path2save=os.path.join(tmp, "results"),
+                          logging=True, logging_img=True), yaml_path)
         t = time.perf_counter()
         store = synthetic_meshes(n_shapes=FLAGSHIP_SHAPES,
                                  labels=raw["chosen_label"], seed=70,
@@ -3473,9 +3539,17 @@ def phase_cli(card, loop_ms, svr_loop_ms):
                                  seed=args.seed,
                                  warmup_epoch=args.warmup_epoch),
             ["train_decode_fwd", "train_decode_bwd", "point_decode"],
+            # validation's 2 batches and the figures' one
             {"train_decode_fwd": 4, "train_decode_bwd": 4,
-             "point_decode": 2})
+             "point_decode": 3})
         epoch = timings[0]
+        t = time.perf_counter()
+        share = check_figures("train_ae's figures", os.path.join(exp, "log"),
+                              "reconstruction", [0], 2)
+        say(f"    train_ae's figures: reconstruction/0..{FIGURES - 1} at "
+            f"epoch 0, each ground truth beside its reconstruction, "
+            f"{100 * share:.1f}% of the first one's pixels painted; read "
+            f"back and decoded in {time.perf_counter() - t:.2f} s")
         cli_ms = 1000.0 * epoch["train_s"] / epoch["steps"]
         rest = run_s - epoch["train_s"] - epoch["val_s"]
         say(f"    train_ae.run: set-up and close {rest:.2f} s (the model "
@@ -3608,8 +3682,11 @@ def phase_cli(card, loop_ms, svr_loop_ms):
         # ---- SVR: train_svr, evaluate_ae reconstruction ----
         svr_yaml = os.path.join(tmp, "svr.yaml")
         raw = load_config(os.path.join(ROOT, "configs", "config_SVR.yaml"))
-        write_config(dict(raw, path2save=os.path.join(tmp, "results")),
-                     svr_yaml)
+        # figures after the epoch's 4th step (the JAX loop's cadence,
+        # 100 steps by default, is beyond a 4-step epoch)
+        write_config(dict(raw, path2save=os.path.join(tmp, "results"),
+                          logging=True, logging_img=True,
+                          logging_img_steps=4), svr_yaml)
         t = time.perf_counter()
         hw = 137
         svr_store = {**synthetic_meshes(n_shapes=SVR_SHAPES,
@@ -3638,9 +3715,20 @@ def phase_cli(card, loop_ms, svr_loop_ms):
             "train_svr.run (1 epoch)",
             lambda: train_svr.run(sconfig, svr_ds, "cuda", seed=sargs.seed,
                                   warmup_epoch=sargs.warmup_epoch),
-            ["train_decode_fwd", "train_decode_bwd"],
-            {"train_decode_fwd": 4, "train_decode_bwd": 4})
+            ["train_decode_fwd", "train_decode_bwd", "point_decode"],
+            # the figures' reconstruction of one batch
+            {"train_decode_fwd": 4, "train_decode_bwd": 4,
+             "point_decode": 1})
         svr_cli_ms = 1000.0 * stimings[0]["train_s"] / stimings[0]["steps"]
+        t = time.perf_counter()
+        share = check_figures("train_svr's figures",
+                              os.path.join(sconfig["logging_path"], "log"),
+                              "svr_reconstruction", [4], 3)
+        say(f"    train_svr's figures: svr_reconstruction/0..{FIGURES - 1} "
+            f"at step 4, each image beside its ground truth and "
+            f"reconstruction, {100 * share:.1f}% of the first one's pixels "
+            f"painted; read back and decoded in "
+            f"{time.perf_counter() - t:.2f} s")
         finite_metrics("train_svr", [sstate.train_metrics])
 
         def evaluate_svr(path=sconfig["logging_path"]):
@@ -3771,10 +3859,11 @@ DIST_MODE_BOUNDS = {
 }
 
 
-def dist_train_setup(rows):
+def dist_train_setup(rows, fused_decoder=None):
     """The flagship model (seed 0, jiggled running statistics) on the card
-    with its optimizer and kernel-path train step, and `rows` of the
-    seeded clouds and posterior noise (B=64 in all)."""
+    with its optimizer and train step (the kernel path, or with
+    fused_decoder=False the decoder's modules), and `rows` of the seeded
+    clouds and posterior noise (B=64 in all)."""
     import numpy as np
     import torch
 
@@ -3788,7 +3877,7 @@ def dist_train_setup(rows):
     jiggle_batch_norms(model, 1000)
     model.cuda()
     opt = make_optimizer(list(model.parameters()), **TRAIN_HP)
-    step = make_train_step(model, opt)
+    step = make_train_step(model, opt, fused_decoder=fused_decoder)
     rng = np.random.default_rng(DIST_SEED)
     clouds = torch.from_numpy(reference_clouds(rng, BATCH)[rows]).cuda()
     eps = torch.from_numpy(rng.standard_normal(
@@ -3849,8 +3938,8 @@ def dist_svr_setup(rows):
     return model, step, clouds, images, eps
 
 
-def svr_buffers(model):
-    """The SVR model's running statistics on the host."""
+def running_stats(model):
+    """A model's running statistics on the host."""
     return {k: v.cpu().clone() for k, v in model.state_dict().items()
             if k.endswith(("running_mean", "running_var"))}
 
@@ -4068,7 +4157,7 @@ def dist_rank(rank, work, config, svr_config):
         loss = float(step(clouds, clouds, None, posterior_eps=eps,
                           images=images)["loss"])
         out["svr_step"] = {
-            "loss": loss, "buffers": svr_buffers(model),
+            "loss": loss, "buffers": running_stats(model),
             "collectives": {k: dist.counts[k] - before[k] for k in before}}
         torch.cuda.synchronize()
         dist.barrier()
@@ -4108,7 +4197,10 @@ def dist_rank(rank, work, config, svr_config):
         out["expect"] = dict(
             {w.__name__: 0 for w in wrappers}, train_decode_fwd=steps,
             train_decode_bwd=steps,
-            point_decode=val_batches + recon_points)  # reconstruct's 2
+            # validation, the figures' batch (the airplane config's
+            # logging_img: every rank reconstructs, rank 0 draws) and
+            # reconstruct's 2
+            point_decode=val_batches + 1 + recon_points)
         del strained
         torch.cuda.empty_cache()
 
@@ -4219,7 +4311,7 @@ def phase_dist(card):
         one_svr = {"loss": float(step(clouds, clouds, None,
                                       posterior_eps=eps,
                                       images=images)["loss"])}
-        one_svr["buffers"] = svr_buffers(model)
+        one_svr["buffers"] = running_stats(model)
         del model, step, clouds, images, eps
         torch.cuda.empty_cache()
 
@@ -4495,7 +4587,160 @@ def phase_dist(card):
                      f"{x['launches']}, of them '{mode}' {x['mode']}, in "
                      f"SPMD form {x['spmd']}")
         launches.update(mode_n)
+    phase_points(card, got[0]["step_ms"])
     return launches
+
+
+# (i) the points axis: a (data, points) = (1, 2) grid of 2 ranks on this
+# card, each rank the whole batch's clouds and half of their points
+POINTS_GRID = (1, 2)
+POINTS_TIMED = 2  # steps timed after the compared one
+
+
+def points_rank(rank, work):
+    """One rank of phase 8 (i) (spawned): the flagship's module-path train
+    step on a (1, 2) grid, the rank's half of every cloud's points, then
+    the fused path's refusal there. The results go to
+    work/points<r>.pt."""
+    import torch
+
+    from go_with_the_flows_tpu_torch.ops.kernels.train_decode import (
+        train_decode_bwd, train_decode_fwd)
+    from go_with_the_flows_tpu_torch.parallel import dist
+    from go_with_the_flows_tpu_torch.train.step import (FUSED_POINTS_ERROR,
+                                                        make_train_step)
+
+    torch.cuda.set_device(0)
+    out = {}
+    try:
+        dist.distributed_init("gloo", f"file://{work}/rendezvous_points",
+                              DIST_WORLD, rank, timeout=300,
+                              points_parallelism=POINTS_GRID[1])
+        zero((train_decode_fwd, train_decode_bwd))
+        model, opt, step, clouds, eps = dist_train_setup(
+            slice(None), fused_decoder=False)
+        mine = dist.place_batch({"cloud": clouds}, "cuda",
+                                shard_points=True)["cloud"]
+        before = dict(dist.counts)
+        loss = float(step(mine, mine, None, posterior_eps=eps)["loss"])
+        out["points"] = {
+            "grid": (dist.data_size(), dist.points_size()),
+            "shape": tuple(mine.shape), "loss": loss,
+            "grad": opt.flat_grad.cpu().clone(),
+            "stats": running_stats(model),
+            "collectives": {k: dist.counts[k] - before[k] for k in before}}
+        torch.cuda.synchronize()
+        dist.barrier()
+        t = time.perf_counter()
+        for _ in range(POINTS_TIMED):
+            step(mine, mine, None, posterior_eps=eps)
+        torch.cuda.synchronize()
+        dist.barrier()
+        out["points"]["ms"] = 1e3 * (time.perf_counter() - t) / POINTS_TIMED
+        out["points"]["launches"] = read((train_decode_fwd, train_decode_bwd))
+        try:  # the card's default: kernels 7 and 8, refused on the grid
+            make_train_step(model, opt)(mine, mine, None, posterior_eps=eps)
+            out["refusal"] = None
+        except NotImplementedError as e:
+            out["refusal"] = str(e) == FUSED_POINTS_ERROR
+    finally:
+        torch.save(out, os.path.join(work, f"points{rank}.pt"))
+        dist.shutdown()
+
+
+def phase_points(card, rows_ms=None):
+    """Phase 8 (i): the points axis (parallel/dist.py's grid, the JAX
+    mesh's `points`): one flagship step at B=64, N=2048 on the decoder's
+    modules over a (1, 2) grid against one process on the card (the
+    loss, the flat gradient before the update, the running statistics),
+    the fused path refused there, and the step's time beside the same
+    step in one process and `rows_ms`, phase 8 (b)'s 2-rank step on a
+    (2, 1) grid (kernels 7 and 8 in SPMD form)."""
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    t0 = time.perf_counter()
+    say(f"    (i) the points axis: a {POINTS_GRID} (data, points) grid of "
+        f"{DIST_WORLD} ranks on this card, the flagship's module-path step "
+        f"at B={BATCH}, N={N_POINTS} ({N_POINTS // POINTS_GRID[1]} points a "
+        "rank)")
+    torch.cuda.empty_cache()
+    model, opt, step, clouds, eps = dist_train_setup(slice(None),
+                                                     fused_decoder=False)
+    one = {"loss": float(step(clouds, clouds, None,
+                              posterior_eps=eps)["loss"]),
+           "grad": opt.flat_grad.cpu().clone(), "stats": running_stats(model)}
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(POINTS_TIMED):
+        step(clouds, clouds, None, posterior_eps=eps)
+    torch.cuda.synchronize()
+    one["ms"] = 1e3 * (time.perf_counter() - t) / POINTS_TIMED
+    del model, opt, step, clouds, eps
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_points_") as work:
+        t = time.perf_counter()
+        ctx = mp.start_processes(points_rank, args=(work,),
+                                 nprocs=DIST_WORLD, join=False,
+                                 start_method="spawn")
+        try:
+            while not ctx.join(timeout=1.0):
+                if time.perf_counter() - t > DIST_SECONDS:
+                    fail(f"(i) the {DIST_WORLD} ranks were not done within "
+                         f"{DIST_SECONDS} s")
+        except mp.ProcessRaisedException as e:
+            fail(f"(i) a rank failed:\n{e}")
+        except mp.ProcessExitedException as e:
+            fail(f"(i) a rank exited: {e}")
+        finally:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.kill()
+        got = [torch.load(os.path.join(work, f"points{r}.pt"),
+                          weights_only=False) for r in range(DIST_WORLD)]
+
+    pts = [g["points"] for g in got]
+    if pts[0]["loss"] != pts[1]["loss"] or not all(
+            torch.equal(pts[0]["stats"][k], pts[1]["stats"][k])
+            for k in pts[0]["stats"]):
+        fail("(i) the ranks' losses or running statistics differ")
+    if pts[0]["grid"] != POINTS_GRID or pts[0]["shape"] != (
+            BATCH, 3, N_POINTS // POINTS_GRID[1]):
+        fail(f"(i) grid {pts[0]['grid']}, a rank's clouds {pts[0]['shape']}")
+    loss_rel = abs(pts[0]["loss"] - one["loss"]) / abs(one["loss"])
+    grad_rel = ((pts[0]["grad"].double() - one["grad"].double()).abs().max()
+                / one["grad"].double().abs().max()).item()
+    stat_used = max(((pts[0]["stats"][k] - v).abs()
+                     / (1e-6 + 1e-5 * v.abs())).max().item()
+                    for k, v in one["stats"].items())
+    coll = pts[0]["collectives"]
+    say(f"    (i) one step on the (1, 2) grid against one process: loss "
+        f"{pts[0]['loss']:.6f} ({one['loss']:.6f}), relative diff "
+        f"{loss_rel:.3g} (rtol 1e-4); the reduced gradient {grad_rel:.3g} of "
+        f"its max (1e-4); running statistics {stat_used:.3g} of the "
+        f"allowance rtol 1e-5 + atol 1e-6; the ranks bit-equal; per step "
+        f"{coll['all_reduce']} all_reduces, {coll['all_gather']} "
+        f"all_gathers, {coll['broadcast']} broadcasts")
+    if not (loss_rel <= 1e-4 and grad_rel <= 1e-4 and stat_used <= 1.0):
+        fail("(i) the points-split step disagrees with one process")
+    if any(n for g in pts for n in g["launches"].values()):
+        fail(f"(i) the module-path step launched kernels 7 and 8: "
+             f"{[g['launches'] for g in pts]}")
+    if not all(g["refusal"] for g in got):
+        fail(f"(i) the fused path on the (1, 2) grid: refused with JAX's "
+             f"message {[g['refusal'] for g in got]} (None: not refused)")
+    rows = "" if rows_ms is None else (
+        f"; (b)'s kernel-path step on the (2, 1) grid {rows_ms:.2f} ms")
+    say(f"    (i) the module-path step at B={BATCH}, N={N_POINTS}: "
+        f"{pts[0]['ms']:.2f} ms on the (1, 2) grid (rank 1 "
+        f"{pts[1]['ms']:.2f}), {one['ms']:.2f} ms in one process, "
+        f"{POINTS_TIMED} steps each after the compared one{rows}. The ranks "
+        f"share one card through gloo (host copies): no scaling figure. The "
+        f"fused path refused on the (1, 2) grid with the JAX step's "
+        f"message; {time.perf_counter() - t0:.1f} s in all [{card}]")
 
 
 # --------------------------------------------------------------------- #
@@ -4632,6 +4877,10 @@ AB_STEPS, AB_S = 20, 64  # eval_precision_ab.run's size here
 # train_quality_ab.run's size here: steps, B (its 'xla' variant's autograd
 # holds every coupling's activations), S
 QA_STEPS, QA_B, QA_S = 20, 16, 16
+# tools/train_convergence_ab.run's and tools/svr_quality_ab.run's sizes
+# here: 20 steps each, the convergence A/B at half its batch
+CA_STEPS, CA_B, CA_LOG = 20, 32, 10
+SA_STEPS = 20
 SVR_IMAGES = 8
 
 
@@ -4661,6 +4910,8 @@ def phase_precision(card):
     from go_with_the_flows_tpu_torch.ops.precision import (
         get_matmul_precision, matmul_precision_scope)
     from go_with_the_flows_tpu_torch.tools import (eval_precision_ab,
+                                                   svr_quality_ab,
+                                                   train_convergence_ab,
                                                    train_quality_ab)
     from go_with_the_flows_tpu_torch.train.step import make_sample_step
     from go_with_the_flows_tpu_torch.utils.config import (
@@ -4848,11 +5099,64 @@ def phase_precision(card):
                      f"{qa_n[name + '_fast']}; {QA_STEPS} a fused variant "
                      "expected")
         qa_s = time.perf_counter() - t0
+
+        # the convergence A/B at a short size: the modules at 'highest',
+        # kernels 7 and 8 at 'high' and at 'fast', once a step
+        t0 = time.perf_counter()
+        before = dict(launches)
+        ca, _ = count(lambda: train_convergence_ab.run(
+            CA_STEPS, CA_B, CA_LOG))
+        ca_n = {k: launches[k] - before[k] for k in launches}
+        if [x["variant"] for x in ca] != list(train_convergence_ab.VARIANTS):
+            fail(f"train_convergence_ab ran {[x['variant'] for x in ca]}")
+        for x in ca:
+            if set(x) != {"variant", "steps", "losses", "wall_s"} or [
+                    i for i, _ in x["losses"]] != [1, 10, 20] or not all(
+                    math.isfinite(v) for _, v in x["losses"]):
+                fail(f"train_convergence_ab: {x}")
+        for name in ("train_decode_fwd", "train_decode_bwd"):
+            if (ca_n[name] or ca_n[name + "_high"] != CA_STEPS
+                    or ca_n[name + "_fast"] != CA_STEPS):
+                fail(f"train_convergence_ab launched {name} {ca_n[name]}, "
+                     f"at 'high' {ca_n[name + '_high']}, at 'fast' "
+                     f"{ca_n[name + '_fast']}; {CA_STEPS} a fused variant "
+                     "expected")
+        ca_s = time.perf_counter() - t0
+        say(f"    train_convergence_ab ({CA_STEPS} steps at B={CA_B}): "
+            + "; ".join(f"{x['variant']} {x['losses']} in {x['wall_s']} s"
+                        for x in ca) + f"; {ca_s:.1f} s [{card}]")
+
+        # the SVR A/B at a short size: kernels 7 and 8 at 'highest' and
+        # 'fast', then kernel 1 at 'high' and kernels 2 and 5 scoring
+        t0 = time.perf_counter()
+        before = dict(launches)
+        sa, _ = count(lambda: svr_quality_ab.run(steps=SA_STEPS))
+        sa_n = {k: launches[k] - before[k] for k in launches}
+        if list(sa) != ["highest", "fast"]:
+            fail(f"svr_quality_ab ran the modes {list(sa)}")
+        for mode, rec in sa.items():
+            keys = ("final_loss", "recon_CD_x1e4", "recon_EMD_x1e2",
+                    "recon_F1")
+            if set(rec) != {"wall_s", "loss_curve", *keys} or not all(
+                    math.isfinite(rec[k]) for k in keys) or not all(
+                    math.isfinite(v) for _, v in rec["loss_curve"]):
+                fail(f"svr_quality_ab {mode}: {rec}")
+        want = {"train_decode_fwd": SA_STEPS, "train_decode_fwd_fast":
+                SA_STEPS, "train_decode_bwd": SA_STEPS,
+                "train_decode_bwd_fast": SA_STEPS, "point_decode_high": 2}
+        if any(sa_n[k] != n for k, n in want.items()) or not (
+                sa_n["nn_distance"] and sa_n["emd_cost"]):
+            fail(f"svr_quality_ab launched {sa_n}; {want} and kernels 2 "
+                 "and 5 expected")
+        sa_s = time.perf_counter() - t0
+        say(f"    svr_quality_ab ({SA_STEPS} steps at B=16, 64 shapes "
+            f"scored at 'high'): {json.dumps(sa)}; {sa_s:.1f} s [{card}]")
     finally:
         pd_module.point_decode_plain = plain
     say(f"    phase 9 seconds: flagship steps and metrics {flag_s:.1f}, "
         f"SVR {svr_s:.1f}, eval_precision_ab {ab_s:.1f}, train_quality_ab "
-        f"{qa_s:.1f}; launches "
+        f"{qa_s:.1f}, train_convergence_ab {ca_s:.1f}, svr_quality_ab "
+        f"{sa_s:.1f}; launches "
         + ", ".join(f"{k} {n}" for k, n in launches.items() if n))
     for mode in ("high", "fast"):
         if launches["point_decode_" + mode] < 1:

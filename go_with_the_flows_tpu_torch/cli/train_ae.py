@@ -11,11 +11,12 @@ logging_path back into it, and trains on the ShapeNetCore h5 meshes:
 each epoch a training pass (kernels 7 and 8 on the card) with its
 checkpoint and a validation pass (kernel 1's inverse) with the
 best-model checkpoint. TensorBoard scalars go to logging_path/log when
-tensorboard is installed. With --distributed every rank trains on its
-shard of each global batch of the config's batch_size (cli/__init__.py
-says how the ranks start); rank 0 logs and writes the checkpoints. Not
-ported: the TensorBoard reconstruction figures (`logging_img`,
-ROADMAP.md queue 1 item 3).
+tensorboard is installed; with the config's `logging_img`, so do
+reconstruction figures (viz/tb.py: the first validation batch
+autoencoded, kernel 1, every `logging_img_frequency` epochs). With
+--distributed every rank trains on its shard of each global batch of
+the config's batch_size (cli/__init__.py says how the ranks start); rank
+0 logs and writes the checkpoints and the figures.
 """
 
 from __future__ import annotations
@@ -34,7 +35,7 @@ from ..ops.precision import matmul_precision_scope
 from ..optim import make_optimizer
 from ..train import loops
 from ..train.state import TrainState, create_train_state
-from ..train.step import make_eval_step, make_train_step
+from ..train.step import make_eval_step, make_sample_step, make_train_step
 from ..utils.config import (count_params, load_config, model_config_kwargs,
                             resolve_config)
 from . import (add_common_train_options, derived_seed, maybe_resume,
@@ -85,8 +86,9 @@ def run(config: Dict, train_dataset, val_dataset, device="cuda",
     {"epoch", "steps", "train_s", "val_s"} (wall seconds, the card's work
     included). Inside a process group every rank calls it: its loaders
     take its shard of the datasets, batch_size / world clouds a batch.
-    The train and validation steps run in the config's
-    `matmul_precision` ('highest' without it; cli/__init__.py)."""
+    The train and validation steps, and the figures' sample step, run in
+    the config's `matmul_precision` ('highest' without it;
+    cli/__init__.py)."""
     mode = training_precision(config)
     device = torch.device(device)
     config, world, rank = rank_config(config)
@@ -118,6 +120,15 @@ def run(config: Dict, train_dataset, val_dataset, device="cuda",
         with matmul_precision_scope(mode):
             train_step = make_train_step(model, state.optimizer, **weights)
             eval_step = make_eval_step(model, **weights)
+            ae_sample_step = make_sample_step(
+                model, config["cloud_size"], mode="autoencoding")
+
+        def reconstruct_fn(st, max_batches=1):
+            # the same noise at every call, as the JAX script's fixed key
+            return loops.reconstruct(
+                val_loader, ae_sample_step, torch.Generator(
+                    device=device).manual_seed(derived_seed(seed, 999)),
+                device, max_batches=max_batches)
 
         timings = []
         min_loss = 1e4
@@ -133,7 +144,8 @@ def run(config: Dict, train_dataset, val_dataset, device="cuda",
                 val_loader, eval_step, state, epoch, warmup, min_loss,
                 torch.Generator(device=device).manual_seed(
                     derived_seed(seed, 10_000 + epoch)),
-                device, writer=writer, **config)
+                device, writer=writer, reconstruct_fn=reconstruct_fn,
+                **config)
             t2 = time.perf_counter()
             timings.append({"epoch": epoch, "steps": state.step - steps,
                             "train_s": t1 - t0, "val_s": t2 - t1})

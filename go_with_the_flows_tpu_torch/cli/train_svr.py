@@ -9,14 +9,15 @@ package's train_svr.py, with the same arguments):
 ShapeNetAll13 clouds and renderings (the image transforms of the
 config), FlowMixtureSVRModel and the `svr=True` train step; training
 only, as in the reference (no SVR validation loop). TensorBoard scalars
-at every step when tensorboard is installed. With --distributed every
+at every step when tensorboard is installed; with the config's
+`logging_img`, SVR reconstruction figures on the checkpoint cadence
+(viz/tb.py: the first training batch reconstructed from its images,
+kernel 1, the images beside the clouds). With --distributed every
 rank trains on its shard of each global batch of the config's
 batch_size, its loader transforming only its own images (cli/__init__.py
 says how the ranks start); the ResNet's BatchNorms, like every other,
 take the global batch's statistics; rank 0 logs and writes the
-checkpoints. The TensorBoard SVR reconstruction figures (the JAX
-script's `svr_recon_fn`) are not ported (ROADMAP.md queue 1 item 3):
-nothing takes their place.
+checkpoints and the figures.
 """
 
 from __future__ import annotations
@@ -36,18 +37,17 @@ from ..ops.precision import matmul_precision_scope
 from ..optim import make_optimizer
 from ..train import loops
 from ..train.state import TrainState, create_train_state
-from ..train.step import make_train_step
+from ..train.step import make_sample_step, make_train_step
 from ..utils.config import (count_params, load_config, resolve_config,
                             svr_model_config_kwargs)
-from . import (add_common_train_options, maybe_resume, rank_config,
-               resolve_device, run_ranks, start_logging, training_precision)
+from . import (add_common_train_options, derived_seed, maybe_resume,
+               rank_config, resolve_device, run_ranks, start_logging,
+               training_precision)
 
 
 def define_options_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
-        description="SVR model training script. Provide a suitable config. "
-                    "The TensorBoard SVR reconstruction figures are not "
-                    "ported: none are drawn.")
+        description="SVR model training script. Provide a suitable config.")
     parser.add_argument("config", type=str)
     parser.add_argument("modelname", type=str)
     parser.add_argument("n_epochs", type=int)
@@ -76,8 +76,9 @@ def run(config: Dict, train_dataset, device="cuda", seed: int = 0,
     """Train a resolved SVR config's model to n_epochs. Returns the state
     and, per epoch run, {"epoch", "steps", "train_s"}. Inside a process
     group every rank calls it: its loader takes its shard of the dataset,
-    batch_size / world views a batch. The train step runs in the config's
-    `matmul_precision` ('highest' without it; cli/__init__.py)."""
+    batch_size / world views a batch. The train step, and the figures'
+    sample step, run in the config's `matmul_precision` ('highest'
+    without it; cli/__init__.py)."""
     mode = training_precision(config)
     device = torch.device(device)
     config, world, rank = rank_config(config)
@@ -105,6 +106,15 @@ def run(config: Dict, train_dataset, device="cuda", seed: int = 0,
                 model, state.optimizer, svr=True,
                 **{k: config.get(k, 1.0)
                    for k in ("pnll_weight", "gnll_weight", "gent_weight")})
+            svr_sample_step = make_sample_step(
+                model, config["cloud_size"], mode="reconstruction", svr=True)
+
+        def svr_recon_fn(st):
+            # the same noise at every call, as the JAX script's fixed key
+            return loops.reconstruct(
+                train_loader, svr_sample_step, torch.Generator(
+                    device=device).manual_seed(derived_seed(seed, 888)),
+                device, max_batches=1, svr=True, return_images=True)
 
         timings = []
         for epoch in range(cur_epoch, config["n_epochs"]):
@@ -113,7 +123,7 @@ def run(config: Dict, train_dataset, device="cuda", seed: int = 0,
             state = loops.train(train_loader, train_step, state, epoch,
                                 cur_iter, epoch < warmup_epoch, device,
                                 svr=True, writer=writer, per_step_tb=True,
-                                **config)
+                                svr_recon_fn=svr_recon_fn, **config)
             t1 = time.perf_counter()
             timings.append({"epoch": epoch, "steps": state.step - steps,
                             "train_s": t1 - t0})

@@ -11,6 +11,8 @@ from typing import Dict, Tuple
 
 import torch
 
+from .parallel import dist
+
 _LOG_2PI = math.log(2.0 * math.pi)
 
 
@@ -42,6 +44,10 @@ def flow_mixture_nll(p0_samples, p_logvar_sums, p_base_mus, p_base_logvars,
       log p_k(x_n) = -0.5 * (sum_c [logdet_sum + (s - mu)^2 / exp(logvar0)]
                              + C * log 2 pi)
       NLL = -mean_b sum_n logsumexp_k(log_w[b, k] + log p_k(x_n))
+
+    On a grid that splits points (parallel/dist.py) the sum over n adds
+    every points rank's partial sum (differentiably), so that each rank
+    holds its clouds' whole NLL.
     """
     C = p0_samples.shape[2]
     log_w = torch.log_softmax(mixture_weights_logits, dim=-1)  # (B, K)
@@ -51,7 +57,8 @@ def flow_mixture_nll(p0_samples, p_logvar_sums, p_base_mus, p_base_logvars,
     comp_logp = -0.5 * (torch.sum(logdet + quad, dim=2) + C * _LOG_2PI)
     weighted = comp_logp + log_w.t()[:, :, None]  # (K, B, N)
     logp = torch.logsumexp(weighted, dim=0)        # (B, N)
-    return -torch.mean(torch.sum(logp, dim=1))
+    return -dist.sum_over_ranks(torch.mean(torch.sum(logp, dim=1)),
+                                "points")
 
 
 def flow_mixture_loss(outputs: Dict[str, torch.Tensor],

@@ -184,9 +184,11 @@ class FlowMixtureModel(nn.Module):
     # ------------------------------------------------------------------ #
 
     def posterior(self, g_input: torch.Tensor):
-        """PointNet -> max-pool over points -> posterior (mus, logvars)."""
+        """PointNet -> max-pool over points -> posterior (mus, logvars).
+        On a grid that splits points (parallel/dist.py) the pool is over
+        every points rank's slice of the cloud."""
         feats = self.pc_encoder(g_input)
-        return self.g_posterior(feats.amax(dim=2))
+        return self.g_posterior(dist.max_over_points(feats, 2))
 
     def encode(self, g_input: torch.Tensor, mode: str,
                g0_eps: Optional[torch.Tensor] = None,

@@ -122,7 +122,9 @@ class FusedBatchNorm(nn.Module):
     TorchBatchNorm does under a sharded batch: (mean, biased var) from
     `batch_stats` (E[x^2] - E[x]^2 over every rank's sums, differentiable
     across the ranks), the running var Bessel-corrected with the global
-    count. One process keeps torch's fused kernel."""
+    count. The images are per-cloud inputs, the same on every points
+    rank of a grid that splits points, so the statistics are the data
+    axis's. One rank of the data axis keeps torch's fused kernel."""
 
     def __init__(self, num_features: int):
         super().__init__()
@@ -141,13 +143,13 @@ class FusedBatchNorm(nn.Module):
         self.running_var.fill_(1.0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if not (self.training and dist.active()):
+        if not (self.training and dist.axis_size("data") > 1):
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, self.training,
                                 1.0 - self.momentum, self.eps)
         red = (0,) + tuple(range(2, x.ndim))
-        mean, var = batch_stats(x, red)
-        n = math.prod(x.shape[d] for d in red) * dist.world_size()
+        mean, var = batch_stats(x, red, points=False)
+        n = math.prod(x.shape[d] for d in red) * dist.axis_size("data")
         update_running_stats([self], [mean.detach()], [var.detach()], n)
         shape = (1, -1) + (1,) * (x.ndim - 2)
         y = (x - mean.reshape(shape)) * torch.rsqrt(var.reshape(shape)

@@ -167,7 +167,7 @@ def film_ab_train(packed: Dict[str, torch.Tensor], g: torch.Tensor):
     or inside a process group over the global batch of every rank's B
     clouds."""
     h = torch.einsum("bg,kcjfg->kbcjf", g, packed["film_k0"])
-    mean, var = batch_stats(h, (1,))
+    mean, var = batch_stats(h, (1,), points=False)
     n = (h - mean[:, None]) * torch.rsqrt(var[:, None] + BN_EPS)
     n = n * packed["film_scale"][:, None] + packed["film_bias"][:, None]
     y = torch.einsum("kbcjf,kcjef->kbcje", F.silu(n), packed["film_k1"])

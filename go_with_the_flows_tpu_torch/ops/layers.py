@@ -116,7 +116,11 @@ class BatchNorm(nn.Module):
     running_var takes the Bessel-corrected variance var * n / (n - 1),
     as torch does. Inside a process group of several ranks
     (parallel/dist.py) the batch is the global one, each rank's input its
-    shard of it (SyncBatchNorm's semantics, the JAX mesh's).
+    shard of it (SyncBatchNorm's semantics, the JAX mesh's): on a grid
+    that splits points, an input with a point axis is reduced over every
+    rank, a per-cloud input (each points rank holds the same rows) over
+    the data axis only, so that its count, and the running variance's
+    Bessel correction, are the global batch's.
     """
 
     def __init__(self, num_features: int, affine: bool = True,
@@ -154,8 +158,10 @@ class BatchNorm(nn.Module):
 
         if self.training:
             red = (s,) + tuple(range(s + 2, x.ndim))
-            n = math.prod(x.shape[i] for i in red) * dist.world_size()
-            mean, var = batch_stats(x, red)
+            points = trailing > 0
+            n = math.prod(x.shape[i] for i in red) * dist.axis_size(
+                "world" if points else "data")
+            mean, var = batch_stats(x, red, points)
             update_running_stats([self], [mean.detach()], [var.detach()], n)
         else:
             mean, var = self.running_mean, self.running_var
@@ -165,19 +171,22 @@ class BatchNorm(nn.Module):
         return y
 
 
-def batch_stats(x: torch.Tensor, dims: Sequence[int]):
+def batch_stats(x: torch.Tensor, dims: Sequence[int], points: bool = True):
     """(mean, biased var) of x over `dims`; inside a process group of
     several ranks (parallel/dist.py) over every rank's x too: each rank's
     sums of x and x^2 summed over the ranks (differentiably, the backward
-    summing the cotangents over the ranks too), over a count world_size()
-    times this rank's (the ranks hold equal shards)."""
-    if not dist.active():
+    summing the cotangents over the ranks too), over a count that many
+    times this rank's (the ranks hold equal shards). The ranks are every
+    rank for a tensor with a point axis (`points`), the data axis's for
+    a per-cloud tensor, which every points rank holds whole."""
+    axis = "world" if points else "data"
+    if dist.axis_size(axis) == 1:
         mean = x.mean(dim=dims)
         return mean, torch.clamp(x.square().mean(dim=dims) - mean.square(),
                                  min=0.0)
-    n = math.prod(x.shape[d] for d in dims) * dist.world_size()
+    n = math.prod(x.shape[d] for d in dims) * dist.axis_size(axis)
     sums = dist.sum_over_ranks(
-        torch.stack([x.sum(dim=dims), x.square().sum(dim=dims)]))
+        torch.stack([x.sum(dim=dims), x.square().sum(dim=dims)]), axis)
     mean = sums[0] / n
     return mean, torch.clamp(sums[1] / n - mean.square(), min=0.0)
 

@@ -20,9 +20,13 @@ i, then waits for step i - 1's metrics alone (a copy to pinned memory and
 an event recorded behind that step), never for the step it just queued;
 the batches go to the card through pinned memory, asynchronously.
 
-`writer`: a TensorBoard SummaryWriter (or anything with `add_scalar`)
-that takes the epoch's train and val means, or with `per_step_tb` the
-running train means at every global step, as the JAX loops write them.
+`writer`: a TensorBoard SummaryWriter (or anything with `add_scalar`
+and `add_image`) that takes the epoch's train and val means, or with
+`per_step_tb` the running train means at every global step, as the JAX
+loops write them; with the config's `logging_img`, also the
+reconstruction figures (viz/tb.py): train() draws SVR figures from
+`svr_recon_fn` on the checkpoint cadence, evaluate_val() autoencoding
+figures from `reconstruct_fn` every `logging_img_frequency` epochs.
 
 Data-parallel (inside a process group of several ranks,
 parallel/dist.py), every rank runs every loop over its loader's shard:
@@ -32,6 +36,7 @@ gets the same means and takes the same best-model decision; reconstruct
 gathers every rank's rows, so every rank returns the same arrays. The
 config's `logging` (stdout, TensorBoard) is for rank 0 alone, and
 `checkpointing` must be the same on every rank: saving is a collective.
+So is a figure's reconstruction: every rank runs it, rank 0 draws.
 """
 
 from __future__ import annotations
@@ -48,6 +53,7 @@ import torch
 from ..parallel import dist
 from ..utils import profiling
 from ..utils.meters import AverageMeter
+from ..viz.tb import add_figures_reconstruction_tb, add_svr_reconstruction_tb
 from .checkpoints import save_checkpoint
 from .state import TrainState
 
@@ -113,7 +119,8 @@ def _add_scalars(writer, prefix: str, means: Dict[str, float],
 
 def train(loader, train_step: Callable, state: TrainState, epoch: int,
           start_iter: int, warmup: bool, device="cuda", svr: bool = False,
-          writer=None, per_step_tb: bool = False, **config) -> TrainState:
+          writer=None, per_step_tb: bool = False,
+          svr_recon_fn: Optional[Callable] = None, **config) -> TrainState:
     """One training epoch; returns the state, whose model, optimizer,
     generator and step count have moved on, with the epoch's mean
     metrics in state.train_metrics.
@@ -126,7 +133,14 @@ def train(loader, train_step: Callable, state: TrainState, epoch: int,
     num_workers (the stdout cadence), logging_img_steps (the checkpoint
     cadence, 100 * num_workers by default), profile_dir and
     profile_steps (a torch.profiler trace of steps 1..profile_steps into
-    profile_dir; step 0 builds the kernels).
+    profile_dir; step 0 builds the kernels), logging_img (with
+    `svr_recon_fn`, figures).
+
+    `svr_recon_fn(state) -> (samples, gts, labels, images)`: with the
+    config's `logging_img`, called on the checkpoint cadence by every
+    rank (it gathers), its output written by the logging rank as SVR
+    figures at the global step epoch * len(loader) + it + 1, as the JAX
+    loop does.
     """
     device = torch.device(device)
     num_workers = max(int(config.get("num_workers", 1)), 1)
@@ -203,9 +217,16 @@ def train(loader, train_step: Callable, state: TrainState, epoch: int,
                 sys.stdout.write(line)
                 sys.stdout.flush()
 
-            if (it + 1) % ckpt_steps == 0 and ckpting:
-                save_checkpoint(logging_path, model_name, state, epoch,
-                                it + 1)
+            if (it + 1) % ckpt_steps == 0:
+                if ckpting:
+                    save_checkpoint(logging_path, model_name, state, epoch,
+                                    it + 1)
+                if svr_recon_fn is not None and config.get("logging_img"):
+                    samples, gts, labels, images = svr_recon_fn(state)
+                    if writer is not None and logging:
+                        add_svr_reconstruction_tb(
+                            images, gts, samples, labels, writer,
+                            epoch * n_batches + it + 1)
     finally:
         trace_scope.close()  # epochs shorter than profile_steps
 
@@ -222,6 +243,7 @@ def train(loader, train_step: Callable, state: TrainState, epoch: int,
 def evaluate_val(loader, eval_step: Callable, state: TrainState, epoch: int,
                  warmup: bool, min_loss: float, generator: torch.Generator,
                  device="cuda", svr: bool = False, writer=None,
+                 reconstruct_fn: Optional[Callable] = None,
                  **config) -> float:
     """Validation epoch: the training-path loss with BatchNorm running
     statistics, and the best-model checkpoint ("best_model_" +
@@ -235,7 +257,13 @@ def evaluate_val(loader, eval_step: Callable, state: TrainState, epoch: int,
     last batch is taken as it is and weighs its own size in the means,
     as in the JAX package's single-process run. Data-parallel, the means
     are over every rank's batches. Config keys: logging, checkpointing,
-    logging_path, model_name.
+    logging_path, model_name, logging_img and logging_img_frequency.
+
+    `reconstruct_fn(state, max_batches=1) -> (samples, gts, labels)`:
+    with `logging_img`, when this rank logs or ranks are active, and on
+    every `logging_img_frequency`-th epoch, called (by every rank: it
+    gathers) and its output written by the logging rank as
+    reconstruction figures at step `epoch`, as the JAX loop does.
     """
     device = torch.device(device)
     logging = config.get("logging", False)
@@ -273,6 +301,14 @@ def evaluate_val(loader, eval_step: Callable, state: TrainState, epoch: int,
     state.val_metrics = means
     if logging and writer is not None:
         _add_scalars(writer, "val", state.val_metrics, epoch)
+    if (reconstruct_fn is not None and config.get("logging_img")
+            and (logging or parallel)
+            and epoch % max(int(config.get("logging_img_frequency", 1)),
+                            1) == 0):
+        samples, gts, labels = reconstruct_fn(state, max_batches=1)
+        if logging and writer is not None:
+            add_figures_reconstruction_tb(gts, samples, labels, writer,
+                                          epoch)
     if means["loss"] < min_loss:
         min_loss = means["loss"]
         if ckpting:
@@ -283,16 +319,19 @@ def evaluate_val(loader, eval_step: Callable, state: TrainState, epoch: int,
 
 def reconstruct(loader, sample_step: Callable, generator: torch.Generator,
                 device="cuda", max_batches: Optional[int] = None,
-                svr: bool = False):
+                svr: bool = False, return_images: bool = False):
     """Labeled reconstructions of a loader's clouds (`sample_step` from
     make_sample_step, usually in autoencoding mode; with `svr`, in
     reconstruction mode, from the batch's images), batched. Returns
-    numpy (samples (S, 3, N), ground truths (S, 3, N'), labels (S, N)).
+    numpy (samples (S, 3, N), ground truths (S, 3, N'), labels (S, N)),
+    and with `svr` and `return_images` the conditioning images
+    (S, 4, H, W) after them (the SVR figures' input).
     Data-parallel, every rank's rows are gathered, batch by batch in rank
     order, a rank's shorter last batch padded for the gather and trimmed
     after it: every rank returns the same arrays."""
     device = torch.device(device)
-    all_samples, all_gts, all_labels = [], [], []
+    images = return_images and svr
+    all_samples, all_gts, all_labels, all_images = [], [], [], []
     for b, batch in enumerate(loader):
         if max_batches is not None and b >= max_batches:
             break
@@ -304,8 +343,11 @@ def reconstruct(loader, sample_step: Callable, generator: torch.Generator,
         all_samples.append(trim(dist.gather_global(samples)))
         all_gts.append(trim(dist.gather_global(host["cloud"])))
         all_labels.append(trim(dist.gather_global(labels)))
-    return (np.concatenate(all_samples), np.concatenate(all_gts),
-            np.concatenate(all_labels))
+        if images:
+            all_images.append(trim(dist.gather_global(host["image"])))
+    out = (np.concatenate(all_samples), np.concatenate(all_gts),
+           np.concatenate(all_labels))
+    return out + (np.concatenate(all_images),) if images else out
 
 
 def predict(loader, sample_step: Callable, generator: torch.Generator,

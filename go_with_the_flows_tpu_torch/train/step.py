@@ -55,16 +55,36 @@ def _posterior_eps(model, g_clouds, generator, posterior_eps):
 
 def _global_posterior_eps(model, g_clouds, generator, posterior_eps):
     """The train step's posterior noise: drawn for the global batch of
-    world_size() equal shards from `generator` (the same on every rank),
-    this rank's rows kept, so that a run's noise does not depend on how
-    many ranks share its batch."""
-    world = dist.world_size()
-    if posterior_eps is not None or world == 1:
+    data_size() equal shards from `generator` (the same on every rank),
+    the rows of this rank's data shard kept, so that a run's noise does
+    not depend on how many ranks share its batch (the points ranks of a
+    data shard hold the same clouds, and the same noise)."""
+    shards = dist.data_size()
+    if posterior_eps is not None or shards == 1:
         return _posterior_eps(model, g_clouds, generator, posterior_eps)
-    B = g_clouds.shape[0]
-    eps = torch.randn(world * B, model.g_latent_space_size,
+    B, r = g_clouds.shape[0], dist.data_rank()
+    eps = torch.randn(shards * B, model.g_latent_space_size,
                       generator=generator, device=g_clouds.device)
-    return eps[dist.rank() * B:(dist.rank() + 1) * B]
+    return eps[r * B:(r + 1) * B]
+
+
+# the JAX step's refusal of the fused decoder on a mesh whose points axis
+# is larger than 1 (go_with_the_flows_tpu/train/step.py)
+FUSED_POINTS_ERROR = ("the fused training decoder shards the batch "
+                      "('data') axis only; run with a points-axis size of "
+                      "1 or fused_decoder=False")
+
+
+def refuse_split_points(what: str) -> None:
+    """Raise on a grid that splits points (parallel/dist.py): the eval,
+    sample and reconstruct passes split rows over the 'data' axis only,
+    as no entry point of the JAX package runs them on its 'points'
+    axis."""
+    if dist.points_size() > 1:
+        raise NotImplementedError(
+            f"{what} splits the batch ('data') axis only: the 'points' "
+            f"axis has {dist.points_size()} ranks; run it on a grid with "
+            "points_parallelism=1")
 
 
 def _encode_training(model, g_clouds, svr, images, posterior_eps):
@@ -107,7 +127,12 @@ def make_train_step(model, optimizer, pnll_weight: float = 1.0,
     kernels in their SPMD form), its posterior noise this rank's rows of
     a draw for the whole batch (a handed-in `posterior_eps` is this
     rank's rows), the gradient of its mean loss, the same optimizer step
-    on every rank, and the metrics its means.
+    on every rank, and the metrics its means. On a grid that splits
+    points as well, the clouds are this rank's slice of its data shard's
+    points, and the step is still the global batch's: the PointNet's
+    max-pool, the point BatchNorms and PNLL reduce over the points axis
+    (parallel/dist.py); the decoder's modules only (`fused_decoder`
+    True, "plain" and the card's default raise, as the JAX step does).
 
     The matmul precision mode current at build time holds for every call:
     'highest', 'high' or 'fast' (kernels 7 and 8, or the modules, in that
@@ -123,6 +148,8 @@ def make_train_step(model, optimizer, pnll_weight: float = 1.0,
                    ) -> Dict[str, torch.Tensor]:
         on_card = p_clouds.device.type == "cuda"
         fused = on_card if fused_decoder is None else bool(fused_decoder)
+        if fused and dist.points_size() > 1:
+            raise NotImplementedError(FUSED_POINTS_ERROR)
         if fused_decoder is True and not on_card:
             raise ValueError("fused_decoder=True needs CUDA tensors: the "
                              "train_decode kernels run only on the card")
@@ -169,6 +196,7 @@ def make_eval_step(model, pnll_weight: float = 1.0, gnll_weight: float = 1.0,
     decoder's modules, the plain path the kernel is held against.
 
     The matmul precision mode current at build time holds for every call.
+    On a grid that splits points (parallel/dist.py) a call raises.
     """
 
     modules = list(model.modules())
@@ -180,6 +208,7 @@ def make_eval_step(model, pnll_weight: float = 1.0, gnll_weight: float = 1.0,
                   posterior_eps: Optional[torch.Tensor] = None,
                   images: Optional[torch.Tensor] = None
                   ) -> Dict[str, torch.Tensor]:
+        refuse_split_points("the eval step")
         with eval_mode(model, modules), torch.inference_mode(), \
                 matmul_precision_scope(precision_mode):
             posterior_eps = _posterior_eps(model, g_clouds, generator,
@@ -221,7 +250,8 @@ def make_sample_step(model, n_sampled_points: int,
     weights' CDF, where one process calls torch.multinomial.
 
     The matmul precision mode current at build time holds for every call
-    (the encoder's and latent flows' products and kernel 1).
+    (the encoder's and latent flows' products and kernel 1). On a grid
+    that splits points (parallel/dist.py) a call raises.
     """
     modes = ("reconstruction",) if svr else ("generating", "autoencoding")
     if mode not in modes:
@@ -234,6 +264,7 @@ def make_sample_step(model, n_sampled_points: int,
 
     def sample_step(g_clouds: torch.Tensor, generator: torch.Generator,
                     images: Optional[torch.Tensor] = None):
+        refuse_split_points("the sample step")
         with eval_mode(model, modules), torch.inference_mode(), \
                 matmul_precision_scope(precision_mode):
             packed = model.pack_decoder()

@@ -109,6 +109,32 @@ def test_train_ae_two_epochs(workdir):
                os.listdir(os.path.join(exp, "log")))
 
 
+def test_train_ae_writes_reconstruction_figures(workdir):
+    """One train_ae epoch with logging and logging_img set: the event
+    file holds the validation batch's reconstruction figures
+    (viz/tb.py), reconstruction/0..3 once each at epoch 0, 256 x 512."""
+    from tensorboard.backend.event_processing.event_accumulator import (
+        IMAGES,
+        EventAccumulator,
+    )
+
+    d = workdir["dir"]
+    write_config(dict(TINY_CONFIG, path2data=str(d), logging_img=True,
+                      path2save=str(d / "results")), str(d / "img.yaml"))
+    train_ae.main([str(d / "img.yaml"), "img", "1", "0.001",
+                   "--weights_type", "learned_weights", "--warmup_epoch",
+                   "1", "--jobid", "f1", "--device", "cpu"])
+    events = EventAccumulator(str(d / "results" / "img_f1" / "log"),
+                              size_guidance={IMAGES: 0})
+    events.Reload()
+    tags = events.Tags()["images"]
+    assert sorted(tags) == [f"reconstruction/{i}" for i in range(4)]
+    for tag in tags:
+        (image,) = events.Images(tag)
+        assert (image.step, image.height, image.width) == (0, 256, 512)
+        assert image.encoded_image_string.startswith(b"\x89PNG")
+
+
 def test_train_ae_resume(workdir):
     """--resume picks the checkpoint of epoch 2 up and runs epoch 2
     alone; the model it starts from is the one saved."""

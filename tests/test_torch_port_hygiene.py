@@ -143,6 +143,46 @@ def test_preprocessing_and_tools_import_without_jax_cv2_pandas_h5py():
     assert int(out.stdout.strip()) == len(PREPROCESS_AND_TOOLS)
 
 
+VIZ_AND_AB_TOOLS = (
+    "viz", "viz.tb", "viz.open3d_utils", "tools.train_convergence_ab",
+    "tools.svr_quality_ab",
+)
+
+
+def test_viz_and_ab_tools_import_without_jax_cv2_pandas_h5py_matplotlib():
+    """The figures (viz/) and the two training A/B tools import, and
+    build their parsers, with jax, flax, cv2, pandas, h5py, matplotlib
+    and open3d blocked (None in sys.modules), as on the card's machine;
+    none of them loads scipy either, and have_open3d() says False."""
+    names = ["go_with_the_flows_tpu_torch." + n for n in VIZ_AND_AB_TOOLS]
+    code = (
+        "import importlib, sys\n"
+        "blocked = ('jax', 'flax', 'cv2', 'pandas', 'h5py', 'matplotlib',\n"
+        "           'open3d')\n"
+        "for m in blocked:\n"
+        "    sys.modules[m] = None\n"
+        "names = sys.argv[1:]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "from go_with_the_flows_tpu_torch.tools import (\n"
+        "    svr_quality_ab, train_convergence_ab)\n"
+        "from go_with_the_flows_tpu_torch.viz import open3d_utils\n"
+        "for tool in (svr_quality_ab, train_convergence_ab):\n"
+        "    try:\n"
+        "        tool.main(['--help'])\n"
+        "    except SystemExit:\n"
+        "        pass\n"
+        "assert not open3d_utils.have_open3d()\n"
+        "loaded = [m for m, v in sys.modules.items() if v is not None\n"
+        "          and m.split('.')[0] in blocked + %r + ('scipy',)]\n"
+        "assert not loaded, loaded\n"
+        "print(len(names))\n") % (FORBIDDEN,)
+    out = subprocess.run([sys.executable, "-c", code] + names, cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip().splitlines()[-1]) == len(VIZ_AND_AB_TOOLS)
+
+
 def test_chip_smoke_imports_no_jax():
     """Every import statement of chip_smoke.py, those inside its
     functions included, names no forbidden module, and importing all of
